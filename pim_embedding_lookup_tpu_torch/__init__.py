@@ -1,0 +1,42 @@
+"""PyTorch/CUDA port of the embedding-lookup engine for one NVIDIA H100.
+
+Importing the package builds nothing and imports no CUDA code: the kernels
+under ``csrc/`` are compiled at their first launch on a CUDA tensor.
+"""
+
+from .config import (
+    KAGGLE_TABLE_ROWS,
+    Combiner,
+    DLRMConfig,
+    LookupImpl,
+    MeshConfig,
+    QueryConfig,
+    ShardingPolicy,
+    TableConfig,
+    kaggle_config,
+    loadgen_config,
+    random_config,
+    toy_config,
+)
+from .convert import params_from_jax
+from .device import resolve_device
+from .entry import entry
+from .models import DLRM, bce_loss, interact_dot
+from .ops import embedding_bag_fixedl, embedding_bag_fixedl_reference
+from .parallel import (
+    EmbeddingCollection,
+    FusedLayout,
+    HybridEmbeddingCollection,
+    plan,
+    resolve_pack,
+)
+
+__all__ = [
+    "KAGGLE_TABLE_ROWS", "Combiner", "DLRMConfig", "LookupImpl", "MeshConfig",
+    "QueryConfig", "ShardingPolicy", "TableConfig", "kaggle_config",
+    "loadgen_config", "random_config", "toy_config", "params_from_jax",
+    "resolve_device", "entry", "DLRM", "bce_loss", "interact_dot",
+    "embedding_bag_fixedl", "embedding_bag_fixedl_reference",
+    "EmbeddingCollection", "FusedLayout", "HybridEmbeddingCollection", "plan",
+    "resolve_pack",
+]
