@@ -2,12 +2,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from source, holds each against its plain
-PyTorch version at the main path's shapes and times it beside that version,
-the PyTorch library call that computes the same function and the card's
-bound.  Then it serves the Criteo-Kaggle hybrid DLRM forward at full table
-rows (5 requests of 8192 samples), checks that the forward went through the
-kernels and agrees with the same forward pooled by the plain version, and
-holds the port on the card against the port on the CPU at toy sizes.
+PyTorch version at the shapes its path gives it and times it beside that
+version, the PyTorch library call that computes the same function and the
+card's bound.  Then it serves the Criteo-Kaggle hybrid DLRM forward at full
+table rows (5 requests of 8192 samples) over both wires: the dense padded
+wire (``DLRM.forward``, kernel K1) and the CSR wire (``lookup_csr`` then
+``apply_from_pooled``, kernel K2).  It checks that each path went through
+its kernels and agrees with the same path pooled by the plain version,
+runs the length-bucketed CSR dispatch on one request, drives the
+full-width CSR lookup (K3) and the differentiable CSR bag (K4, forward and
+backward) through their entry points, and holds the port on the card
+against the port on the CPU at toy sizes.
 
     python3 chip_smoke.py
 
@@ -32,18 +37,35 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from pim_embedding_lookup_tpu_torch import (
     DLRM,
     DLRMConfig,
+    EmbeddingCollection,
     ShardingPolicy,
     TableConfig,
     kaggle_config,
     toy_config,
 )
+from pim_embedding_lookup_tpu_torch import ops
 from pim_embedding_lookup_tpu_torch.ops import _build
+from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
+    embedding_bag_csr_grad,
+    embedding_bag_csr_grad_reference,
+    embedding_bag_csr_packed,
+    embedding_bag_csr_packed_reference,
+    embedding_bag_csr_sum,
+)
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
 )
+from pim_embedding_lookup_tpu_torch.ops.ragged import (
+    pack_length_buckets,
+    plan_length_buckets,
+)
 from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
-from pim_embedding_lookup_tpu_torch.parallel.hybrid import _mxu_pooled_lookup
+from pim_embedding_lookup_tpu_torch.parallel import lookup_csr_bucketed
+from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
+    _mxu_csr_lookup,
+    _mxu_pooled_lookup,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -55,6 +77,9 @@ REQUESTS = 5
 ID_SETS = 16  # distinct id sets cycled while timing: > 50 MB of rows, past L2
 TIMED_RUNS = 20
 CALLS_PER_RUN = 10
+# Kernel checks: f32 sums in another order; bf16 storage adds the same bf16
+# values in f32 on both sides, so the same tolerance holds.
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 DEV = torch.device("cuda")
 
 
@@ -126,6 +151,28 @@ def aten_ops(fn) -> int:
     return count.ops
 
 
+def serve(fn, requests):
+    """Host-clock ms of each request, each ending in a synchronize; the
+    outputs; and the cudaMalloc calls PyTorch's allocator made meanwhile."""
+    allocs = torch.cuda.memory_stats().get("num_device_alloc")
+    outs, times = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(fn(*req))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if allocs is not None:
+        allocs = torch.cuda.memory_stats()["num_device_alloc"] - allocs
+    return outs, times, allocs
+
+
+def bound(moved_bytes, ops_count):
+    """(bound ms, "bytes" | "operations") at the published peaks."""
+    bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_count / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def k1_case(name, storage, d, pooling, id_sets):
     """K1 against its plain version on set 0; kernel, plain and library
     times cycling through all sets; bound from set 0's data."""
@@ -136,9 +183,7 @@ def k1_case(name, storage, d, pooling, id_sets):
     want = embedding_bag_fixedl_reference(storage, d, ids, mask=mask, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    # f32: sums in another order; bf16 storage: both sides add the same
-    # bf16 values in f32, so the same tolerance holds relative to the sum
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, **KERNEL_TOL)
 
     weight = storage.view(-1, d)
     offsets = torch.arange(0, ids.numel(), pooling, dtype=torch.int32, device=DEV)
@@ -153,18 +198,16 @@ def k1_case(name, storage, d, pooling, id_sets):
         lib_sets)
 
     active = int(mask.sum().item())
-    moved = (active * d * storage.element_size()  # rows read
-             + ids.numel() * 5  # int32 id + 1-byte mask per entry
-             + bags * d * 4)  # f32 output
-    ops = active * d  # one add per loaded value
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = bound(
+        active * d * storage.element_size()  # rows read
+        + ids.numel() * 5  # int32 id + 1-byte mask per entry
+        + bags * d * 4,  # f32 output
+        active * d)  # one add per loaded value
     row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
                bags=bags, pooling=pooling, d=d, active_entries=active,
                max_abs_err=err, kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
-               plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
     print("K1 " + json.dumps(row), flush=True)
     return row
 
@@ -197,6 +240,164 @@ def request(config, gen, b, pooling=1, keep=1.0):
     return dense, idx, mask
 
 
+# -- the CSR wire ---------------------------------------------------------------
+
+
+def csr_ids(rows, gen, b, pooling):
+    """bench.py's ragged CSR mixture for tables of ``rows`` rows: per bag
+    10 % empty, 80 % of 1..pooling ids, 10 % of 2*pooling..4*pooling ids.
+    Capacity per table is the longest table's total rounded up to 8, and
+    entries past offsets[B] are padding (random valid ids, never read).
+    Returns local ids [T, C] and offsets [T, B+1], int32, on the card."""
+    t = len(rows)
+    r = torch.rand(t, b, generator=gen, device=DEV)
+    short = torch.randint(1, pooling + 1, (t, b), generator=gen, device=DEV)
+    long = torch.randint(2 * pooling, 4 * pooling + 1, (t, b), generator=gen, device=DEV)
+    lens = torch.where(r >= 0.9, long, torch.where(r >= 0.1, short, 0))
+    cap = -(-int(lens.sum(dim=1).max().item()) // 8) * 8
+    off = torch.zeros(t, b + 1, dtype=torch.int32, device=DEV)
+    off[:, 1:] = lens.cumsum(dim=1)
+    idx = torch.stack([torch.randint(0, n, (cap,), generator=gen, device=DEV,
+                                     dtype=torch.int32) for n in rows])
+    return idx, off
+
+
+def csr_request(config, gen, b, pooling=1):
+    dense = torch.rand(b, config.dense_dim, generator=gen, device=DEV)
+    return (dense, *csr_ids([t.num_rows for t in config.tables], gen, b, pooling))
+
+
+def serve_csr(model, dense, idx, off):
+    """The CSR serving path: pooled lookup over ragged bags, then the dense
+    half."""
+    pooled = model.collection.lookup_csr(model.emb_params(), idx, off)
+    return model.apply_from_pooled(dense, pooled)
+
+
+def compact(idx, off):
+    """All tables' valid entries back to back, and [T*B+1] offsets into
+    them: the input of one F.embedding_bag call over every table."""
+    t, b = off.shape[0], off.shape[1] - 1
+    ends = off[:, -1].tolist()
+    flat = torch.cat([idx[i, :ends[i]] for i in range(t)])
+    base = torch.tensor([0] + ends[:-1], device=DEV).cumsum(0)
+    flat_off = torch.cat([(off[:, :-1] + base[:, None]).reshape(-1),
+                          torch.tensor([sum(ends)], device=DEV)])
+    return flat.long(), flat_off.long()
+
+
+def csr_case(tag, name, storage, d, id_sets):
+    """K2/K3 against its plain version on set 0 (fused ids [T, C], offsets
+    [T, B+1]); kernel, plain and library times cycling through all sets;
+    bound from set 0's data: valid entries only, padding is not read."""
+    idx, off = id_sets[0]
+    t, b = off.shape[0], off.shape[1] - 1
+    got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=b)
+    want = embedding_bag_csr_packed_reference(storage, d, idx, off, batch_size=b)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **KERNEL_TOL)
+
+    weight = storage.view(-1, d)
+    lib_sets = [compact(i, o) for i, o in id_sets]  # before the timed region
+    kernel = lambda i, o: embedding_bag_csr_packed(storage, d, i, o, batch_size=b)  # noqa: E731
+    kernel_ms = device_ms(kernel, id_sets)
+    kernel_call_ms = call_ms(kernel, id_sets)
+    plain_ms = device_ms(lambda i, o: embedding_bag_csr_packed_reference(
+        storage, d, i, o, batch_size=b), id_sets)
+    library_ms = device_ms(lambda i, o: F.embedding_bag(
+        i, weight, o, mode="sum", include_last_offset=True), lib_sets)
+
+    active = int(off[:, -1].sum().item())
+    bound_ms, bound_by = bound(
+        active * (d * storage.element_size() + 4)  # rows and ids read
+        + t * (b + 1) * 4  # offsets
+        + t * b * d * 4,  # f32 output
+        active * d)
+    row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
+               tables=t, bags=b, capacity=idx.shape[1], d=d, active_entries=active,
+               max_abs_err=err, kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    print(f"{tag} " + json.dumps(row), flush=True)
+    return row
+
+
+def k4_phase(gen):
+    """K4 through ``ops.embedding_bag(impl="pallas")`` on the largest Kaggle
+    table: the path run (forward and backward, launches counted), then each
+    half against its plain version, timed beside F.embedding_bag."""
+    n, d = max(kaggle_config().tables, key=lambda t: t.num_rows).num_rows, 16
+    table = torch.empty(n, d, device=DEV).uniform_(-1, 1, generator=gen)
+    w = table.clone().requires_grad_(True)
+    sets = [tuple(x[0] for x in csr_ids([n], gen, BATCH, 1)) for _ in range(8 * ID_SETS)]
+    grads = [torch.randn(BATCH, d, generator=gen, device=DEV)]
+    idx, off = sets[0]
+    g = grads[0]
+
+    def facade(tab, i, o):
+        return ops.embedding_bag(tab, i, o, batch_size=BATCH, impl="pallas")
+
+    # the path: forward and backward through the facade, counts from 0
+    embedding_bag_csr_sum.launches = embedding_bag_csr_grad.launches = 0
+    out = facade(w, idx, off)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = (embedding_bag_csr_sum.launches, embedding_bag_csr_grad.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"K4 forward/backward launched {launches} times, not (1, 1)")
+
+    want = embedding_bag_csr_packed_reference(table, d, idx, off, batch_size=BATCH)
+    fwd_err = (out.detach() - want).abs().max().item()
+    torch.testing.assert_close(out.detach(), want, **KERNEL_TOL)
+    want_grad = embedding_bag_csr_grad_reference(g, idx, off, n)
+    bwd_err = (w.grad - want_grad).abs().max().item()
+    # f32 atomicAdd sums rows shared by several bags in a run-dependent order
+    torch.testing.assert_close(w.grad, want_grad, rtol=1e-5, atol=1e-5)
+    del out, want, want_grad
+    w.grad = None
+
+    # forward: kernel, plain, library
+    lib_sets = [compact(i[None], o[None]) for i, o in sets]
+    fwd = dict(
+        kernel_ms=device_ms(lambda i, o: facade(table, i, o), sets),
+        kernel_call_ms=call_ms(lambda i, o: facade(table, i, o), sets),
+        plain_ms=device_ms(lambda i, o: embedding_bag_csr_packed_reference(
+            table, d, i, o, batch_size=BATCH), sets),
+        library_ms=device_ms(lambda i, o: F.embedding_bag(
+            i, table, o, mode="sum", include_last_offset=True), lib_sets),
+    )
+    # backward alone: one graph per id set, each differentiated again and
+    # again; the library's graph is F.embedding_bag's, with a dense gradient
+    outs = [(facade(w, i, o),) for i, o in sets]
+    wl = table.clone().requires_grad_(True)
+    lib_outs = [(F.embedding_bag(i, wl, o, mode="sum", include_last_offset=True),)
+                for i, o in lib_sets]
+    bwd = dict(
+        kernel_ms=device_ms(lambda o: torch.autograd.grad(o, w, g, retain_graph=True),
+                            outs),
+        kernel_call_ms=call_ms(lambda o: torch.autograd.grad(o, w, g, retain_graph=True),
+                               outs),
+        plain_ms=device_ms(lambda i, o: embedding_bag_csr_grad_reference(g, i, o, n),
+                           sets),
+        library_ms=device_ms(lambda o: torch.autograd.grad(o, wl, g, retain_graph=True),
+                             lib_outs),
+    )
+    active = int(off[-1].item())
+    fwd.update(zip(("bound_ms", "bound_by"), bound(
+        active * (d * 4 + 4) + (BATCH + 1) * 4 + BATCH * d * 4, active * d)))
+    bwd.update(zip(("bound_ms", "bound_by"), bound(
+        BATCH * d * 4 + active * 4 + (BATCH + 1) * 4  # g, ids, offsets read
+        + n * d * 4,  # the dense f32 gradient, written once
+        active * d)))
+    fwd["max_abs_err"], bwd["max_abs_err"] = fwd_err, bwd_err
+    for half, row in (("forward", fwd), ("backward", bwd)):
+        print(f"K4 {half} " + json.dumps(dict(
+            case=f"largest Kaggle table {n} x {d} f32, B={BATCH}, pooling-1 mixture",
+            active_entries=active, **row)), flush=True)
+    return fwd, bwd, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -204,6 +405,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # -- 1. card -------------------------------------------------------------
     card = subprocess.run(
@@ -214,13 +416,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build: every csrc/*.cu, one nvcc each, all started together --------
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: compiled {built or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # -- 3. K1 against its plain version at the main path's shapes ------------
+    # -- 3. K1 against its plain version at the dense path's shapes -------------
     config = kaggle_config()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -239,7 +441,6 @@ def main() -> int:
                        model.emb_big, 16, 1, main_sets)
     big_bf16 = model.emb_big.to(torch.bfloat16)
     k1_case("main path, bf16 storage", big_bf16, 16, 1, main_sets)
-    del big_bf16
     multi_sets = [kaggle_ids(big, gen, 2048, 8, 0.7) for _ in range(ID_SETS)]
     k1_case("multi-hot (10 tables x B=2048, L=8, mask 0.7)", model.emb_big, 16, 8,
             multi_sets)
@@ -253,27 +454,22 @@ def main() -> int:
     k1_case("d=128 (1M rows, B=8192, L=4, mask 0.7)", wide, 128, 4, wide_sets)
     del wide, wide_sets, multi_sets, main_sets
 
-    # -- 4. the main path: hybrid DLRM forward at full Kaggle rows ------------
+    # -- 4. the dense path: hybrid DLRM forward at full Kaggle rows -------------
     requests = [request(config, gen, BATCH) for _ in range(REQUESTS + 1)]
     with torch.no_grad():
         model(*requests[-1])  # warm-up (cuBLAS handles, allocator)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         embedding_bag_fixedl.launches = 0
-        logits, times = [], []
-        for req in requests[:REQUESTS]:
-            t0 = time.perf_counter()
-            out = model(*req)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            logits.append(out)
-        launches = embedding_bag_fixedl.launches
+        logits, times, allocs = serve(model, requests[:REQUESTS])
+        k1_launches = embedding_bag_fixedl.launches
+        _, again, allocs_again = serve(model, requests[:REQUESTS])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for out in logits:
         if out.shape != (BATCH,) or not torch.isfinite(out).all():
             raise AssertionError(f"bad logits: shape {tuple(out.shape)}")
-    if launches != REQUESTS:
-        raise AssertionError(f"K1 launched {launches} times for {REQUESTS} requests")
+    if k1_launches != REQUESTS:
+        raise AssertionError(f"K1 launched {k1_launches} times for {REQUESTS} requests")
     with torch.no_grad(), mock.patch.object(
         collection_mod, "embedding_bag_fixedl", embedding_bag_fixedl_reference
     ):
@@ -282,9 +478,11 @@ def main() -> int:
     med = statistics.median(times)
     print(f"main path: {REQUESTS} requests of B={BATCH}: ms/request "
           f"{[round(t, 4) for t in times]}, median {med:.4f} ms, "
-          f"{BATCH / med * 1e3:.0f} samples/s, K1 launches {launches}, "
-          f"peak memory {peak_gb:.3f} GB; logits finite and equal to the "
-          "plain-pooled forward (atol 1e-4)", flush=True)
+          f"{BATCH / med * 1e3:.0f} samples/s, K1 launches {k1_launches}, "
+          f"peak memory {peak_gb:.3f} GB, cudaMalloc calls {allocs}; logits "
+          "finite and equal to the plain-pooled forward (atol 1e-4); the same "
+          f"requests again: ms/request {[round(t, 4) for t in again]}, "
+          f"cudaMalloc calls {allocs_again}", flush=True)
 
     # stage times, inputs on the card: device time (CUDA events, launch cost
     # hidden) and host-clock time per call
@@ -306,15 +504,143 @@ def main() -> int:
         stages = {name: {"device_ms": device_ms(fn, [()], calls=3),
                          "call_ms": call_ms(fn, [()], calls=3)}
                   for name, fn in fns.items()}
-        ops = {name: aten_ops(fn) for name, fn in fns.items()}
+        ops_count = {name: aten_ops(fn) for name, fn in fns.items()}
     print("stages (median ms): " + json.dumps(stages), flush=True)
-    print("stages (ATen operations per call): " + json.dumps(ops), flush=True)
+    print("stages (ATen operations per call): " + json.dumps(ops_count), flush=True)
     fwd = stages["forward"]
     print(f"forward: device busy {fwd['device_ms']:.4f} ms of {fwd['call_ms']:.4f} ms "
           f"per call, idle share {1 - fwd['device_ms'] / fwd['call_ms']:.3f}", flush=True)
-    del model, requests, logits, pooled
+    del requests, logits, pooled
 
-    # -- 5. port on the card against the port on the CPU ----------------------
+    # -- 5. K2 against its plain version at the CSR path's shapes ----------------
+    big_rows = big.layout.table_rows
+
+    def fused_csr(b, pooling):
+        local, off = csr_ids(big_rows, gen, b, pooling)
+        return big.globalize(local).contiguous(), off
+
+    csr_sets = [fused_csr(BATCH, 1) for _ in range(ID_SETS)]
+    k2_f32 = csr_case("K2", "CSR path (10 tables x B=8192, pooling-1 mixture, packed)",
+                      model.emb_big, 16, csr_sets)
+    csr_case("K2", "CSR path, bf16 storage", big_bf16, 16, csr_sets)
+    del big_bf16
+    csr_case("K2", "multi-hot (10 tables x B=2048, pooling-8 mixture)", model.emb_big,
+             16, [fused_csr(2048, 8) for _ in range(ID_SETS)])
+    del csr_sets
+
+    # -- 6. the CSR path: lookup_csr + apply_from_pooled at full Kaggle rows ----
+    requests = [csr_request(config, gen, BATCH) for _ in range(REQUESTS + 1)]
+    with torch.no_grad():
+        serve_csr(model, *requests[-1])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        embedding_bag_csr_packed.launches = 0
+        logits, times, allocs = serve(lambda *r: serve_csr(model, *r),
+                                      requests[:REQUESTS])
+        k2_launches = embedding_bag_csr_packed.launches
+        _, again, allocs_again = serve(lambda *r: serve_csr(model, *r),
+                                       requests[:REQUESTS])
+    csr_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for out in logits:
+        if out.shape != (BATCH,) or not torch.isfinite(out).all():
+            raise AssertionError(f"bad CSR logits: shape {tuple(out.shape)}")
+    if k2_launches != REQUESTS:
+        raise AssertionError(f"K2 launched {k2_launches} times for {REQUESTS} requests")
+    with torch.no_grad(), mock.patch.object(
+        collection_mod, "embedding_bag_csr_packed", embedding_bag_csr_packed_reference
+    ):
+        for req, out in zip(requests, logits):
+            torch.testing.assert_close(out, serve_csr(model, *req), rtol=0, atol=1e-4)
+    med = statistics.median(times)
+    entries = [int(r[2][:, -1].sum().item()) for r in requests[:REQUESTS]]
+    print(f"CSR path: {REQUESTS} requests of B={BATCH} (pooling-1 mixture, "
+          f"{entries} valid entries over 26 tables): ms/request "
+          f"{[round(t, 4) for t in times]}, median {med:.4f} ms, "
+          f"{BATCH / med * 1e3:.0f} samples/s, K2 launches {k2_launches}, "
+          f"peak memory {csr_peak_gb:.3f} GB, cudaMalloc calls {allocs}; logits "
+          "finite and equal to the plain-pooled path (atol 1e-4); the same "
+          f"requests again: ms/request {[round(t, 4) for t in again]}, "
+          f"cudaMalloc calls {allocs_again}", flush=True)
+    # the same requests padded to one capacity (copies of a valid id after
+    # offsets[B]), so that every request has the same shapes
+    cap = -(-max(r[1].shape[1] for r in requests) // 1024) * 1024
+    fixed = [(dn, torch.cat([ix, ix[:, :1].expand(-1, cap - ix.shape[1])], dim=1), of)
+             for dn, ix, of in requests[:REQUESTS]]
+    with torch.no_grad():
+        fixed_logits, fixed_times, _ = serve(lambda *r: serve_csr(model, *r), fixed)
+        _, fixed_again, _ = serve(lambda *r: serve_csr(model, *r), fixed)
+    for out, want in zip(fixed_logits, logits):
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+    print(f"CSR path, the same requests padded to capacity {cap}: ms/request "
+          f"{[round(t, 4) for t in fixed_times]}, again "
+          f"{[round(t, 4) for t in fixed_again]}; logits equal (atol 1e-4)", flush=True)
+    del fixed, fixed_logits
+
+    dense, idx, off = requests[0]
+    with torch.no_grad():
+        pooled = coll.lookup_csr(emb, idx, off)
+        fns = {
+            "small_set_onehot_bmm": lambda: _mxu_csr_lookup(
+                emb["small"], coll.buckets, idx[sel_s], off[sel_s]),
+            "big_set_lookup_csr": lambda: coll.big.lookup_csr(
+                emb["big"], idx[sel_b], off[sel_b]),
+            "dense_half": lambda: model.apply_from_pooled(dense, pooled),
+            "whole": lambda: serve_csr(model, dense, idx, off),
+        }
+        csr_stages = {name: {"device_ms": device_ms(fn, [()], calls=3),
+                             "call_ms": call_ms(fn, [()], calls=3)}
+                      for name, fn in fns.items()}
+        ops_count = {name: aten_ops(fn) for name, fn in fns.items()}
+    print("CSR stages (median ms): " + json.dumps(csr_stages), flush=True)
+    print("CSR stages (ATen operations per call): " + json.dumps(ops_count), flush=True)
+    whole = csr_stages["whole"]
+    print(f"CSR path: device busy {whole['device_ms']:.4f} ms of "
+          f"{whole['call_ms']:.4f} ms per call, idle share "
+          f"{1 - whole['device_ms'] / whole['call_ms']:.3f}", flush=True)
+
+    # -- 7. length-bucketed CSR on one request, against lookup_csr --------------
+    off_np, idx_np = off.cpu().numpy(), idx.cpu().numpy()
+    plan = plan_length_buckets(off_np, bucket_ls=(1, 2), slack=1.0)
+    packed = pack_length_buckets(idx_np, off_np, plan)
+    embedding_bag_fixedl.launches = embedding_bag_csr_packed.launches = 0
+    with torch.no_grad():
+        got = lookup_csr_bucketed(coll, emb, packed)
+    torch.cuda.synchronize()
+    launched = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches)
+    err = (got - pooled).abs().max().item()
+    torch.testing.assert_close(got, pooled, rtol=1e-5, atol=1e-5)
+    print(f"bucketed CSR: plan buckets {plan.bucket_ls} capacities {plan.capacities} "
+          f"tail {plan.tail_bags} bags / {plan.tail_entries} entries; K1, K2 "
+          f"launches {launched}; max abs err vs lookup_csr {err:.3g} (tol 1e-5)",
+          flush=True)
+    del model, coll, emb, big, fns, requests, logits, pooled, got
+
+    # -- 8. K3: the CSR walk over full-width rows, through lookup_csr -----------
+    wide_coll = EmbeddingCollection.create(
+        [TableConfig(num_rows=1_000_000, dim=128, name="wide")],
+        ShardingPolicy.REPLICATE, device=DEV)
+    wide = wide_coll.init(gen)
+    wide_rows = wide_coll.layout.table_rows
+    embedding_bag_csr_packed.launches = 0
+    with torch.no_grad():
+        for _ in range(REQUESTS):
+            pooled = wide_coll.lookup_csr(wide, *csr_ids(wide_rows, gen, BATCH, 4))
+            if not torch.isfinite(pooled).all():
+                raise AssertionError("non-finite full-width CSR lookup")
+    torch.cuda.synchronize()
+    k3_launches = embedding_bag_csr_packed.launches
+    if k3_launches != REQUESTS:
+        raise AssertionError(f"K3 launched {k3_launches} times for {REQUESTS} lookups")
+    print(f"full-width CSR lookup: {REQUESTS} lookup_csr calls on 1M x 128 f32, "
+          f"B={BATCH}, pooling-4 mixture: K3 launches {k3_launches}", flush=True)
+    k3 = csr_case("K3", "d=128 (1M rows, B=8192, pooling-4 mixture)", wide, 128,
+                  [csr_ids(wide_rows, gen, BATCH, 4) for _ in range(ID_SETS)])
+    del wide, pooled
+
+    # -- 9. K4: the differentiable CSR bag, forward and backward ----------------
+    k4_fwd, k4_bwd, k4_launches = k4_phase(gen)
+
+    # -- 10. port on the card against the port on the CPU -----------------------
     mixed = DLRMConfig(
         dense_dim=13, mlp_bot=(64, 16), mlp_top=(32, 1),
         tables=tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
@@ -326,29 +652,43 @@ def main() -> int:
                    generator=torch.Generator().manual_seed(SEED))
         gpu = DLRM(cfg, hybrid=hybrid, device=DEV, generator=gen)
         gpu.load_state_dict(cpu.state_dict())
-        req = request(cfg, gen, 64, pooling, 0.7)
-        with torch.no_grad():
-            on_card = gpu(*req)
-            on_cpu = cpu(*(t.cpu() for t in req))
-        err = (on_card.cpu() - on_cpu).abs().max().item()
-        torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-4)
-        print(f"card vs CPU, {name} DLRM (B=64, L={pooling}): logits max abs "
-              f"err {err:.3g} (tol 1e-4)", flush=True)
+        for wire, req in (("dense", request(cfg, gen, 64, pooling, 0.7)),
+                          ("CSR", csr_request(cfg, gen, 64, pooling))):
+            forward = gpu if wire == "dense" else (lambda *r, m=gpu: serve_csr(m, *r))
+            forward_cpu = cpu if wire == "dense" else (lambda *r: serve_csr(cpu, *r))
+            with torch.no_grad():
+                on_card = forward(*req)
+                on_cpu = forward_cpu(*(t.cpu() for t in req))
+            err = (on_card.cpu() - on_cpu).abs().max().item()
+            torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-4)
+            print(f"card vs CPU, {name} DLRM, {wire} wire (B=64, pooling {pooling}): "
+                  f"logits max abs err {err:.3g} (tol 1e-4)", flush=True)
 
-    print("kernels: K1", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "K1 embedding_bag_fixedl (fixed-L gather+pool)",
-        "route": "cuda",
-        "source": "pim_embedding_lookup_tpu_torch/csrc/gather_pool.cu",
-        "replaces": "pim_embedding_lookup_tpu/ops/pallas_lookup.py:272",
-        "launches": launches,
-        "max_abs_err": main_f32["max_abs_err"],
-        "ms": main_f32["kernel_ms"],
-        "plain_ms": main_f32["plain_ms"],
-        "bound_ms": main_f32["bound_ms"],
-        "bound_by": main_f32["bound_by"],
-        "library_ms": main_f32["library_ms"],
-    }]}), flush=True)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
+          "(build included)", flush=True)
+    src = "pim_embedding_lookup_tpu_torch/csrc/"
+    pallas = "pim_embedding_lookup_tpu/ops/pallas_lookup.py:"
+
+    def entry(name, source, replaces, launches, row):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": pallas + replaces, "launches": launches,
+                "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    print("kernels: K1, K2, K3, K4 forward, K4 backward", flush=True)
+    print(json.dumps({"kernels": [
+        entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu",
+              "272", k1_launches, main_f32),
+        entry("K2 embedding_bag_csr_packed (CSR gather+pool, d=16 packed)",
+              "csr_pool.cu", "92", k2_launches, k2_f32),
+        entry("K3 embedding_bag_csr_packed (CSR gather+pool, d=128 rows)",
+              "csr_pool.cu", "48", k3_launches, k3),
+        entry("K4 forward embedding_bag_csr_sum (differentiable CSR bag)",
+              "csr_pool.cu", "204", k4_launches[0], k4_fwd),
+        entry("K4 backward embedding_bag_csr_grad (CSR bag gradient)",
+              "csr_pool.cu", "230", k4_launches[1], k4_bwd),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -38,7 +38,9 @@ _SIGNATURES = {
 }
 
 
-def _check(storage, d, indices, pooling, batch_size, mask):
+def _check_storage(storage, d):
+    """Fused storage the kernels read: contiguous [S, 128] lane-packed or
+    [N, d], f32 or bf16, with d-wide rows of at most _MAX_DIM lanes."""
     if storage.dim() != 2 or not storage.is_contiguous():
         raise ValueError(f"storage must be a contiguous 2-D tensor, got {tuple(storage.shape)}")
     if d < 1 or d > _MAX_DIM:
@@ -48,6 +50,10 @@ def _check(storage, d, indices, pooling, batch_size, mask):
         raise ValueError(f"storage width {width} must be d={d}, or 128 with d | 128")
     if storage.dtype not in _STORAGE_DTYPES:
         raise TypeError(f"storage dtype {storage.dtype} not in {list(_STORAGE_DTYPES)}")
+
+
+def _check(storage, d, indices, pooling, batch_size, mask):
+    _check_storage(storage, d)
     if indices.dtype != torch.int32 or indices.dim() != 1 or not indices.is_contiguous():
         raise TypeError("indices must be a contiguous 1-D int32 tensor")
     if pooling < 1 or batch_size < 0:

@@ -2,11 +2,12 @@
 their pooled lookup.
 
 The counterpart of ``pim_embedding_lookup_tpu.parallel.collection`` on one
-device.  Queries use the dense padded form: indices and mask of shape
-[T, B*L] (B*L entries per table, bag-major), and lookups return [B, T, D]
-in f32 whatever the storage dtype.  On a CUDA tensor SUM and MEAN go
-through the gather+pool kernel (K1); MAX is plain PyTorch, as it is XLA
-work in the JAX package.
+device.  Queries come in two forms: ``lookup`` takes the dense padded form,
+indices and mask of shape [T, B*L] (B*L entries per table, bag-major), and
+``lookup_csr`` the ragged CSR form, indices [T, C] and offsets [T, B+1].
+Both return [B, T, D] in f32 whatever the storage dtype.  On a CUDA tensor
+SUM and MEAN go through a gather+pool kernel (K1 for the dense form, K2 for
+CSR); MAX is plain PyTorch, as it is XLA work in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 
 from ..config import ShardingPolicy, TableConfig
 from ..device import resolve_device
+from ..ops.csr_pool import embedding_bag_csr_packed
 from ..ops.gather_pool import embedding_bag_fixedl
+from ..ops.ragged import segment_ids_from_offsets
 from .planner import FusedLayout, plan
 
 _NEG_INF = -3.0e38  # max-combiner identity
@@ -154,6 +157,75 @@ class EmbeddingCollection:
         if combiner == "sum":
             return pooled
         return _finish_combiner("mean", pooling, pooled, mask)
+
+    def lookup_csr(
+        self,
+        fused_table: torch.Tensor,
+        indices: torch.Tensor,  # [T, C] local ids, padded
+        offsets: torch.Tensor,  # [T, B+1] bag offsets
+        *,
+        combiner: str = "sum",  # "sum" | "mean" | "max"
+        data_sharded: bool = False,
+        routed: bool = False,
+        capacity_factor: float | None = None,
+        return_stats: bool = False,
+    ) -> torch.Tensor:  # [B, T, D] f32
+        """Pooled lookup over ragged (CSR) bags, the reference's wire
+        (emb_host.h:234).  Table t's bag b owns entries
+        [offsets[t, b], offsets[t, b+1]) of indices[t]; entries past
+        offsets[t, B] are padding.  Empty bags pool to 0 for every combiner.
+
+        ``data_sharded`` is the same as False on one device (one data
+        shard).  ``routed`` (the all-to-all path) and ``capacity_factor``
+        belong to multi-device lookups, not ported yet."""
+        del capacity_factor  # only the routed path reads it
+        if routed:
+            raise NotImplementedError(
+                "routed lookup_csr needs the multi-device port (ROADMAP.md)")
+        if return_stats:
+            raise ValueError("return_stats requires routed=True (the "
+                             "broadcast CSR path cannot drop entries)")
+        if self.layout.policy != ShardingPolicy.REPLICATE:
+            raise NotImplementedError(
+                f"lookup_csr for policy {self.layout.policy.value}: only "
+                "REPLICATE is ported (the other policies are listed in ROADMAP.md)"
+            )
+        del data_sharded  # one data shard: per-shard CSR is plain CSR
+        t, c = indices.shape
+        b = offsets.shape[1] - 1
+        g_idx = self.globalize(indices.to(torch.int32)).contiguous()
+        offsets = offsets.to(torch.int32).contiguous()
+        if combiner == "max":
+            return _csr_max_pool(fused_table, self.layout.dim, g_idx, offsets)
+        if combiner not in ("sum", "mean"):
+            raise ValueError(f"unknown combiner {combiner!r}")
+        out = embedding_bag_csr_packed(
+            fused_table, self.layout.dim, g_idx, offsets, batch_size=b)
+        pooled = out.reshape(t, b, -1).transpose(0, 1)
+        if combiner == "sum":
+            return pooled
+        return pooled / _csr_counts(offsets).clamp(min=1)
+
+
+def _csr_counts(offsets):
+    """Bag sizes [B, T, 1] from [T, B+1] offsets."""
+    return (offsets[:, 1:] - offsets[:, :-1]).transpose(0, 1)[..., None]
+
+
+def _csr_max_pool(fused_table, dim, g_idx, offsets):
+    """Per-bag MAX over CSR bags: [B, T, D] f32, empty bags 0."""
+    t, c = g_idx.shape
+    b = offsets.shape[1] - 1
+    seg = segment_ids_from_offsets(offsets, c).long()  # [T, C]
+    valid = seg < b
+    rows = fused_table.reshape(-1, dim)[torch.where(valid, g_idx, 0).long()].float()
+    rows = torch.where(valid[..., None], rows, _NEG_INF).reshape(-1, dim)
+    fseg = torch.arange(t, device=seg.device)[:, None] * (b + 1) + seg
+    pooled = torch.full((t * (b + 1), dim), _NEG_INF, dtype=torch.float32,
+                        device=rows.device)
+    pooled.scatter_reduce_(0, fseg.reshape(-1, 1).expand(-1, dim), rows, "amax")
+    pooled = pooled.reshape(t, b + 1, dim)[:, :b].transpose(0, 1)
+    return torch.where(_csr_counts(offsets) > 0, pooled, 0.0)
 
 
 def _finish_combiner(combiner, pooling, pooled, mask):

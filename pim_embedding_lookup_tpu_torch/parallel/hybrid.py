@@ -21,7 +21,8 @@ import torch
 
 from ..config import ShardingPolicy, TableConfig
 from ..device import resolve_device
-from .collection import _NEG_INF, EmbeddingCollection, _finish_combiner
+from ..ops.ragged import segment_ids_from_offsets
+from .collection import _NEG_INF, EmbeddingCollection, _csr_counts, _finish_combiner
 from .planner import FusedLayout
 
 # The JAX package's split between the two sets, kept so that layouts match.
@@ -177,6 +178,45 @@ class HybridEmbeddingCollection:
         pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         return pooled[:, self._index["perm"]]
 
+    def lookup_csr(
+        self,
+        params: dict,
+        indices: torch.Tensor,  # [T, C]
+        offsets: torch.Tensor,  # [T, B+1]
+        *,
+        combiner: str = "sum",
+        data_sharded: bool = False,
+        routed: bool = False,
+        capacity_factor: float | None = None,
+        return_stats: bool = False,
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:  # [B, T, D] f32
+        """Pooled lookup over ragged (CSR) bags in the caller's table order,
+        with EmbeddingCollection.lookup_csr's contract: the small set pools
+        its bucketed one-hot rows by a segment reduce, the big set runs the
+        CSR kernel (K2).  ``return_stats`` adds the big set's count of
+        dropped entries, which is 0 off the routed path."""
+        if routed:
+            raise NotImplementedError(
+                "routed lookup_csr needs the multi-device port (ROADMAP.md)")
+        parts = []
+        if self.small is not None:
+            sel = self._index["small_ids"]
+            parts.append(_mxu_csr_lookup(
+                params["small"], self.buckets, indices[sel], offsets[sel],
+                combiner=combiner,
+            ))
+        if self.big is not None:
+            sel = self._index["big_ids"]
+            parts.append(self.big.lookup_csr(
+                params["big"], indices[sel], offsets[sel], combiner=combiner,
+                data_sharded=data_sharded, capacity_factor=capacity_factor,
+            ))
+        pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        out = pooled[:, self._index["perm"]]
+        if return_stats:
+            return out, torch.zeros((), dtype=torch.int32, device=out.device)
+        return out
+
 
 # -- bucketed one-hot products -------------------------------------------------
 
@@ -222,3 +262,37 @@ def _mxu_pooled_lookup(fused, buckets, indices, mask, *, batch_size,
     if combiner == "sum":
         return pooled
     return _finish_combiner(combiner, pooling, pooled, mask)
+
+
+def _mxu_csr_lookup(fused, buckets, indices, offsets, *, combiner="sum"):
+    """CSR form of the small set: each bucket's per-entry one-hot rows, then
+    a segment reduce over the fused bag ids g*(B+1) + min(seg, B) (bag B
+    takes the padding and is dropped).  Returns [B, Ts, D] f32."""
+    t, c = indices.shape
+    b = offsets.shape[1] - 1
+    seg = segment_ids_from_offsets(offsets, c).long()  # [Ts, C]
+    valid = seg < b
+    outs = []
+    for bucket in buckets:
+        _, _, lo, hi = bucket
+        g = hi - lo
+        rows, mk = _bucket_entry_rows(fused, bucket, indices, valid)
+        d = rows.shape[-1]
+        base = torch.arange(g, device=seg.device)[:, None] * (b + 1)
+        fseg = (base + seg[lo:hi]).reshape(-1)
+        flat = rows.reshape(g * c, d)
+        if combiner == "max":
+            flat = torch.where(mk.reshape(-1, 1), flat, _NEG_INF)
+            pooled = torch.full((g * (b + 1), d), _NEG_INF, device=flat.device)
+            pooled.scatter_reduce_(0, fseg[:, None].expand(-1, d), flat, "amax")
+        else:
+            pooled = torch.zeros(g * (b + 1), d, device=flat.device)
+            pooled.index_add_(0, fseg, flat)
+        outs.append(pooled.reshape(g, b + 1, d)[:, :b])
+    pooled = torch.cat(outs, dim=0).transpose(0, 1)  # [B, Ts, D]
+    if combiner == "sum":
+        return pooled
+    counts = _csr_counts(offsets)
+    if combiner == "mean":
+        return pooled / counts.clamp(min=1)
+    return torch.where(counts > 0, pooled, 0.0)
