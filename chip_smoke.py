@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from source, holds each against its plain
-PyTorch version at the shapes its path gives it and times it beside that
-version, the PyTorch library call that computes the same function and the
-card's bound.  Then it serves the Criteo-Kaggle hybrid DLRM forward at full
-table rows (5 requests of 8192 samples) over both wires: the dense padded
-wire (``DLRM.forward``, kernel K1) and the CSR wire (``lookup_csr`` then
-``apply_from_pooled``, kernel K2).  It checks that each path went through
+Builds the port's CUDA kernels from source (printing ptxas's registers and
+spills), holds the warp-tile pool kernels (K1, and K2 for K3 and K4's
+forward) against their plain versions on every code path at toy sizes, then
+holds each kernel against its plain PyTorch version at the shapes its path
+gives it and times it beside that version, the PyTorch library call that
+computes the same function and the card's bound.  Then it serves the
+Criteo-Kaggle hybrid DLRM forward at full table rows (5 requests of 8192
+samples) over both wires: the dense padded wire (``DLRM.forward``, kernel
+K1) and the CSR wire (``lookup_csr`` then ``apply_from_pooled``, kernel
+K2).  It checks that each path went through
 its kernels and agrees with the same path pooled by the plain version,
 runs the length-bucketed CSR dispatch on one request, drives the
 full-width CSR lookup (K3) and the differentiable CSR bag (K4, forward and
@@ -23,6 +26,7 @@ of per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -55,6 +59,8 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
+    row_path,
+    walks_by_group,
 )
 from pim_embedding_lookup_tpu_torch.ops.ragged import (
     pack_length_buckets,
@@ -240,6 +246,94 @@ def request(config, gen, b, pooling=1, keep=1.0):
     return dense, idx, mask
 
 
+# -- kernel edge cases ------------------------------------------------------------
+
+EDGE_ROWS = 128  # rows of each toy table: a multiple of every pack 128 / d
+EDGE_BAGS = 37  # not a multiple of any warp tile (32 / group bags)
+NEVER_READ = 1 << 30  # id of padding and masked entries: a read would fault
+
+
+def edge_storage(gen, d, dtype, layout):
+    """[EDGE_ROWS, d] rows as "packed" [S, 128], "unpacked" [N, d], or
+    "unaligned": an [N, d] view one element into its buffer (scalar path)."""
+    rows = torch.randn(EDGE_ROWS, d, generator=gen, device=DEV).to(dtype)
+    if layout == "packed":
+        return rows.reshape(-1, 128)
+    if layout == "unaligned":
+        buf = torch.empty(EDGE_ROWS * d + 1, dtype=dtype, device=DEV)
+        buf[1:] = rows.reshape(-1)
+        return buf[1:].view(EDGE_ROWS, d)
+    return rows
+
+
+def edge_csr(gen, tables, max_len, empty):
+    """[T, C] ids and [T, B+1] offsets: a fifth of the bags empty (all of
+    them if ``empty``), the rest 1..max_len ids, so each table ends at its
+    own offsets[B]; padding up to C holds NEVER_READ."""
+    lens = torch.randint(1, max_len + 1, (tables, EDGE_BAGS), generator=gen, device=DEV)
+    keep = torch.rand(tables, EDGE_BAGS, generator=gen, device=DEV) >= 0.2
+    lens = torch.where(keep, lens, 0) * (not empty)
+    off = torch.zeros(tables, EDGE_BAGS + 1, dtype=torch.int32, device=DEV)
+    off[:, 1:] = lens.cumsum(dim=1)
+    cap = int(off[:, -1].max().item()) + 8
+    idx = torch.randint(0, EDGE_ROWS, (tables, cap), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    idx[torch.arange(cap, device=DEV)[None, :] >= off[:, -1:]] = NEVER_READ
+    return idx, off
+
+
+def edge_phase(gen):
+    """Both redesigned kernels against their plain versions on every code
+    path at toy sizes (f32 and bf16; d in 1, 4, 16, 20, 128, 256; packed,
+    unpacked and unaligned storage, so vector and scalar row loads; bags
+    longer than the unroll, all-empty bags, T = 1, 2 and 10, and bags long
+    enough for the by-group walk; K1 at L = 1, 3, 8, 9 with no mask, a
+    random mask and an all-false mask), and repeated launches bitwise equal.
+    Padding and masked entries hold ids that fault if read.  Returns the
+    number of cases."""
+    cases, paths = 0, set()
+    for dtype, d in itertools.product((torch.float32, torch.bfloat16),
+                                      (1, 4, 16, 20, 128, 256)):
+        layouts = ["unpacked", "unaligned"] + (["packed"] if d < 128 and 128 % d == 0 else [])
+        for layout in layouts:
+            storage = edge_storage(gen, d, dtype, layout)
+            vector, group = row_path(storage, d)
+            for tables, max_len, empty in ((1, 40, False), (10, 6, False), (3, 3, True),
+                                           (2, 100, False)):
+                idx, off = edge_csr(gen, tables, max_len, empty)
+                got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=EDGE_BAGS)
+                again = embedding_bag_csr_packed(storage, d, idx, off, batch_size=EDGE_BAGS)
+                want = embedding_bag_csr_packed_reference(
+                    storage, d, torch.where(idx == NEVER_READ, 0, idx), off,
+                    batch_size=EDGE_BAGS)
+                torch.testing.assert_close(got, want, **KERNEL_TOL)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K2 not deterministic: {dtype} d={d} {layout}")
+                cases += 1
+                paths.add(("K2", vector, walks_by_group(group, idx.shape[1], EDGE_BAGS)))
+            for pooling, masking in itertools.product((1, 3, 8, 9), ("none", "random", "false")):
+                n = EDGE_BAGS * pooling
+                ids = torch.randint(0, EDGE_ROWS, (n,), generator=gen, device=DEV,
+                                    dtype=torch.int32)
+                mask = {"none": None,
+                        "random": torch.rand(n, generator=gen, device=DEV) < 0.6,
+                        "false": torch.zeros(n, dtype=torch.bool, device=DEV)}[masking]
+                read = ids if mask is None else torch.where(mask, ids, NEVER_READ)
+                kw = dict(pooling=pooling, batch_size=EDGE_BAGS, mask=mask)
+                got = embedding_bag_fixedl(storage, d, read, **kw)
+                again = embedding_bag_fixedl(storage, d, read, **kw)
+                want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
+                torch.testing.assert_close(got, want, **KERNEL_TOL)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K1 not deterministic: {dtype} d={d} {layout}")
+                cases += 1
+                paths.add(("K1", vector, walks_by_group(group, n, EDGE_BAGS)))
+    torch.cuda.synchronize()
+    if len(paths) != 8:  # K1, K2 x vector, scalar x window, by group
+        raise AssertionError(f"edge cases reached only the paths {sorted(paths)}")
+    return cases
+
+
 # -- the CSR wire ---------------------------------------------------------------
 
 
@@ -421,6 +515,19 @@ def main() -> int:
     built = _build.build()
     print(f"build: compiled {built or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in _build.logs.items():  # ptxas: registers and spills
+        for line in log.splitlines():
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+
+    # -- 2b. kernel edge cases: K1 and K2 on every code path, toy sizes ---------
+    t0 = time.perf_counter()
+    edge_cases = edge_phase(torch.Generator(device=DEV).manual_seed(SEED))
+    print(f"kernel edge cases: {edge_cases} cases of K1 and K2 on the vector and "
+          "scalar paths, by window and by group, equal to their plain versions "
+          "(1e-5 abs + 1e-5 rel), "
+          f"repeated launches bitwise equal, in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     # -- 3. K1 against its plain version at the dense path's shapes -------------
     config = kaggle_config()

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface under ``build/`` and loaded with
 ctypes.  Nothing here runs at import: a wrapper calls :func:`load` at its
 first launch on a CUDA tensor, and a library is rebuilt only when its
-source (or the flags) change.  A missing ``nvcc`` raises; there is no
-fallback.
+source, a shared header (``csrc/*.cuh``) or the flags change.  A missing
+``nvcc`` raises; there is no fallback.  ``ptxas`` reports each kernel's
+registers and spills; :data:`logs` keeps nvcc's output of this process's
+builds.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -45,8 +48,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a digest of its source,
+    every shared header and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -78,6 +85,7 @@ def build(names=None) -> list[str]:
     failures = []
     for name, (proc, tmp, target) in pending.items():
         log, _ = proc.communicate()
+        logs[name] = log
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")

@@ -10,11 +10,16 @@ for K2, ``_make_kernel`` (:48) for full-width rows (K3), and
 padding, never read.  Offsets must satisfy ``0 = off[0] <= ... <= off[B] <=
 C``; they are not checked on the card (that would wait for it).
 
-On the card all three are ``csrc/csr_pool.cu``, bound by bytes: one kernel,
-one thread per (bag, lane), serves K2, K3 and K4's forward, walking each
-bag's own offsets with no atomics; a second kernel scatters K4's gradient
-with f32 ``atomicAdd``.  The wrappers take T tables at once (indices
-[T, C], offsets [T, B+1]), one launch for all of them.
+On the card all three are ``csrc/csr_pool.cu``, bound by bytes: one kernel
+serves K2, K3 and K4's forward, walking each bag's own offsets with no
+atomics.  A group of threads pools each bag (16-byte row loads or one
+element a thread, as ``gather_pool.row_path`` picks from the storage
+pointer and d), and a warp several consecutive bags whose offsets it loads
+together; their ids come in windows shared by the warp, or along each bag
+where bags are long (``gather_pool.walks_by_group``, from C / B).  A
+second kernel scatters K4's gradient with f32 ``atomicAdd``, one thread
+per (bag, lane).  The wrappers take T tables at once (indices [T, C],
+offsets [T, B+1]), one launch for all of them.
 
 The plain versions run only for CPU tensors; a CUDA tensor launches the
 kernel or raises.
@@ -27,16 +32,19 @@ import ctypes
 import torch
 
 from . import _build
-from .gather_pool import _MAX_DIM, _STORAGE_DTYPES, _check_storage
+from .gather_pool import _MAX_DIM, _STORAGE_DTYPES, _check_storage, row_path, walks_by_group
 from .ragged import segment_ids_from_offsets
 
 _LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
+# the pool kernels also take the row path and the walk, after d: vector,
+# group and by_group
+_POOL_ARGS = _LAUNCH_ARGS[:8] + [ctypes.c_int] * 3 + _LAUNCH_ARGS[8:]
 _SIGNATURES = {
-    "pel_csr_pool_f32": (_LAUNCH_ARGS, ctypes.c_int),
-    "pel_csr_pool_bf16": (_LAUNCH_ARGS, ctypes.c_int),
+    "pel_csr_pool_f32": (_POOL_ARGS, ctypes.c_int),
+    "pel_csr_pool_bf16": (_POOL_ARGS, ctypes.c_int),
     "pel_csr_grad_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "pel_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -60,9 +68,10 @@ def _as_2d(indices, offsets):
     return indices.reshape(-1, indices.shape[-1]), offsets.reshape(-1, offsets.shape[-1])
 
 
-def _launch(fn_name, src, indices, offsets, out, batch_size, d):
+def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path):
     """One launch of a csr_pool.cu kernel over [T, C] ids and [T, B+1]
-    offsets on ``src``'s device and current stream."""
+    offsets on ``src``'s device and current stream; ``path`` is the pool
+    kernels' (vector, group, by_group)."""
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
     idx2, off2 = _as_2d(indices, offsets)
@@ -70,7 +79,7 @@ def _launch(fn_name, src, indices, offsets, out, batch_size, d):
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = getattr(lib, fn_name)(
         src.data_ptr(), idx2.data_ptr(), off2.data_ptr(), out.data_ptr(),
-        idx2.shape[0], batch_size, idx2.shape[1], d, src.device.index, stream,
+        idx2.shape[0], batch_size, idx2.shape[1], d, *path, src.device.index, stream,
     )
     if err != 0:
         msg = lib.pel_error_string(err).decode()
@@ -119,8 +128,10 @@ def _pool(storage, d, indices, offsets, batch_size):
     out = torch.empty(t * batch_size, d, dtype=torch.float32, device=storage.device)
     if out.numel() == 0:
         return out, False
+    vector, group = row_path(storage, d)
+    by_group = walks_by_group(group, indices.shape[-1], batch_size)
     _launch(f"pel_csr_pool_{_STORAGE_DTYPES[storage.dtype]}", storage, indices,
-            offsets, out, batch_size, d)
+            offsets, out, batch_size, d, vector, group, by_group)
     return out, True
 
 

@@ -8,10 +8,12 @@ bag-major ``indices`` reads fused row ``indices[i]``, is kept where
 
 On the card the kernel is ``csrc/gather_pool.cu``.  Its bound is bytes: per
 entry one d-wide row plus a 4-byte id and a 1-byte mask, and per bag one
-d-wide f32 output row.  It runs one thread per (bag, lane) so that a warp's
-row loads are neighbouring addresses, reads rows straight from the fused
-storage (lane-packed [S, 128] storage has the bytes of [rows, d]), and skips
-masked entries without reading them.
+d-wide f32 output row.  It reads rows straight from the fused storage
+(lane-packed [S, 128] storage has the bytes of [rows, d]) and skips masked
+entries without reading them.  A group of threads pools each bag and a
+warp several bags: :func:`row_path` picks 16-byte vector row loads or one
+element a thread, and the group size, from the storage pointer and d;
+:func:`walks_by_group` picks how ids reach the groups from L.
 
 The plain version runs only for CPU tensors; a CUDA tensor launches the
 kernel or raises.
@@ -26,11 +28,13 @@ import torch
 from . import _build
 
 _STORAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_MAX_DIM = 1024  # one thread per lane, one block per bag at most
+_MAX_DIM = 1024
 _LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+_VECTOR_BYTES = 16
+_WARP = 32
 _SIGNATURES = {
     "pel_gather_pool_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "pel_gather_pool_bf16": (_LAUNCH_ARGS, ctypes.c_int),
@@ -50,6 +54,28 @@ def _check_storage(storage, d):
         raise ValueError(f"storage width {width} must be d={d}, or 128 with d | 128")
     if storage.dtype not in _STORAGE_DTYPES:
         raise TypeError(f"storage dtype {storage.dtype} not in {list(_STORAGE_DTYPES)}")
+
+
+def row_path(storage: torch.Tensor, d: int) -> tuple[bool, int]:
+    """How the pool kernels read ``d``-wide rows of ``storage``: (vector,
+    group).  Rows load as 16-byte vectors where the row bytes and the
+    storage pointer are 16-byte aligned, else one element at a time; a bag
+    is pooled by ``group`` threads, one per chunk of the row (vector or
+    element) rounded up to a power of two, at most a warp, so a warp pools
+    32 / group bags."""
+    row_bytes = d * storage.element_size()
+    vector = row_bytes % _VECTOR_BYTES == 0 and storage.data_ptr() % _VECTOR_BYTES == 0
+    chunks = row_bytes // _VECTOR_BYTES if vector else d
+    return vector, min(_WARP, 1 << (chunks - 1).bit_length())
+
+
+def walks_by_group(group: int, entries: int, bags: int) -> bool:
+    """How the pool kernels bring ids to a warp tile's 32 / group bags: in
+    windows of 32 entries shared by the warp (False), or each group along
+    its own bag (True).  By group where a tile holds more than 32 entries on
+    average (``entries`` over ``bags``, padding included), since a shared
+    window over long bags leaves most groups idle."""
+    return entries * (_WARP // group) > _WARP * bags
 
 
 def _check(storage, d, indices, pooling, batch_size, mask):
@@ -115,10 +141,12 @@ def embedding_bag_fixedl(
     lib = _build.load("gather_pool", _SIGNATURES)
     fn = getattr(lib, f"pel_gather_pool_{_STORAGE_DTYPES[storage.dtype]}")
     stream = torch.cuda.current_stream(storage.device).cuda_stream
+    vector, group = row_path(storage, d)
+    by_group = walks_by_group(group, indices.numel(), batch_size)
     err = fn(
         storage.data_ptr(), indices.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
-        batch_size, pooling, d, storage.device.index, stream,
+        batch_size, pooling, d, vector, group, by_group, storage.device.index, stream,
     )
     if err != 0:
         msg = lib.pel_error_string(err).decode()

@@ -26,6 +26,7 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_packed,
     embedding_bag_csr_sum,
 )
+from pim_embedding_lookup_tpu_torch.ops.gather_pool import row_path, walks_by_group
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -276,3 +277,29 @@ def test_cpu_tensors_count_no_launch():
             embedding_bag_csr_grad.launches) == before
     # importing and calling on the CPU builds nothing
     assert "csr_pool" not in csr_pool._build._loaded
+
+
+@pytest.mark.parametrize("d,offset,want", [
+    (16, 0, (True, 4)),    # lane-packed d=16 f32: 4 threads a bag, 8 bags a warp
+    (16, 1, (False, 16)),  # the same storage one element in: scalar path
+    (128, 0, (True, 32)),  # K3: a warp a bag
+    (8, 4, (True, 2)),     # 4 f32 in is 16 bytes: still aligned
+])
+def test_csr_storage_row_path(d, offset, want):
+    """The path the CSR wrapper passes to its kernel, for lane-packed
+    [S, 128] storage and views of it."""
+    buf = torch.zeros(8 * 128 + offset)
+    storage = buf[offset:].view(8, 128)
+    assert row_path(storage, d) == want
+
+
+@pytest.mark.parametrize("group,capacity,batch,want", [
+    (4, 9104, 8192, False),   # the CSR main path: pooling-1 mixture, 10 x 8192
+    (4, 12480, 2048, True),   # the pooling-8 mixture, 10 x 2048
+    (32, 25784, 8192, False),  # K3: 1M x 128, pooling-4 mixture
+    (2, 9104, 8192, False),   # bf16 storage: 16 bags a tile
+])
+def test_csr_walk(group, capacity, batch, want):
+    """The CSR walk goes by group where C / B entries a bag (padding
+    included) fill a tile of 32 / group bags past 32 entries."""
+    assert walks_by_group(group, capacity, batch) == want

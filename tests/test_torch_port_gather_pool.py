@@ -18,6 +18,8 @@ from pim_embedding_lookup_tpu_torch.ops import gather_pool
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
+    row_path,
+    walks_by_group,
 )
 
 
@@ -110,3 +112,41 @@ def test_cpu_tensor_does_not_count_a_launch(rng):
     assert embedding_bag_fixedl.launches == before
     # importing and calling on the CPU builds nothing
     assert gather_pool._build._loaded == {}
+
+
+@pytest.mark.parametrize("dtype,d,offset,want", [
+    (torch.float32, 16, 0, (True, 4)),      # 64-byte rows: 4 vectors, a group of 4
+    (torch.bfloat16, 16, 0, (True, 2)),     # 32-byte rows: 2 vectors
+    (torch.float32, 128, 0, (True, 32)),    # a whole warp a bag
+    (torch.float32, 256, 0, (True, 32)),    # 64 vectors: two rounds of a warp
+    (torch.float32, 20, 0, (True, 8)),      # 5 vectors, rounded up to 8 threads
+    (torch.float32, 4, 0, (True, 1)),       # one vector: 32 bags a warp
+    (torch.bfloat16, 20, 0, (False, 32)),   # 40-byte rows: scalar, 20 -> 32
+    (torch.float32, 1, 0, (False, 1)),      # 4-byte rows: scalar
+    (torch.float32, 16, 1, (False, 16)),    # a view 1 element in: not 16-byte aligned
+    (torch.bfloat16, 16, 8, (True, 2)),     # 8 bf16 in: aligned again
+])
+def test_row_path_picks_vector_loads_and_group(dtype, d, offset, want):
+    """The kernels read rows with 16-byte vector loads only where the row
+    bytes and the storage pointer are 16-byte aligned; a bag gets one thread
+    per vector (or element) of its row, rounded up to a power of two, at
+    most a warp."""
+    buf = torch.zeros(64 * d + offset, dtype=dtype)
+    storage = buf[offset:].view(64, d)
+    assert storage.is_contiguous() and storage.storage_offset() == offset
+    assert row_path(storage, d) == want
+
+
+@pytest.mark.parametrize("group,pooling,want", [
+    (4, 1, False),    # the main path: 8 single-hot bags, one window
+    (4, 4, False),    # 32 entries a tile: still one window
+    (4, 8, True),     # 64 entries a tile: each group along its own bag
+    (32, 9, False),   # d=128 f32: one bag a tile
+    (32, 40, True),   # ... longer than a window
+    (1, 2, True),     # 32 bags of 2
+])
+def test_fixedl_walk(group, pooling, want):
+    """K1's tile of 32 / group bags holds 32 / group * L entries: past 32,
+    ids go along each bag, not in shared windows."""
+    bags = 100
+    assert walks_by_group(group, bags * pooling, bags) == want
