@@ -15,7 +15,14 @@ its kernels and agrees with the same path pooled by the plain version,
 runs the length-bucketed CSR dispatch on one request, drives the
 full-width CSR lookup (K3) and the differentiable CSR bag (K4, forward and
 backward) through their entry points, and holds the port on the card
-against the port on the CPU at toy sizes.
+against the port on the CPU at toy sizes.  Last it trains the same model at
+full table rows, B=8192, fresh ids each step: the sparse step (SGD and
+row-wise AdaGrad scattered into the tables) on the dense wire (K1) and the
+CSR wire (K2), and the dense-autodiff step (K1 forward, its transpose
+backward), each held against the same step pooled by the plain version, with
+rows the batch did not touch unchanged; and at toy sizes the sparse SGD step
+against the dense-autodiff one, and the train steps on the card against the
+port on the CPU.
 
     python3 chip_smoke.py
 
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,7 +55,15 @@ from pim_embedding_lookup_tpu_torch import (
     kaggle_config,
     toy_config,
 )
-from pim_embedding_lookup_tpu_torch import ops
+from pim_embedding_lookup_tpu_torch import make_optimizer, make_train_step, ops
+from pim_embedding_lookup_tpu_torch.models import bce_loss
+from pim_embedding_lookup_tpu_torch.models.train import emb_tensors
+from pim_embedding_lookup_tpu_torch.models.sparse_train import (
+    _apply_sparse_csr,
+    dense_params,
+    make_sparse_train_state,
+    make_sparse_train_step,
+)
 from pim_embedding_lookup_tpu_torch.ops import _build
 from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_grad,
@@ -71,6 +87,12 @@ from pim_embedding_lookup_tpu_torch.parallel import lookup_csr_bucketed
 from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
     _mxu_csr_lookup,
     _mxu_pooled_lookup,
+    _mxu_sparse_update,
+    _mxu_sparse_update_csr,
+)
+from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
+    sparse_update,
+    sparse_update_csr,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit.
@@ -149,6 +171,23 @@ class _OpCount(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.ops += 1
         return func(*args, **(kwargs or {}))
+
+
+def top_kernels(fn, n=6):
+    """One call of ``fn`` under torch.profiler: the sum of its kernels'
+    device times in ms, and the ``n`` largest as (name, ms, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()  # kernels, not annotated ranges
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            [(e.key[:72], e.self_device_time_total / 1e3, e.count) for e in top])
 
 
 def aten_ops(fn) -> int:
@@ -492,6 +531,329 @@ def k4_phase(gen):
     return fwd, bwd, launches
 
 
+# -- training ------------------------------------------------------------------
+
+TRAIN_LR = 0.1
+TRAIN_STEPS = 5
+# A step pooled by the kernel against the same step pooled by the plain
+# version: the pooled sums agree, and index_add_ on the card adds rows hit by
+# several entries with f32 atomics in a run-dependent order.
+STEP_TOL = dict(rtol=1e-5, atol=1e-6)
+# The same steps on the card and on the CPU over 3 steps: f32 matmuls and
+# scatters in another order, as the forward's card-vs-CPU check.
+CARD_CPU_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def train_batches(config, gen, b, wire, steps):
+    """``steps`` batches (dense, ids, mask or offsets, labels): ids rotate
+    each step by a per-table stride, as tools/train_bench.py rotates them,
+    so every step reads rows it has not read before; dense features and
+    labels stay.  Dense wire: single-hot, mask all set.  CSR wire: the
+    pooling-1 mixture, its padding poisoned with NEVER_READ."""
+    rows = torch.tensor([t.num_rows for t in config.tables], device=DEV)
+    stride = rows // 7 + 1
+    dense = torch.rand(b, config.dense_dim, generator=gen, device=DEV)
+    labels = (torch.rand(b, generator=gen, device=DEV) < 0.5).float()
+    if wire == "dense":
+        _, idx, second = request(config, gen, b)
+    else:
+        idx, second = csr_ids(rows.tolist(), gen, b, 1)
+    pad = torch.arange(idx.shape[1], device=DEV)[None, :] >= (
+        second[:, -1:] if wire == "csr" else idx.shape[1])
+    out = []
+    for _ in range(steps):
+        out.append((dense, torch.where(pad, NEVER_READ, idx).to(torch.int32), second, labels))
+        idx = (idx + stride[:, None]) % rows[:, None]
+    return out
+
+
+def csr_sparse_step(model, dense_opt, *, lr, optimizer):
+    """The sparse step over the CSR wire, composed as tools/train_bench.py
+    composes it: lookup_csr, the dense tower's backward, the CSR scatter."""
+    coll = model.collection
+
+    def step(acc, dense, idx, off, labels):
+        with torch.no_grad():
+            pooled = coll.lookup_csr(model.emb_params(), idx, off)
+        pooled.requires_grad_(True)
+        dense_opt.zero_grad(set_to_none=True)
+        loss = bce_loss(model.apply_from_pooled(dense, pooled), labels)
+        loss.backward()
+        dense_opt.step()
+        with torch.no_grad():
+            _, acc = _apply_sparse_csr(coll, model.emb_params(), acc, idx, off,
+                                       pooled.grad, lr=lr, optimizer=optimizer, eps=1e-8)
+        return acc, loss.detach()
+
+    return step
+
+
+def train_runner(model, kind, wire, optimizer):
+    """``run(batch) -> loss`` of one path; the row-AdaGrad accumulator (if
+    any) lives in the returned state dict."""
+    if kind == "autodiff":
+        step = make_train_step(model, make_optimizer(TRAIN_LR, optimizer))
+        return lambda batch: step(*batch)[0], {"acc": None}
+    opt, acc = make_sparse_train_state(model, optimizer=optimizer, lr=TRAIN_LR)
+    make = make_sparse_train_step if wire == "dense" else csr_sparse_step
+    step = make(model, opt, lr=TRAIN_LR, optimizer=optimizer)
+    state = {"acc": acc, "opt": opt}
+
+    def run(batch):
+        state["acc"], loss = step(state["acc"], *batch)
+        return loss
+
+    return run, state
+
+
+def touched_rows(coll, batch, wire):
+    """Bool masks of the fused rows the batch's valid entries read, for the
+    small and the big set."""
+    _, idx, second, _ = batch
+    valid = (second if wire == "dense" else
+             torch.arange(idx.shape[1], device=DEV)[None, :] < second[:, -1:])
+    out = {}
+    for key, sub, sel in (("small", coll.small, coll.small_ids),
+                          ("big", coll.big, coll.big_ids)):
+        ids = sub.globalize(idx[list(sel)])[valid[list(sel)]].long()
+        mask = torch.zeros(sub.layout.total_rows, dtype=torch.bool, device=DEV)
+        mask[ids] = True
+        out[key] = mask
+    return out
+
+
+def check_against_plain(model, run, state, batch, wire):
+    """One step pooled by the kernel against the same step, from the same
+    state, pooled by the plain version: loss, both tables and the
+    accumulator within STEP_TOL.  Rows the batch did not touch keep their
+    bits.  Returns the largest abs difference of the tables."""
+    snap = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    acc0 = {k: v.clone() for k, v in state["acc"].items()} if state["acc"] else None
+    loss_k = run(batch)
+    tables_k = {k: getattr(model, f"emb_{k}").detach().clone() for k in ("small", "big")}
+    acc_k = {k: v.clone() for k, v in state["acc"].items()} if acc0 else None
+    touched = touched_rows(model.collection, batch, wire)
+    for key, rows in touched.items():
+        d = snap[f"emb_{key}"].view(-1, 16)
+        after = tables_k[key].view(-1, 16)
+        if not torch.equal(after[~rows], d[~rows]):
+            raise AssertionError(f"{key} set: rows the batch did not touch changed")
+        if torch.equal(after[rows], d[rows]):
+            raise AssertionError(f"{key} set: no touched row changed")
+    with torch.no_grad():
+        model.load_state_dict(snap)
+        if acc0:
+            for k, v in state["acc"].items():
+                v.copy_(acc0[k])
+    name, plain = (("embedding_bag_fixedl", embedding_bag_fixedl_reference) if wire == "dense"
+                   else ("embedding_bag_csr_packed", embedding_bag_csr_packed_reference))
+    with mock.patch.object(collection_mod, name, plain):
+        loss_p = run(batch)
+    torch.testing.assert_close(loss_k, loss_p, **STEP_TOL)
+    err = 0.0
+    for key in ("small", "big"):
+        got = getattr(model, f"emb_{key}").detach()
+        torch.testing.assert_close(tables_k[key], got, **STEP_TOL)
+        err = max(err, (tables_k[key] - got).abs().max().item())
+        if acc_k:
+            torch.testing.assert_close(acc_k[key], state["acc"][key], **STEP_TOL)
+    return err
+
+
+def sparse_stage_fns(model, state, batch, wire, optimizer):
+    """The sparse step's stages on one batch: forward lookup, the dense
+    tower's forward and backward, the dense optimizer, the small set's and
+    the big set's update.  Each call of an update stage steps the tables."""
+    coll, emb, acc = model.collection, model.emb_params(), state["acc"]
+    dense, idx, second, labels = batch
+    sel_s, sel_b = coll._index["small_ids"], coll._index["big_ids"]
+    kw = dict(lr=TRAIN_LR, optimizer=optimizer, eps=1e-8)
+    if wire == "dense":
+        look = lambda: coll.lookup(emb, idx, second, batch_size=dense.shape[0])  # noqa: E731
+        small, big = _mxu_sparse_update, sparse_update
+    else:
+        look = lambda: coll.lookup_csr(emb, idx, second)  # noqa: E731
+        small, big = _mxu_sparse_update_csr, sparse_update_csr
+    with torch.no_grad():
+        pooled = look().requires_grad_(True)
+    params = dense_params(model)
+
+    def fwd_bwd():
+        loss = bce_loss(model.apply_from_pooled(dense, pooled), labels)
+        return torch.autograd.grad(loss, [*params, pooled])
+
+    grads = fwd_bwd()
+    for p, g in zip(params, grads):
+        p.grad = g
+    g_pooled = grads[-1]
+
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+
+    return {
+        "forward_lookup": no_grad(look),
+        "dense_fwd_bwd": fwd_bwd,
+        "dense_optimizer": state["opt"].step,
+        "small_set_update": no_grad(lambda: small(
+            coll.buckets, emb["small"], acc["small"], idx[sel_s], second[sel_s],
+            g_pooled[:, sel_s], **kw)),
+        "big_set_update": no_grad(lambda: big(
+            coll.big, emb["big"], acc["big"], idx[sel_b], second[sel_b],
+            g_pooled[:, sel_b], **kw)),
+    }
+
+
+def autodiff_stage_fns(model, batch):
+    """The dense-autodiff step's stages: the forward (building the graph),
+    the backward (the MLPs, the small set's bf16 product, K1's transpose into
+    a dense f32 gradient of the big table), and SGD over every tensor."""
+    dense, idx, mask, labels = batch
+    params = [*model.parameters(), *emb_tensors(model)]
+    forward = lambda: bce_loss(model(dense, idx, mask), labels)  # noqa: E731
+    loss = forward()
+    grads = torch.autograd.grad(loss, params, retain_graph=True)
+    opt = make_optimizer(TRAIN_LR, "sgd")(params)
+    for p, g in zip(params, grads):
+        p.grad = g
+    return {
+        "forward": forward,
+        "backward": lambda: torch.autograd.grad(loss, params, retain_graph=True),
+        "optimizer": opt.step,
+    }
+
+
+TRAIN_PATHS = (  # (name, kind, wire, optimizer)
+    ("dense-wire sparse row_adagrad", "sparse", "dense", "row_adagrad"),
+    ("dense-wire sparse sgd", "sparse", "dense", "sgd"),
+    ("CSR-wire sparse row_adagrad", "sparse", "csr", "row_adagrad"),
+    ("dense-wire dense-autodiff sgd", "autodiff", "dense", "sgd"),
+)
+
+
+def train_phase(gen):
+    """The train paths at full Kaggle rows, B=8192, each from the same
+    initial model: 1 warm-up and TRAIN_STEPS timed steps (host clock, each
+    step ending in a synchronize), launches counted over the timed steps;
+    then device time per step, one step against its plain-pooled twin with
+    untouched rows checked, ATen operations and the stage split (whose
+    repeated updates leave the model as they will).  Returns the launches
+    of K1 and K2 over the timed steps of all paths."""
+    config = kaggle_config()
+    model = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=DEV, generator=gen)
+    acc_mb = (model.collection.small.layout.total_rows
+              + model.collection.big.layout.total_rows) * 4 / 1e6
+    # on the host, so that the peak memory of the steps is theirs alone
+    init = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    launches = {"K1": 0, "K2": 0}
+    stage_rows, totals = {}, {}
+    for name, kind, wire, optimizer in TRAIN_PATHS:
+        with torch.no_grad():  # each path trains from the same initial model
+            model.load_state_dict(init)
+        batches = train_batches(config, gen, BATCH, wire, 2 * TRAIN_STEPS + 3)
+        run, state = train_runner(model, kind, wire, optimizer)
+        losses = [run(batches[0]).item()]  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        embedding_bag_fixedl.launches = embedding_bag_csr_packed.launches = 0
+        times = []
+        for batch in batches[1 : 1 + TRAIN_STEPS]:
+            t0 = time.perf_counter()
+            loss = run(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        k1, k2 = embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = (TRAIN_STEPS, 0) if wire == "dense" else (0, TRAIN_STEPS)
+        if (k1, k2) != want:
+            raise AssertionError(f"{name}: K1, K2 launched {(k1, k2)} times in "
+                                 f"{TRAIN_STEPS} steps, not {want}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        launches["K1"] += k1
+        launches["K2"] += k2
+        med = statistics.median(times)
+        timed = batches[1 + TRAIN_STEPS : 1 + 2 * TRAIN_STEPS]
+        # one step per timed run: a step launches ~500 kernels, and several
+        # held behind the sleep kernel fill the card's launch queue, which
+        # then makes the host wait and the events time the host
+        dev = device_ms(lambda b_: run(b_), [(b,) for b in timed], calls=1)
+        ops_count = aten_ops(lambda: run(batches[-2]))
+        err = check_against_plain(model, run, state, batches[-1], wire)
+        totals[name] = dict(ms_per_step=med, samples_per_s=BATCH / med * 1e3,
+                            device_ms_per_step=dev, idle_share=1 - dev / med,
+                            peak_gb=peak_gb, aten_ops=ops_count)
+        print(f"train {name}: B={BATCH}, lr {TRAIN_LR}: ms/step "
+              f"{[round(t, 4) for t in times]}, median {med:.4f} ms, "
+              f"{BATCH / med * 1e3:.0f} samples/s; device {dev:.4f} ms/step, idle "
+              f"share {1 - dev / med:.3f}; K1, K2 launches {(k1, k2)} in {TRAIN_STEPS} "
+              f"steps; peak memory {peak_gb:.3f} GB; ATen operations per step "
+              f"{ops_count}; loss trace (warm-up first) {losses}; one step equal to "
+              f"its plain-pooled twin (tables max abs err {err:.3g}, rtol 1e-5, "
+              "atol 1e-6), untouched rows bitwise unchanged", flush=True)
+        fns = (autodiff_stage_fns(model, batches[0]) if kind == "autodiff"
+               else sparse_stage_fns(model, state, batches[0], wire, optimizer))
+        fns["whole_step"] = lambda: run(batches[0])
+        stage_rows[name] = {k: {"device_ms": device_ms(fn, [()], calls=1),
+                                "call_ms": call_ms(fn, [()], calls=1)}
+                            for k, fn in fns.items()}
+        print(f"train stages, {name} (median ms): " + json.dumps(stage_rows[name]),
+              flush=True)
+        total, top = top_kernels(lambda: run(batches[0]))
+        print(f"train kernels, {name}, one step (torch.profiler): {total:.4f} ms in all; "
+              "largest (name, ms, launches): " + json.dumps(top), flush=True)
+        del run, state, fns
+    print(f"train: full Kaggle rows, big set {model.emb_big.numel() * 4 / 1e9:.3f} GB "
+          f"f32, row-AdaGrad accumulator {acc_mb:.1f} MB; summary "
+          + json.dumps(totals), flush=True)
+    return launches
+
+
+def toy_train_checks(gen):
+    """At toy sizes: a sparse SGD step equals a dense-autodiff SGD step (the
+    plain toy collection, multi-hot, masked entries), and 3 steps of each
+    train path on the card equal the same steps of the port on the CPU."""
+    cfg = toy_config()
+    models = [DLRM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(1))
+              for _ in range(2)]
+    dense, idx, mask = request(cfg, gen, 16, pooling=3, keep=0.7)
+    batch = (dense, idx, mask, (torch.rand(16, generator=gen, device=DEV) < 0.5).float())
+    loss_ref, _ = make_train_step(models[0], make_optimizer(0.1))(*batch)
+    opt, acc = make_sparse_train_state(models[1], lr=0.1)
+    _, loss = make_sparse_train_step(models[1], opt, lr=0.1)(acc, *batch)
+    torch.testing.assert_close(loss, loss_ref, rtol=1e-6, atol=1e-6)
+    for (name, x), y in zip(models[0].state_dict().items(), models[1].state_dict().values()):
+        torch.testing.assert_close(y, x.detach(), **STEP_TOL, msg=name)
+    print("toy: sparse SGD step equal to the dense-autodiff SGD step (loss 1e-6, "
+          "params rtol 1e-5 atol 1e-6)", flush=True)
+
+    mixed = DLRMConfig(
+        dense_dim=13, mlp_bot=(64, 16), mlp_top=(32, 1),
+        tables=tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
+                     for i, n in enumerate((3, 24, 583, 1460, 9000, 20000))),
+    )
+    for _, kind, wire, optimizer in TRAIN_PATHS:
+        cpu = DLRM(mixed, hybrid=True, device="cpu", generator=torch.Generator().manual_seed(2))
+        gpu = DLRM(mixed, hybrid=True, device=DEV, generator=gen)
+        gpu.load_state_dict(cpu.state_dict())
+        batches = train_batches(mixed, gen, 64, wire, 3)
+        run_gpu, _ = train_runner(gpu, kind, wire, optimizer)
+        run_cpu, _ = train_runner(cpu, kind, wire, optimizer)
+        for batch in batches:
+            lg = run_gpu(batch)
+            lc = run_cpu(tuple(t.cpu() for t in batch))
+            torch.testing.assert_close(lg.cpu(), lc, **CARD_CPU_TOL)
+        err = max((a.detach().cpu() - b.detach()).abs().max().item()
+                  for a, b in zip(gpu.state_dict().values(), cpu.state_dict().values()))
+        for (name, a), b in zip(gpu.state_dict().items(), cpu.state_dict().values()):
+            torch.testing.assert_close(a.detach().cpu(), b.detach(), **CARD_CPU_TOL, msg=name)
+        print(f"card vs CPU, mixed hybrid DLRM, {wire} wire {kind} {optimizer}, 3 steps "
+              f"(B=64): losses and params max abs err {err:.3g} (tol 1e-4)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -771,6 +1133,12 @@ def main() -> int:
             print(f"card vs CPU, {name} DLRM, {wire} wire (B=64, pooling {pooling}): "
                   f"logits max abs err {err:.3g} (tol 1e-4)", flush=True)
 
+    # -- 11. training at full Kaggle rows, then the toy checks ------------------
+    t0 = time.perf_counter()
+    train_launches = train_phase(gen)
+    toy_train_checks(gen)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           "(build included)", flush=True)
     src = "pim_embedding_lookup_tpu_torch/csrc/"
@@ -783,12 +1151,13 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
-    print("kernels: K1, K2, K3, K4 forward, K4 backward", flush=True)
+    print("kernels: K1, K2, K3, K4 forward, K4 backward; K1 and K2 launches over "
+          "the served requests and the timed train steps", flush=True)
     print(json.dumps({"kernels": [
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu",
-              "272", k1_launches, main_f32),
+              "272", k1_launches + train_launches["K1"], main_f32),
         entry("K2 embedding_bag_csr_packed (CSR gather+pool, d=16 packed)",
-              "csr_pool.cu", "92", k2_launches, k2_f32),
+              "csr_pool.cu", "92", k2_launches + train_launches["K2"], k2_f32),
         entry("K3 embedding_bag_csr_packed (CSR gather+pool, d=128 rows)",
               "csr_pool.cu", "48", k3_launches, k3),
         entry("K4 forward embedding_bag_csr_sum (differentiable CSR bag)",

@@ -18,10 +18,11 @@ from .config import (
     random_config,
     toy_config,
 )
-from .convert import params_from_jax
+from .convert import params_from_jax, train_state_from_jax
 from .device import resolve_device
 from .entry import entry
-from .models import DLRM, bce_loss, interact_dot
+from .models import DLRM, bce_loss, fit, interact_dot, make_optimizer, make_train_step
+from .models.sparse_train import make_sparse_train_state, make_sparse_train_step
 from .ops import embedding_bag_fixedl, embedding_bag_fixedl_reference
 from .parallel import (
     EmbeddingCollection,
@@ -35,7 +36,9 @@ __all__ = [
     "KAGGLE_TABLE_ROWS", "Combiner", "DLRMConfig", "LookupImpl", "MeshConfig",
     "QueryConfig", "ShardingPolicy", "TableConfig", "kaggle_config",
     "loadgen_config", "random_config", "toy_config", "params_from_jax",
-    "resolve_device", "entry", "DLRM", "bce_loss", "interact_dot",
+    "train_state_from_jax", "resolve_device", "entry", "DLRM", "bce_loss",
+    "interact_dot", "fit", "make_optimizer", "make_train_step",
+    "make_sparse_train_state", "make_sparse_train_step",
     "embedding_bag_fixedl", "embedding_bag_fixedl_reference",
     "EmbeddingCollection", "FusedLayout", "HybridEmbeddingCollection", "plan",
     "resolve_pack",

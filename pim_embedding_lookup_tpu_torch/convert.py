@@ -1,4 +1,5 @@
-"""Load the JAX package's DLRM parameters into the port's module."""
+"""Load the JAX package's DLRM parameters, and its sparse train step's
+accumulator, into the port."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ import numpy as np
 import torch
 
 from .models.dlrm import DLRM
+from .models.sparse_train import _init_acc
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -41,3 +43,21 @@ def params_from_jax(params_np: dict, model: DLRM) -> DLRM:
             _copy(lin.weight, np.asarray(p["w"]).T)
             _copy(lin.bias, p["b"])
     return model
+
+
+@torch.no_grad()
+def train_state_from_jax(acc_np, model: DLRM):
+    """The JAX sparse step's row-AdaGrad accumulator (``{"small", "big"}``
+    for a hybrid model, else one [total_rows] array; numpy) as the port's
+    accumulator on the model's device.  With ``params_from_jax`` it lets a
+    state trained by JAX steps go on training in the port."""
+    acc = _init_acc(model.collection)
+    if isinstance(acc, dict):
+        for key, dst in acc.items():
+            if (acc_np[key] is None) != (dst is None):
+                raise ValueError(f"acc[{key!r}] present on one side only")
+            if dst is not None:
+                _copy(dst, acc_np[key])
+    else:
+        _copy(acc, acc_np)
+    return acc

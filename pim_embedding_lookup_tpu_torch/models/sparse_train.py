@@ -1,0 +1,116 @@
+"""Memory-efficient training: the dense tower by a torch optimizer, the
+embedding half by the sparse scatter step (``parallel/sparse_update.py``).
+
+The counterpart of ``pim_embedding_lookup_tpu.models.sparse_train``.  The
+step built here
+
+  1. runs the lookup forward (no autograd graph through the tables),
+  2. differentiates only the dense tower w.r.t. its params and the pooled
+     embeddings,
+  3. adds d(loss)/d(pooled) straight into the fused storage as an SGD or
+     row-wise AdaGrad step,
+
+so no dense [rows, D] gradient is built and the update costs O(entries).
+The embedding storage, the accumulator and the MLP params are updated in
+place, which stands in for the JAX step's buffer donation.  The CSR wire
+has no step factory here, as in the JAX package: a caller composes
+``lookup_csr``, ``DLRM.apply_from_pooled`` and ``_apply_sparse_csr``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..parallel.hybrid import (
+    HybridEmbeddingCollection,
+    init_accumulator_hybrid,
+    sparse_update_hybrid,
+    sparse_update_hybrid_csr,
+)
+from ..parallel.sparse_update import init_accumulator, sparse_update, sparse_update_csr
+from .dlrm import DLRM, bce_loss
+from .train import OptimizerFactory, make_optimizer
+
+
+def _init_acc(coll):
+    if isinstance(coll, HybridEmbeddingCollection):
+        return init_accumulator_hybrid(coll)
+    return init_accumulator(coll)
+
+
+def _apply_sparse(coll, emb, acc, indices, mask, g_pooled, *, lr, optimizer,
+                  eps, routed=False, capacity_factor=None):
+    update = sparse_update_hybrid if isinstance(coll, HybridEmbeddingCollection) else sparse_update
+    return update(coll, emb, acc, indices, mask, g_pooled, lr=lr, optimizer=optimizer,
+                  eps=eps, routed=routed, capacity_factor=capacity_factor)
+
+
+def _apply_sparse_csr(coll, emb, acc, indices, offsets, g_pooled, *, lr,
+                      optimizer, eps, routed=False, data_sharded=False,
+                      capacity_factor=None):
+    """CSR-wire twin of _apply_sparse: the backward of lookup_csr."""
+    update = (sparse_update_hybrid_csr if isinstance(coll, HybridEmbeddingCollection)
+              else sparse_update_csr)
+    return update(coll, emb, acc, indices, offsets, g_pooled, lr=lr, optimizer=optimizer,
+                  eps=eps, routed=routed, data_sharded=data_sharded,
+                  capacity_factor=capacity_factor)
+
+
+def dense_params(model: DLRM) -> list[torch.Tensor]:
+    """The dense tower's params: the bot and top MLPs."""
+    return [*model.bot.parameters(), *model.top.parameters()]
+
+
+def make_sparse_train_state(
+    model: DLRM, *, optimizer: str = "sgd", lr: float = 0.1,
+    dense_optimizer: OptimizerFactory | None = None,
+) -> tuple[torch.optim.Optimizer, torch.Tensor | dict]:
+    """Returns (dense_opt, acc): ``dense_optimizer`` (SGD at ``lr`` by
+    default, optax.sgd's rule) bound to the bot/top params, and the
+    row-AdaGrad accumulator, allocated for either embedding optimizer so
+    that the step's signature does not depend on it."""
+    del optimizer  # the accumulator is allocated for both
+    dense_opt = (dense_optimizer or make_optimizer(lr))(dense_params(model))
+    return dense_opt, _init_acc(model.collection)
+
+
+def make_sparse_train_step(
+    model: DLRM,
+    dense_opt: torch.optim.Optimizer,
+    *,
+    lr: float = 0.1,
+    optimizer: str = "sgd",  # embedding optimizer: "sgd" | "row_adagrad"
+    eps: float = 1e-8,
+    routed: bool = False,
+    capacity_factor: float | None = None,
+    hot_cache: bool = False,
+) -> Callable:
+    """The step ``(acc, dense, indices, mask, labels) -> (acc, loss)`` over
+    the dense wire.  It updates the model's embedding storage, ``acc`` and
+    the MLP params in place; the loss is detached.  ``routed`` and
+    ``hot_cache`` need the multi-device port."""
+    if hot_cache and not routed:
+        raise ValueError("hot_cache is a routed-lookup feature")
+    if routed:
+        raise NotImplementedError(
+            "routed sparse train step needs the multi-device port (ROADMAP.md)")
+    coll = model.collection
+
+    def train_step(acc, dense, indices, mask, labels):
+        with torch.no_grad():
+            pooled = coll.lookup(model.emb_params(), indices, mask,
+                                 batch_size=dense.shape[0])  # [B, T, D]
+        pooled.requires_grad_(True)
+        dense_opt.zero_grad(set_to_none=True)
+        loss = bce_loss(model.apply_from_pooled(dense, pooled), labels)
+        loss.backward()
+        dense_opt.step()
+        with torch.no_grad():
+            _, acc = _apply_sparse(coll, model.emb_params(), acc, indices, mask,
+                                   pooled.grad, lr=lr, optimizer=optimizer, eps=eps,
+                                   capacity_factor=capacity_factor)
+        return acc, loss.detach()
+
+    return train_step

@@ -22,7 +22,10 @@ per (bag, lane).  The wrappers take T tables at once (indices [T, C],
 offsets [T, B+1]), one launch for all of them.
 
 The plain versions run only for CPU tensors; a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  Where the storage requires grad (and grad mode is on),
+``embedding_bag_csr_packed`` is differentiable w.r.t. the storage through
+the same autograd function as K4: the forward is the pool kernel, the
+backward K4's gradient kernel.
 """
 
 from __future__ import annotations
@@ -146,6 +149,9 @@ def embedding_bag_csr_packed(
     """SUM-pooled CSR embedding bag over fused storage (K2; K3 at d=128).
     Row t*B + b of the result pools bag b of table t.  Valid ids must lie
     in [0, rows)."""
+    if storage.requires_grad and torch.is_grad_enabled():
+        return _CSRBagSum.apply(storage, d, indices, offsets, batch_size,
+                                embedding_bag_csr_packed)
     out, launched = _pool(storage, d, indices, offsets, batch_size)
     embedding_bag_csr_packed.launches += launched
     return out
@@ -201,25 +207,24 @@ embedding_bag_csr_grad.launches = 0
 
 
 class _CSRBagSum(torch.autograd.Function):
-    """SUM bag over [N, D] storage with its gradient w.r.t. the table only."""
+    """SUM bag over fused storage ([S, 128] packed or [N, d]) with its
+    gradient w.r.t. the storage only.  ``counted`` is the public function
+    whose ``launches`` count the forward's kernel."""
 
     @staticmethod
-    def forward(ctx, table, indices, offsets, batch_size):
-        # the kernel reads f32 or bf16 and adds in f32; other floats go
-        # through f32, as the JAX kernel casts its table to f32
-        src = table if table.dtype in _STORAGE_DTYPES else table.float()
-        out, launched = _pool(src, src.shape[1], indices, offsets, batch_size)
-        embedding_bag_csr_sum.launches += launched
+    def forward(ctx, storage, d, indices, offsets, batch_size, counted):
+        out, launched = _pool(storage, d, indices, offsets, batch_size)
+        counted.launches += launched
         ctx.save_for_backward(indices, offsets)
-        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        return out.to(table.dtype)
+        ctx.shape, ctx.dtype = storage.shape, storage.dtype
+        return out
 
     @staticmethod
     def backward(ctx, g):
         indices, offsets = ctx.saved_tensors
-        dtable = embedding_bag_csr_grad(
-            g.float().contiguous(), indices, offsets, ctx.table_shape[0])
-        return dtable.to(ctx.table_dtype), None, None, None
+        rows = ctx.shape.numel() // g.shape[1]
+        dtable = embedding_bag_csr_grad(g.float().contiguous(), indices, offsets, rows)
+        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None
 
 
 def embedding_bag_csr_sum(
@@ -237,9 +242,13 @@ def embedding_bag_csr_sum(
                         f"{tuple(table.shape)}")
     if indices.dim() != 1 or offsets.dim() != 1:
         raise ValueError("indices [C] and offsets [B+1] must be 1-D")
-    return _CSRBagSum.apply(
-        table.contiguous(), indices.to(torch.int32).contiguous(),
-        offsets.to(torch.int32).contiguous(), batch_size)
+    # the kernel reads f32 or bf16 and adds in f32; other floats go through
+    # f32, as the JAX kernel casts its table to f32
+    src = table if table.dtype in _STORAGE_DTYPES else table.float()
+    out = _CSRBagSum.apply(
+        src.contiguous(), src.shape[1], indices.to(torch.int32).contiguous(),
+        offsets.to(torch.int32).contiguous(), batch_size, embedding_bag_csr_sum)
+    return out.to(table.dtype)
 
 
 embedding_bag_csr_sum.launches = 0

@@ -16,7 +16,11 @@ element a thread, and the group size, from the storage pointer and d;
 :func:`walks_by_group` picks how ids reach the groups from L.
 
 The plain version runs only for CPU tensors; a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  Where the storage requires grad (and grad mode is on),
+the wrapper is differentiable w.r.t. the storage: the forward is the same
+call, the backward the transpose of the gather, an ``index_add_`` of each
+kept entry's bag gradient at its row (XLA's work in the JAX package, not a
+Pallas kernel).  Without grad no autograd node is made.
 """
 
 from __future__ import annotations
@@ -128,6 +132,13 @@ def embedding_bag_fixedl(
     """SUM-pooled fixed-L embedding bag over fused storage.  Unmasked ids
     must lie in [0, rows)."""
     _check(storage, d, indices, pooling, batch_size, mask)
+    if storage.requires_grad and torch.is_grad_enabled():
+        return _FixedLBagSum.apply(storage, d, indices, pooling, batch_size, mask)
+    return _pool(storage, d, indices, pooling, batch_size, mask)
+
+
+def _pool(storage, d, indices, pooling, batch_size, mask):
+    """Checked K1 body: the plain version for CPU tensors, else one launch."""
     if storage.device.type == "cpu":
         return embedding_bag_fixedl_reference(
             storage, d, indices, pooling=pooling, batch_size=batch_size,
@@ -156,3 +167,41 @@ def embedding_bag_fixedl(
 
 
 embedding_bag_fixedl.launches = 0
+
+
+def embedding_bag_fixedl_grad(
+    g: torch.Tensor,  # [B, d] d(loss)/d(pooled)
+    indices: torch.Tensor,  # [B*L] int32 fused row ids, bag-major
+    mask: torch.Tensor | None,  # [B*L] bool/uint8
+    num_rows: int,
+) -> torch.Tensor:  # [num_rows, d] f32
+    """The transpose of K1's gather: ``g[bag(e)] * mask[e]`` added at row
+    ``indices[e]`` of a zeroed f32 gradient.  Masked entries add an exact
+    zero at row 0, so their ids are never used."""
+    b, d = g.shape
+    pooling = indices.numel() // max(b, 1)
+    g_e = g.float()[:, None, :].expand(b, pooling, d).reshape(-1, d)  # [B*L, d]
+    ids = indices.long()
+    if mask is not None:
+        keep = mask.bool()
+        g_e = g_e * keep[:, None]
+        ids = torch.where(keep, ids, 0)
+    dtable = torch.zeros(num_rows, d, dtype=torch.float32, device=g.device)
+    return dtable.index_add_(0, ids, g_e)
+
+
+class _FixedLBagSum(torch.autograd.Function):
+    """K1 with its gradient w.r.t. the storage only."""
+
+    @staticmethod
+    def forward(ctx, storage, d, indices, pooling, batch_size, mask):
+        ctx.save_for_backward(indices, mask)
+        ctx.shape, ctx.dtype = storage.shape, storage.dtype
+        return _pool(storage, d, indices, pooling, batch_size, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        indices, mask = ctx.saved_tensors
+        rows = ctx.shape.numel() // g.shape[1]
+        dtable = embedding_bag_fixedl_grad(g, indices, mask, rows)
+        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None

@@ -1,15 +1,18 @@
 """Hybrid embedding collection: one-hot matmuls for small tables, fused
 gather+pool for big ones.
 
-The counterpart of ``pim_embedding_lookup_tpu.parallel.hybrid`` (dense
-lookup, no routing, no hot cache).  Tables with at most ``MXU_THRESHOLD``
+The counterpart of ``pim_embedding_lookup_tpu.parallel.hybrid`` (lookup
+and the sparse optimizer step on one device; no routing, no hot cache).  Tables with at most ``MXU_THRESHOLD``
 rows form the small set: each is padded to a power-of-two bucket, equal
 buckets lie side by side, and each bucket pools as one batched product of a
 bf16 one-hot with the bf16 weights, accumulated in f32, as in the JAX
 package.  The rest form the big set, an EmbeddingCollection whose lookup
 runs the gather+pool kernel on the card.
 
-Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}``.
+Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}``,
+and so is the row-AdaGrad accumulator.  The sparse step updates the small
+set by densifying each bucket's gradient and stepping it row by row, the
+big set by the entry-wise scatter of ``sparse_update``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ from ..device import resolve_device
 from ..ops.ragged import segment_ids_from_offsets
 from .collection import _NEG_INF, EmbeddingCollection, _csr_counts, _finish_combiner
 from .planner import FusedLayout
+from .sparse_update import (
+    _check_supported,
+    _entry_updates,
+    _entry_updates_csr,
+    init_accumulator,
+    sparse_update,
+    sparse_update_csr,
+)
 
 # The JAX package's split between the two sets, kept so that layouts match.
 MXU_THRESHOLD = 8192
@@ -296,3 +307,160 @@ def _mxu_csr_lookup(fused, buckets, indices, offsets, *, combiner="sum"):
     if combiner == "mean":
         return pooled / counts.clamp(min=1)
     return torch.where(counts > 0, pooled, 0.0)
+
+
+# -- the sparse optimizer step --------------------------------------------------
+
+
+def init_accumulator_hybrid(coll: HybridEmbeddingCollection) -> dict:
+    return {
+        "small": init_accumulator(coll.small) if coll.small else None,
+        "big": init_accumulator(coll.big) if coll.big else None,
+    }
+
+
+def _check_sets(coll, optimizer, routed, name):
+    """Refuse what the step cannot do before either set is touched."""
+    for sub in (coll.small, coll.big):
+        if sub is not None:
+            _check_supported(sub, optimizer, routed, name)
+
+
+def sparse_update_hybrid(
+    coll: HybridEmbeddingCollection,
+    params: dict,  # updated in place
+    accs: dict,  # updated in place
+    indices: torch.Tensor,  # [T, B*L]
+    mask: torch.Tensor,  # [T, B*L]
+    g_pooled: torch.Tensor,  # [B, T, D] in the caller's table order
+    *,
+    lr: float,
+    optimizer: str = "sgd",
+    eps: float = 1e-8,
+    routed: bool = False,
+    capacity_factor: float | None = None,
+    return_stats: bool = False,
+):
+    """Apply the embedding optimizer step to both sets: the small set by
+    the bucketed densified step, the big set by ``sparse_update``.  Returns
+    (params, accs), or with ``return_stats`` also the big set's count of
+    dropped entries (0 off the routed path)."""
+    _check_sets(coll, optimizer, routed, "sparse_update_hybrid")
+    params, accs = dict(params), dict(accs)
+    mask = mask.to(torch.bool)
+    dropped = torch.zeros((), dtype=torch.int32, device=coll.device)
+    if coll.small is not None:
+        sel = coll._index["small_ids"]
+        params["small"], accs["small"] = _mxu_sparse_update(
+            coll.buckets, params["small"], accs["small"], indices[sel], mask[sel],
+            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+        )
+    if coll.big is not None:
+        sel = coll._index["big_ids"]
+        params["big"], accs["big"], dropped = sparse_update(
+            coll.big, params["big"], accs["big"], indices[sel], mask[sel],
+            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+            capacity_factor=capacity_factor, return_stats=True,
+        )
+    if return_stats:
+        return params, accs, dropped
+    return params, accs
+
+
+def sparse_update_hybrid_csr(
+    coll: HybridEmbeddingCollection,
+    params: dict,
+    accs: dict,
+    indices: torch.Tensor,  # [T, C]
+    offsets: torch.Tensor,  # [T, B+1]
+    g_pooled: torch.Tensor,  # [B, T, D] in the caller's table order
+    *,
+    lr: float,
+    optimizer: str = "sgd",
+    eps: float = 1e-8,
+    routed: bool = False,
+    data_sharded: bool = False,
+    capacity_factor: float | None = None,
+    return_stats: bool = False,
+):
+    """CSR (ragged-bag) form of ``sparse_update_hybrid``: the backward of
+    ``lookup_csr``.  ``data_sharded`` is the same as False on one device."""
+    _check_sets(coll, optimizer, routed, "sparse_update_hybrid_csr")
+    params, accs = dict(params), dict(accs)
+    dropped = torch.zeros((), dtype=torch.int32, device=coll.device)
+    if coll.small is not None:
+        sel = coll._index["small_ids"]
+        params["small"], accs["small"] = _mxu_sparse_update_csr(
+            coll.buckets, params["small"], accs["small"], indices[sel], offsets[sel],
+            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+        )
+    if coll.big is not None:
+        sel = coll._index["big_ids"]
+        params["big"], accs["big"], dropped = sparse_update_csr(
+            coll.big, params["big"], accs["big"], indices[sel], offsets[sel],
+            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+            data_sharded=data_sharded, capacity_factor=capacity_factor,
+            return_stats=True,
+        )
+    if return_stats:
+        return params, accs, dropped
+    return params, accs
+
+
+def _mxu_sparse_update(buckets, fused, acc, indices, mask, g_pooled, *, lr,
+                       optimizer, eps):
+    """Small-set step over the dense wire: every kept entry of a bag gets
+    the bag's cotangent (sum-pool backward), then the bucketed step."""
+    _, g_e, _ = _entry_updates(indices, mask, g_pooled.float(),
+                               indices.shape[1] // g_pooled.shape[0])
+    t, c = indices.shape
+    return _mxu_apply_entries(buckets, fused, acc, indices, mask,
+                              g_e.reshape(t, c, -1), lr=lr, optimizer=optimizer,
+                              eps=eps)
+
+
+def _mxu_sparse_update_csr(buckets, fused, acc, indices, offsets, g_pooled, *,
+                           lr, optimizer, eps):
+    """Small-set step over the CSR wire: bag cotangents gathered by segment
+    id from the offsets (one data shard)."""
+    _, g_e, valid = _entry_updates_csr(indices, offsets, g_pooled.float())
+    t, c = indices.shape
+    return _mxu_apply_entries(buckets, fused, acc, indices, valid.reshape(t, c),
+                              g_e.reshape(t, c, -1), lr=lr, optimizer=optimizer,
+                              eps=eps)
+
+
+def _mxu_apply_entries(buckets, fused, acc, indices, mask, g_e, *, lr,
+                       optimizer, eps):
+    """Bucketed step over a per-entry cotangent stream (indices/mask
+    [Ts, C], g_e [Ts, C, D]), in place.
+
+    Per bucket the entries' cotangents are summed into a dense f32
+    [G * npad, D] gradient by ``index_add_`` (the sums of the JAX package's
+    f32 one-hot^T @ g_e at HIGHEST precision, without the one-hot), then
+    every row steps once: w = (f32(w) - step).to(dtype), with
+    step = lr * grad, or lr * rsqrt(acc + eps) * grad where acc first gains
+    the densified per-entry mean_d(g^2).  In exact arithmetic this equals
+    the big set's entry-wise step.  Masked entries add zeros at the
+    bucket's first row, so their ids are never used."""
+    d = g_e.shape[-1]
+    adagrad = optimizer == "row_adagrad"
+    for start, npad, lo, hi in buckets:
+        g = hi - lo
+        mk = mask[lo:hi]
+        rows = (torch.arange(g, device=fused.device)[:, None] * npad
+                + torch.where(mk, indices[lo:hi].long(), 0)).reshape(-1)  # [G*C]
+        gk = torch.where(mk[..., None], g_e[lo:hi], 0.0).reshape(-1, d)
+        grad = torch.zeros(g * npad, d, dtype=torch.float32, device=fused.device)
+        grad.index_add_(0, rows, gk)
+        w = fused[start : start + g * npad]
+        if adagrad:
+            sq = torch.zeros(g * npad, dtype=torch.float32, device=fused.device)
+            sq.index_add_(0, rows, (gk * gk).mean(dim=-1))
+            a = acc[start : start + g * npad]
+            a.copy_(a + sq)
+            step = (lr * torch.rsqrt(a + eps))[:, None] * grad
+        else:
+            step = lr * grad
+        w.copy_((w.float() - step).to(fused.dtype))
+    return fused, acc

@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on a CUDA
 card: K1 (fixed-L gather+pool), K2/K3 (CSR gather+pool) and K4 (the
 differentiable CSR bag, forward and backward), and the edge cases of the
-warp-tile pool kernels on both row paths (16-byte vector and scalar).
+warp-tile pool kernels on both row paths (16-byte vector and scalar).  Then
+the training path: the gradients of the big-set lookups through K1 and K2
+against the plain versions' autograd, one sparse train step on the card
+against the same step on the CPU, and dropped entries with ids far out of
+range.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the repo's conftest, so on a machine with a card
@@ -11,11 +15,26 @@ and no JAX it runs as
 """
 
 import itertools
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from pim_embedding_lookup_tpu_torch import DLRM, DLRMConfig, ShardingPolicy, TableConfig
+from pim_embedding_lookup_tpu_torch.models.sparse_train import (
+    _apply_sparse_csr,
+    make_sparse_train_state,
+    make_sparse_train_step,
+)
+from pim_embedding_lookup_tpu_torch.models import bce_loss
+from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
+from pim_embedding_lookup_tpu_torch.parallel.collection import EmbeddingCollection
+from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
+    init_accumulator,
+    sparse_update,
+    sparse_update_csr,
+)
 from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_grad,
     embedding_bag_csr_grad_reference,
@@ -230,3 +249,184 @@ def test_repeated_launches_are_bitwise_equal(cuda):
         assert torch.equal(embedding_bag_csr_packed(storage, d, idx, off, batch_size=b), first)
         assert torch.equal(embedding_bag_fixedl(storage, d, ids, pooling=8, batch_size=b,
                                                 mask=mask), first_k1)
+
+
+# -- the training path ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,pooling,packed", [(16, 1, True), (16, 8, True), (32, 3, False)])
+def test_fixedl_backward_matches_plain(cuda, dtype, d, pooling, packed):
+    """K1 on storage that requires grad: the forward is one launch, the
+    backward (the gather's transpose, summed in f32 and rounded once to the
+    storage dtype) equals the plain version's autograd on the same values in
+    f32 storage; bf16 within one bf16 ulp."""
+    n, b = 5000, 900
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rows = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
+    ids = torch.randint(0, n, (b * pooling,), generator=gen, device=cuda, dtype=torch.int32)
+    mask = torch.rand(b * pooling, generator=gen, device=cuda) < 0.7
+    w = torch.randn(b, d, generator=gen, device=cuda)
+    kw = dict(pooling=pooling, batch_size=b, mask=mask)
+    grads = []
+    for fn, src in ((embedding_bag_fixedl, rows), (embedding_bag_fixedl_reference, rows.float())):
+        storage = (src.reshape(-1, 128) if packed else src).clone().requires_grad_(True)
+        before = embedding_bag_fixedl.launches
+        (fn(storage, d, torch.where(mask, ids, NEVER_READ) if fn is embedding_bag_fixedl
+            else ids, **kw) * w).sum().backward()
+        assert embedding_bag_fixedl.launches == before + (fn is embedding_bag_fixedl)
+        assert storage.grad.dtype == storage.dtype and storage.grad.shape == storage.shape
+        grads.append(storage.grad.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(grads[0], grads[1], **(
+        TOL if dtype == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-6)))
+
+GRAD_ROWS = (5000, 300, 20000)
+
+
+def _grad_coll(cuda, packed):
+    tables = tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
+                   for i, n in enumerate(GRAD_ROWS))
+    return EmbeddingCollection.create(tables, ShardingPolicy.REPLICATE, packed=packed,
+                                      device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("wire", ["dense", "csr"])
+def test_lookup_grad_matches_plain(cuda, wire, packed, dtype):
+    """The table gradient through lookup (K1 forward, its transpose) or
+    lookup_csr (K2 forward, K4's gradient kernel) equals the gradient of the
+    same lookup pooled by the plain version, which autograd differentiates,
+    over the same values in f32 storage.  The port sums the gradient in f32
+    and rounds it once to the storage dtype: bf16 within one bf16 ulp.  The
+    kernel runs once per lookup; without grad no autograd node is made."""
+    coll = _grad_coll(cuda, packed)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b = 700
+    if wire == "dense":
+        idx = torch.stack([torch.randint(0, n, (b * 3,), generator=gen, device=cuda,
+                                         dtype=torch.int32) for n in GRAD_ROWS])
+        mask = torch.rand(idx.shape, generator=gen, device=cuda) < 0.7
+        look = lambda f: coll.lookup(f, idx, mask, batch_size=b)  # noqa: E731
+        name, plain, counted = ("embedding_bag_fixedl", embedding_bag_fixedl_reference,
+                                embedding_bag_fixedl)
+    else:
+        idx, off = (x.to(cuda) for x in _csr(8, min(GRAD_ROWS), len(GRAD_ROWS), b, 5))
+        look = lambda f: coll.lookup_csr(f, idx, off)  # noqa: E731
+        name, plain, counted = ("embedding_bag_csr_packed",
+                                embedding_bag_csr_packed_reference, embedding_bag_csr_packed)
+    w = torch.randn(b, len(GRAD_ROWS), 16, generator=gen, device=cuda)
+    table = coll.init(gen, dtype)
+    grads = []
+    for patch in (False, True):
+        fused = table.to(torch.float32 if patch else dtype, copy=True).requires_grad_(True)
+        before = counted.launches
+        if patch:
+            with mock.patch.object(collection_mod, name, plain):
+                (look(fused) * w).sum().backward()
+        else:
+            (look(fused) * w).sum().backward()
+            assert counted.launches == before + 1
+        grads.append(fused.grad.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(grads[0], grads[1], **(
+        TOL if dtype == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-6)))
+    with torch.no_grad():
+        assert look(table.clone().requires_grad_(True)).grad_fn is None
+    assert look(table).grad_fn is None
+
+
+def _mixed_model(device, seed):
+    rows = (3, 24, 583, 1460, 9000, 20000)
+    cfg = DLRMConfig(dense_dim=13, mlp_bot=(32, 16), mlp_top=(32, 1),
+                     tables=tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
+                                  for i, n in enumerate(rows)))
+    return DLRM(cfg, ShardingPolicy.REPLICATE, hybrid=True, device=device,
+                generator=torch.Generator(device="cpu").manual_seed(seed)
+                if device == "cpu" else torch.Generator(device=device).manual_seed(seed))
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "row_adagrad"])
+@pytest.mark.parametrize("wire", ["dense", "csr"])
+def test_sparse_step_matches_cpu(cuda, wire, optimizer):
+    """One sparse train step on the card equals the same step of the port
+    on the CPU (loss, tables, MLPs, accumulators), with padding ids of
+    1 << 30 on the CSR wire."""
+    cpu = _mixed_model("cpu", 3)
+    gpu = _mixed_model(cuda, 3)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(9)
+    b = 64
+    rows = [t.num_rows for t in cpu.config.tables]
+    dense = torch.from_numpy(rng.random((b, 13), dtype=np.float32))
+    labels = torch.from_numpy((rng.random(b) < 0.5).astype(np.float32))
+    if wire == "dense":
+        idx = torch.from_numpy(np.stack([rng.integers(0, n, size=b * 2) for n in rows])
+                               .astype(np.int32))
+        second = torch.from_numpy(rng.random(idx.shape) < 0.8)
+    else:
+        idx, second = _csr(10, min(rows), len(rows), b, 4)
+        idx[torch.arange(idx.shape[1])[None, :] >= second[:, -1:]] = NEVER_READ
+    results = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        opt, acc = make_sparse_train_state(model, optimizer=optimizer, lr=0.1)
+        batch = [t.to(dev) for t in (dense, idx, second, labels)]
+        if wire == "dense":
+            acc, loss = make_sparse_train_step(model, opt, lr=0.1, optimizer=optimizer)(
+                acc, *batch)
+        else:
+            with torch.no_grad():
+                pooled = model.collection.lookup_csr(model.emb_params(), batch[1], batch[2])
+            pooled.requires_grad_(True)
+            loss = bce_loss(model.apply_from_pooled(batch[0], pooled), batch[3])
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                _, acc = _apply_sparse_csr(model.collection, model.emb_params(), acc,
+                                           batch[1], batch[2], pooled.grad, lr=0.1,
+                                           optimizer=optimizer, eps=1e-8)
+        results.append((loss.detach().cpu(), {k: v.cpu() for k, v in acc.items()},
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    torch.cuda.synchronize()
+    (lc, ac, sc), (lg, ag, sg) = results
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    for key in ac:
+        torch.testing.assert_close(ag[key], ac[key], rtol=1e-4, atol=1e-4)
+    for key in sc:
+        torch.testing.assert_close(sg[key], sc[key], rtol=1e-4, atol=1e-4, msg=key)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "row_adagrad"])
+def test_dropped_entries_change_nothing(cuda, optimizer):
+    """Masked entries and CSR padding with ids of 1 << 30 neither assert on
+    the card nor change anything: the same result as with valid ids there
+    (within the order of f32 atomics), and rows no valid entry touched keep
+    their bits."""
+    coll = _grad_coll(cuda, True)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    table = coll.init(gen)
+    b, t = 300, len(GRAD_ROWS)
+    g = torch.randn(b, t, 16, generator=gen, device=cuda)
+    ids = torch.stack([torch.randint(0, n, (b * 2,), generator=gen, device=cuda,
+                                     dtype=torch.int32) for n in GRAD_ROWS])
+    mask = torch.rand(ids.shape, generator=gen, device=cuda) < 0.6
+    idx, off = (x.to(cuda) for x in _csr(12, min(GRAD_ROWS), t, b, 4))
+    pad = torch.arange(idx.shape[1], device=cuda)[None, :] >= off[:, -1:]
+    outs = []
+    for poison in (True, False):
+        fused, acc = table.clone(), init_accumulator(coll)
+        dense_ids = torch.where(mask, ids, NEVER_READ if poison else 0)
+        sparse_update(coll, fused, acc, dense_ids, mask, g, lr=0.1, optimizer=optimizer)
+        sparse_update_csr(coll, fused, acc, torch.where(pad, NEVER_READ if poison else 0, idx),
+                          off, g, lr=0.1, optimizer=optimizer)
+        outs.append((fused, acc))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-5, atol=1e-6)
+    touched = torch.zeros(coll.layout.total_rows, dtype=torch.bool, device=cuda)
+    touched[coll.globalize(ids)[mask].long()] = True
+    touched[coll.globalize(idx)[~pad].long()] = True
+    before, after = table.view(-1, 16), outs[0][0].view(-1, 16)
+    assert torch.equal(after[~touched], before[~touched])
+    assert not torch.equal(after[touched], before[touched])
