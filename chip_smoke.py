@@ -33,16 +33,23 @@ of per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from unittest import mock
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -50,12 +57,13 @@ from pim_embedding_lookup_tpu_torch import (
     DLRM,
     DLRMConfig,
     EmbeddingCollection,
+    HybridEmbeddingCollection,
     ShardingPolicy,
     TableConfig,
     kaggle_config,
     toy_config,
 )
-from pim_embedding_lookup_tpu_torch import make_optimizer, make_train_step, ops
+from pim_embedding_lookup_tpu_torch import make_optimizer, make_train_step, mesh_battery, ops
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.models.train import emb_tensors
 from pim_embedding_lookup_tpu_torch.models.sparse_train import (
@@ -84,12 +92,24 @@ from pim_embedding_lookup_tpu_torch.ops.ragged import (
 )
 from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
 from pim_embedding_lookup_tpu_torch.parallel import lookup_csr_bucketed
+from pim_embedding_lookup_tpu_torch.parallel.collection import (
+    _csr_finish,
+    _csr_local_pool,
+    _csr_rowshard_pool,
+    _finish_combiner,
+    _local_pooled_lookup,
+    _owner_local,
+    _rowshard_pooled_lookup,
+    shard_storage,
+)
 from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
     _mxu_csr_lookup,
     _mxu_pooled_lookup,
     _mxu_sparse_update,
     _mxu_sparse_update_csr,
 )
+from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from pim_embedding_lookup_tpu_torch.parallel.planner import plan
 from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
     sparse_update,
     sparse_update_csr,
@@ -407,51 +427,63 @@ def serve_csr(model, dense, idx, off):
     return model.apply_from_pooled(dense, pooled)
 
 
-def compact(idx, off):
+def compact(idx, off, mask=None):
     """All tables' valid entries back to back, and [T*B+1] offsets into
-    them: the input of one F.embedding_bag call over every table."""
+    them: the input of one F.embedding_bag call over every table; with a
+    [T, C] mask also its valid entries as f32 per-sample weights."""
     t, b = off.shape[0], off.shape[1] - 1
     ends = off[:, -1].tolist()
     flat = torch.cat([idx[i, :ends[i]] for i in range(t)])
     base = torch.tensor([0] + ends[:-1], device=DEV).cumsum(0)
     flat_off = torch.cat([(off[:, :-1] + base[:, None]).reshape(-1),
                           torch.tensor([sum(ends)], device=DEV)])
-    return flat.long(), flat_off.long()
+    if mask is None:
+        return flat.long(), flat_off.long()
+    weights = torch.cat([mask[i, :ends[i]] for i in range(t)]).float()
+    return flat.long(), flat_off.long(), weights
 
 
 def csr_case(tag, name, storage, d, id_sets):
     """K2/K3 against its plain version on set 0 (fused ids [T, C], offsets
-    [T, B+1]); kernel, plain and library times cycling through all sets;
-    bound from set 0's data: valid entries only, padding is not read."""
-    idx, off = id_sets[0]
+    [T, B+1], and for a row shard its [T, C] ownership mask); kernel, plain
+    and library times cycling through all sets; bound from set 0's data:
+    valid entries only, padding is not read, nor the rows of masked
+    entries."""
+    idx, off, *masked = id_sets[0]
+    mask = masked[0] if masked else None
     t, b = off.shape[0], off.shape[1] - 1
-    got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=b)
-    want = embedding_bag_csr_packed_reference(storage, d, idx, off, batch_size=b)
+    got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=b, mask=mask)
+    want = embedding_bag_csr_packed_reference(storage, d, idx, off, batch_size=b, mask=mask)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, **KERNEL_TOL)
 
     weight = storage.view(-1, d)
-    lib_sets = [compact(i, o) for i, o in id_sets]  # before the timed region
-    kernel = lambda i, o: embedding_bag_csr_packed(storage, d, i, o, batch_size=b)  # noqa: E731
+    lib_sets = [compact(*s) for s in id_sets]  # before the timed region
+    kernel = lambda i, o, *m: embedding_bag_csr_packed(  # noqa: E731
+        storage, d, i, o, batch_size=b, mask=m[0] if m else None)
     kernel_ms = device_ms(kernel, id_sets)
     kernel_call_ms = call_ms(kernel, id_sets)
-    plain_ms = device_ms(lambda i, o: embedding_bag_csr_packed_reference(
-        storage, d, i, o, batch_size=b), id_sets)
-    library_ms = device_ms(lambda i, o: F.embedding_bag(
-        i, weight, o, mode="sum", include_last_offset=True), lib_sets)
+    plain_ms = device_ms(lambda i, o, *m: embedding_bag_csr_packed_reference(
+        storage, d, i, o, batch_size=b, mask=m[0] if m else None), id_sets)
+    library_ms = device_ms(lambda i, o, *w: F.embedding_bag(
+        i, weight, o, mode="sum", include_last_offset=True,
+        per_sample_weights=w[0] if w else None), lib_sets)
 
-    active = int(off[:, -1].sum().item())
+    valid = torch.arange(idx.shape[1], device=DEV)[None, :] < off[:, -1:]
+    active = int(valid.sum().item())
+    read = active if mask is None else int((valid & mask).sum().item())
     bound_ms, bound_by = bound(
-        active * (d * storage.element_size() + 4)  # rows and ids read
+        read * d * storage.element_size()  # rows read
+        + active * (4 + (mask is not None))  # ids, and mask bytes
         + t * (b + 1) * 4  # offsets
         + t * b * d * 4,  # f32 output
-        active * d)
+        read * d)
     row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
                tables=t, bags=b, capacity=idx.shape[1], d=d, active_entries=active,
-               max_abs_err=err, kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by)
+               rows_read=read, max_abs_err=err, kernel_ms=kernel_ms,
+               kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
     print(f"{tag} " + json.dumps(row), flush=True)
     return row
 
@@ -622,41 +654,74 @@ def touched_rows(coll, batch, wire):
     return out
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic CUDA algorithms inside: ``index_add_`` sorts its
+    entries instead of adding them with atomics, so two runs of a step add
+    in the same order and compare at the one-step tolerance (with atomics
+    the small set's rows, each hit by up to B entries a step, differ by more
+    from run to run).  Ops with no deterministic form only warn; their
+    names are printed once."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
+                  if "deterministic" in str(w.message)})
+    if ops:
+        print(f"deterministic: no deterministic form, ran as is: {ops}", flush=True)
+
+
+def sparse_state(model, acc):
+    """Clones of what a sparse step changes: both tables, the MLPs and the
+    row-AdaGrad accumulator."""
+    out = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out.update({f"acc_{k}": v.clone() for k, v in acc.items()})
+    return out
+
+
+def restore(model, acc, saved):
+    """Put back a ``sparse_state`` snapshot."""
+    with torch.no_grad():
+        model.load_state_dict({k: v for k, v in saved.items() if not k.startswith("acc_")})
+        for k, v in (acc or {}).items():
+            v.copy_(saved[f"acc_{k}"])
+
+
 def check_against_plain(model, run, state, batch, wire):
     """One step pooled by the kernel against the same step, from the same
-    state, pooled by the plain version: loss, both tables and the
-    accumulator within STEP_TOL.  Rows the batch did not touch keep their
-    bits.  Returns the largest abs difference of the tables."""
-    snap = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    acc0 = {k: v.clone() for k, v in state["acc"].items()} if state["acc"] else None
-    loss_k = run(batch)
-    tables_k = {k: getattr(model, f"emb_{k}").detach().clone() for k in ("small", "big")}
-    acc_k = {k: v.clone() for k, v in state["acc"].items()} if acc0 else None
+    state, pooled by the plain version, both with deterministic algorithms:
+    loss, both tables and the accumulator within STEP_TOL.  Rows the batch
+    did not touch keep their bits.  Returns the largest abs difference of
+    the tables."""
+    before = sparse_state(model, state["acc"] or {})
+    with deterministic():
+        loss_k = run(batch)
+    after_k = sparse_state(model, state["acc"] or {})
     touched = touched_rows(model.collection, batch, wire)
     for key, rows in touched.items():
-        d = snap[f"emb_{key}"].view(-1, 16)
-        after = tables_k[key].view(-1, 16)
+        d = before[f"emb_{key}"].view(-1, 16)
+        after = after_k[f"emb_{key}"].view(-1, 16)
         if not torch.equal(after[~rows], d[~rows]):
             raise AssertionError(f"{key} set: rows the batch did not touch changed")
         if torch.equal(after[rows], d[rows]):
             raise AssertionError(f"{key} set: no touched row changed")
-    with torch.no_grad():
-        model.load_state_dict(snap)
-        if acc0:
-            for k, v in state["acc"].items():
-                v.copy_(acc0[k])
+    restore(model, state["acc"], before)
     name, plain = (("embedding_bag_fixedl", embedding_bag_fixedl_reference) if wire == "dense"
                    else ("embedding_bag_csr_packed", embedding_bag_csr_packed_reference))
-    with mock.patch.object(collection_mod, name, plain):
+    with mock.patch.object(collection_mod, name, plain), deterministic():
         loss_p = run(batch)
     torch.testing.assert_close(loss_k, loss_p, **STEP_TOL)
     err = 0.0
     for key in ("small", "big"):
         got = getattr(model, f"emb_{key}").detach()
-        torch.testing.assert_close(tables_k[key], got, **STEP_TOL)
-        err = max(err, (tables_k[key] - got).abs().max().item())
-        if acc_k:
-            torch.testing.assert_close(acc_k[key], state["acc"][key], **STEP_TOL)
+        torch.testing.assert_close(after_k[f"emb_{key}"], got, **STEP_TOL)
+        err = max(err, (after_k[f"emb_{key}"] - got).abs().max().item())
+        if state["acc"]:
+            torch.testing.assert_close(after_k[f"acc_{key}"], state["acc"][key], **STEP_TOL)
     return err
 
 
@@ -780,8 +845,16 @@ def train_phase(gen):
         # one step per timed run: a step launches ~500 kernels, and several
         # held behind the sleep kernel fill the card's launch queue, which
         # then makes the host wait and the events time the host
+        trained = sparse_state(model, state["acc"] or {})
         dev = device_ms(lambda b_: run(b_), [(b,) for b in timed], calls=1)
         ops_count = aten_ops(lambda: run(batches[-2]))
+        # the timing runs ~45 more steps over the same 5 batches at lr 0.1,
+        # which can drive a logit past f32's range (loss inf, reproduced by
+        # the same step from the same state; which step, if any, moves with
+        # the order of the scatters' atomics): the check starts again from
+        # the state after the timed steps, whose losses are finite
+        restore(model, state["acc"], trained)
+        del trained  # out of the next path's peak memory
         err = check_against_plain(model, run, state, batches[-1], wire)
         totals[name] = dict(ms_per_step=med, samples_per_s=BATCH / med * 1e3,
                             device_ms_per_step=dev, idle_share=1 - dev / med,
@@ -854,10 +927,483 @@ def toy_train_checks(gen):
               f"(B=64): losses and params max abs err {err:.3g} (tol 1e-4)", flush=True)
 
 
-def main() -> int:
+# -- the sharded engine -------------------------------------------------------------
+
+SHARDS = 4
+SHARD_POLICIES = (ShardingPolicy.ROW_HASH, ShardingPolicy.ROW, ShardingPolicy.TABLE_WISE,
+                  ShardingPolicy.COLUMN)
+# Three steps on a mesh against three steps on one device: the sums of a
+# lookup and the atomics of the scatters in another order, compounded.
+TRACE_TOL = dict(rtol=1e-4, atol=1e-6)
+# A sum of shard partials against the one-device lookup: bags split over
+# shards add in another order.
+SHARD_SUM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def mesh_1_phase(gen):
+    """The sharded engine through torch.distributed at world size 1: an NCCL
+    process group joined over a file store, a (1, 1) mesh.  Runs _mesh_1 in
+    it and leaves no process group behind."""
+    store = tempfile.mkdtemp(prefix="pel_mesh_1_")
+    try:
+        init_distributed(0, 1, f"file://{store}/store")
+        try:
+            return _mesh_1(gen, make_mesh(data=1, model=1))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _mesh_1(gen, mesh):
+    """The full-row Kaggle hybrid DLRM with its big set under ROW_HASH on the
+    mesh, built from the same seed as the same model under REPLICATE on one
+    device (the same weights: checked).  Serves 5 requests of B=8192 on
+    each wire, broadcast (K1 / K2 with the ownership mask, then the
+    all-reduce over the model axis) and routed at the default capacity
+    factor (buckets, two all_to_all_single calls, no drops); then 3 sparse
+    row-AdaGrad steps, broadcast and routed.  Everything equals the
+    REPLICATE model's result: logits atol 1e-4, one step rtol 1e-5 / atol
+    1e-6, three steps rtol 1e-4.  Returns the masked K1 and K2 launches of
+    the broadcast paths (served requests and train steps)."""
+    config = kaggle_config()
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=DEV).item())
+    t0 = time.perf_counter()
+    rep = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=DEV,
+               generator=torch.Generator(device=DEV).manual_seed(seed))
+    rh = DLRM(config, ShardingPolicy.ROW_HASH, hybrid=True, mesh=mesh,
+              generator=torch.Generator(device=DEV).manual_seed(seed))
+    if rh.collection.big.layout.policy != ShardingPolicy.ROW_HASH:
+        raise AssertionError("the big set is not under ROW_HASH")
+    for (name, a), b in zip(rep.state_dict().items(), rh.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: one seed gave other weights on the mesh")
+    torch.cuda.synchronize()
+    print(f"mesh_1: NCCL process group of 1, mesh (data 1, model 1); full-row Kaggle "
+          f"hybrid, big set ROW_HASH {tuple(rh.emb_big.shape)} f32 and REPLICATE "
+          f"{tuple(rep.emb_big.shape)} from one seed, equal weights; built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    drops = []
+
+    def routed(wire):
+        def fn(dense, idx, second):
+            coll, emb = rh.collection, rh.emb_params()
+            if wire == "dense":
+                pooled, dropped = coll.lookup(emb, idx, second, batch_size=dense.shape[0],
+                                              routed=True, return_stats=True)
+            else:
+                pooled, dropped = coll.lookup_csr(emb, idx, second, routed=True,
+                                                  return_stats=True)
+            drops.append(dropped)
+            return rh.apply_from_pooled(dense, pooled)
+        return fn
+
+    reqs = {"dense": [request(config, gen, BATCH) for _ in range(REQUESTS + 1)],
+            "CSR": [csr_request(config, gen, BATCH) for _ in range(REQUESTS + 1)]}
+    paths = (  # (wire, name, serve)
+        ("dense", "REPLICATE", rep),
+        ("dense", "ROW_HASH broadcast", rh),
+        ("dense", "ROW_HASH routed", routed("dense")),
+        ("CSR", "REPLICATE", lambda *r: serve_csr(rep, *r)),
+        ("CSR", "ROW_HASH broadcast", lambda *r: serve_csr(rh, *r)),
+        ("CSR", "ROW_HASH routed", routed("CSR")),
+    )
+    want_launches = {  # (K1, K2, masked K2) over REQUESTS requests
+        ("dense", "REPLICATE"): (REQUESTS, 0, 0),
+        ("dense", "ROW_HASH broadcast"): (REQUESTS, 0, 0),
+        ("CSR", "REPLICATE"): (0, REQUESTS, 0),
+        ("CSR", "ROW_HASH broadcast"): (0, REQUESTS, REQUESTS),
+    }
+    ref, serving, masked = {}, {}, {"K1": 0, "K2": 0}
+    with torch.no_grad():
+        for wire, name, fn in paths:
+            fn(*reqs[wire][-1])  # warm-up
+            torch.cuda.synchronize()
+            embedding_bag_fixedl.launches = 0
+            embedding_bag_csr_packed.launches = embedding_bag_csr_packed.masked_launches = 0
+            outs, times, _ = serve(fn, reqs[wire][:REQUESTS])
+            launched = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches,
+                        embedding_bag_csr_packed.masked_launches)
+            if launched != want_launches.get((wire, name), (0, 0, 0)):
+                raise AssertionError(f"mesh_1 {wire} {name}: K1, K2, masked K2 launched "
+                                     f"{launched} times for {REQUESTS} requests")
+            if name == "ROW_HASH broadcast":
+                masked["K1" if wire == "dense" else "K2"] += launched[0] + launched[2]
+            for out in outs:
+                if out.shape != (BATCH,) or not torch.isfinite(out).all():
+                    raise AssertionError(f"mesh_1 {wire} {name}: bad logits")
+            if name == "REPLICATE":
+                ref[wire] = outs
+            err = max((o - r).abs().max().item() for o, r in zip(outs, ref[wire]))
+            for o, r in zip(outs, ref[wire]):
+                torch.testing.assert_close(o, r, rtol=0, atol=1e-4)
+            ops_count = aten_ops(lambda: fn(*reqs[wire][0]))
+            serving[f"{wire} {name}"] = dict(ms_per_request=statistics.median(times),
+                                             aten_ops=ops_count, max_abs_err=err)
+            print(f"mesh_1 serve, {wire} wire, {name}: ms/request "
+                  f"{[round(t, 4) for t in times]}, median {statistics.median(times):.4f}; "
+                  f"ATen operations {ops_count}; K1, K2, masked K2 launches {launched}; "
+                  f"logits max abs err vs REPLICATE {err:.3g} (atol 1e-4)", flush=True)
+    dropped = [int(x.item()) for x in drops]
+    if any(dropped):
+        raise AssertionError(f"mesh_1: routed lookups dropped {dropped}")
+    print(f"mesh_1 serve: routed drop counts {dropped} at the default capacity factor "
+          f"{rh.collection.big.safe_capacity_factor}; summary " + json.dumps(serving),
+          flush=True)
+
+    batches = train_batches(config, gen, BATCH, "dense", 3)
+    init = {k: v.detach().clone() for k, v in rep.state_dict().items()}
+    ref, training = None, {}
+    for name, model, is_routed in (("REPLICATE", rep, False), ("ROW_HASH broadcast", rh, False),
+                                   ("ROW_HASH routed", rh, True)):
+        def trainer():
+            with torch.no_grad():
+                model.load_state_dict(init)
+            opt, acc = make_sparse_train_state(model, optimizer="row_adagrad", lr=TRAIN_LR)
+            return acc, make_sparse_train_step(model, opt, lr=TRAIN_LR,
+                                               optimizer="row_adagrad", routed=is_routed)
+
+        # timed, as a trainer runs it
+        acc, step = trainer()
+        embedding_bag_fixedl.launches = 0
+        times = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            acc, loss = step(acc, *batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        k1 = embedding_bag_fixedl.launches
+        if k1 != (0 if is_routed else len(batches)):
+            raise AssertionError(f"mesh_1 train {name}: K1 launched {k1} times in "
+                                 f"{len(batches)} steps")
+        if name == "ROW_HASH broadcast":
+            masked["K1"] += k1
+        ops_count = aten_ops(lambda: step(acc, *batches[0]))
+
+        # checked: the same steps again from the same state, deterministic
+        acc, step = trainer()
+        losses, snaps = [], []
+        with deterministic():
+            for batch in batches:
+                acc, loss = step(acc, *batch)
+                losses.append(loss)
+                if len(losses) in (1, len(batches)):
+                    snaps.append(sparse_state(model, acc))
+        if name == "REPLICATE":
+            ref = (losses, snaps)
+        errs = []
+        for i, (snap, ref_snap, tol) in enumerate(zip(snaps, ref[1], (STEP_TOL, TRACE_TOL))):
+            torch.testing.assert_close(losses[2 * i], ref[0][2 * i], **tol)
+            for key, val in ref_snap.items():
+                err = (snap[key] - val).abs().max().item()
+                torch.testing.assert_close(snap[key], val, **tol,
+                                           msg=lambda m: f"{name} {key}: {m}")
+                errs.append((i, err))
+        del snaps
+        training[name] = dict(ms_per_step=statistics.median(times), aten_ops=ops_count,
+                              losses=[x.item() for x in losses])
+        print(f"mesh_1 train, {name}, sparse row_adagrad, B={BATCH}: ms/step "
+              f"{[round(t, 4) for t in times]}, median {statistics.median(times):.4f}; ATen "
+              f"operations per step {ops_count}; K1 launches {k1} in {len(batches)} steps; "
+              f"losses {[x.item() for x in losses]}; vs REPLICATE (deterministic algorithms) "
+              f"after 1 step max abs err {max(e for i, e in errs if i == 0):.3g} (rtol 1e-5, "
+              f"atol 1e-6), after 3 steps {max(e for i, e in errs if i == 1):.3g} (rtol 1e-4)",
+              flush=True)
+    print("mesh_1 train: summary " + json.dumps(training), flush=True)
+    return masked
+
+
+def global_storage(src_layout, src_rows, layout):
+    """The tables of ``src_rows`` ([rows, d] in ``src_layout``'s fused
+    order, on the card) as the global storage of ``layout``, on the card:
+    what ``EmbeddingCollection.fused_host_array`` builds on the host."""
+    fused = torch.zeros(layout.total_rows, layout.dim, dtype=src_rows.dtype, device=DEV)
+    for a, b, n in zip(src_layout.row_offsets, layout.row_offsets, layout.table_rows):
+        fused[b:b + n] = src_rows[a:a + n]
+    if layout.policy == ShardingPolicy.ROW_HASH:  # shard s's local row j: fused row j*m + s
+        m, rps = layout.num_shards, layout.rows_per_shard
+        perm = (torch.arange(rps, device=DEV)[None, :] * m
+                + torch.arange(m, device=DEV)[:, None]).reshape(-1)
+        fused = fused[perm]
+    return fused.view(layout.storage_rows, layout.storage_width)
+
+
+def shards_4_phase(gen):
+    """Four model shards in one process, no collective: the full-row Kaggle
+    big set (10 tables, 33,742,688 rows, d=16 f32) cut into the 4 shards of
+    ROW_HASH, ROW, TABLE_WISE and COLUMN.  On each shard the launch its
+    lookup makes: masked K1 over the dense wire (single-hot, B=8192) and
+    masked K2 over the CSR wire (pooling-1 mixture), or K1 / K2 on the
+    shard's d/4 slice for COLUMN, held against the plain version (1e-5) and
+    timed beside it, the library call and the bound (the rows the shard
+    owns, every id, mask and offset byte, the output).  The shards' partials
+    (the per-shard bodies) summed, maxed for MAX, or side by side for
+    COLUMN, then finished, equal the REPLICATE lookup.  Returns the masked
+    K1 and K2 rows of ROW_HASH's four shards."""
+    config = kaggle_config()
+    hyb = HybridEmbeddingCollection.create(config.tables, ShardingPolicy.REPLICATE, device=DEV)
+    rep = hyb.big
+    tables = [config.tables[i] for i in hyb.big_ids]
+    rows = [t.num_rows for t in tables]
+    storage = rep.init(gen)
+    d = rep.layout.dim
+    dense_sets = [torch.stack([torch.randint(0, n, (BATCH,), generator=gen, device=DEV,
+                                             dtype=torch.int32) for n in rows])
+                  for _ in range(ID_SETS)]
+    keep = torch.ones(len(rows), BATCH, dtype=torch.bool, device=DEV)
+    csr_sets = [csr_ids(rows, gen, BATCH, 1) for _ in range(ID_SETS)]
+    with torch.no_grad():
+        want = {(wire, comb): (rep.lookup(storage, dense_sets[0], keep, batch_size=BATCH,
+                                          combiner=comb) if wire == "dense"
+                               else rep.lookup_csr(storage, *csr_sets[0], combiner=comb))
+                for wire in ("dense", "CSR") for comb in ("sum", "max")}
+    rows_out = {"K1": [], "K2": []}
+    for policy in SHARD_POLICIES:
+        lay = plan(tables, SHARDS, policy, "auto")
+        coll = EmbeddingCollection(lay, DEV)
+        glob = global_storage(rep.layout, storage.view(-1, d), lay)
+        shards = [shard_storage(lay, s, glob).contiguous() for s in range(SHARDS)]
+        del glob
+        column = policy == ShardingPolicy.COLUMN
+        dsub = d // SHARDS if column else d
+        strided = policy == ShardingPolicy.ROW_HASH
+
+        def kw(s):
+            return dict(shard=s, num_shards=SHARDS, rows_per_shard=lay.rows_per_shard,
+                        strided=strided)
+
+        def owned(g, s):
+            """(owner-local ids, kept) of fused ids ``g`` on shard s."""
+            if column:
+                return g, torch.ones_like(g, dtype=torch.bool)
+            owner, local = _owner_local(g, lay.rows_per_shard, SHARDS, strided)
+            return local, (owner == s) & (local < lay.rows_per_shard)
+
+        # the partials of the per-shard bodies, merged as the collectives merge them
+        with torch.no_grad():
+            g_dense = coll.globalize(dense_sets[0])
+            g_csr = coll.globalize(csr_sets[0][0]).contiguous()
+            off = csr_sets[0][1]
+            errs = []
+            for wire, comb in want:
+                parts = []
+                for s in range(SHARDS):
+                    if wire == "dense":
+                        parts.append(_local_pooled_lookup(shards[s], dsub, g_dense, keep, 1, comb)
+                                     if column else _rowshard_pooled_lookup(
+                                         shards[s], d, g_dense, keep, 1, comb, **kw(s)))
+                    else:
+                        parts.append(_csr_local_pool(shards[s], dsub, g_csr, off, BATCH, comb)
+                                     if column else _csr_rowshard_pool(
+                                         shards[s], d, g_csr, off, BATCH, comb, **kw(s)))
+                if column:
+                    pooled = torch.cat(parts, dim=2)
+                else:
+                    stacked = torch.stack(parts)
+                    pooled = stacked.amax(dim=0) if comb == "max" else stacked.sum(dim=0)
+                pooled = (_finish_combiner(comb, 1, pooled, keep) if wire == "dense"
+                          else _csr_finish(comb, pooled, off))
+                torch.testing.assert_close(pooled, want[(wire, comb)], **SHARD_SUM_TOL)
+                errs.append((pooled - want[(wire, comb)]).abs().max().item())
+        print(f"shards_4 {policy.value}: {SHARDS} shards of storage "
+              f"{tuple(shards[0].shape)}; partials merged equal to the REPLICATE lookup "
+              f"(dense sum, dense max, CSR sum, CSR max; max abs err "
+              f"{[float(f'{e:.3g}') for e in errs]}, tol 1e-5)", flush=True)
+
+        # each shard's kernel launch at the main path's shapes
+        for s in range(SHARDS):
+            k1_sets = []
+            for ids in dense_sets:
+                local, own = owned(coll.globalize(ids), s)
+                k1_sets.append((local.reshape(-1).to(torch.int32).contiguous(),
+                                (own & keep).reshape(-1).contiguous()))
+            k2_sets = []
+            for idx, o in csr_sets:
+                local, own = owned(coll.globalize(idx), s)
+                k2_sets.append((local.to(torch.int32).contiguous(), o)
+                               + (() if column else (own.contiguous(),)))
+            what = "K1/K2 on its d/4 slice" if column else "ownership mask"
+            k1 = k1_case(f"shards_4 {policy.value} shard {s} ({what}; 10 tables x B=8192, L=1)",
+                         shards[s], dsub, 1, k1_sets)
+            k2 = csr_case("K2", f"shards_4 {policy.value} shard {s} ({what}; 10 tables x "
+                          "B=8192, pooling-1 mixture)", shards[s], dsub, k2_sets)
+            if policy == ShardingPolicy.ROW_HASH:
+                rows_out["K1"].append(k1)
+                rows_out["K2"].append(k2)
+        del shards
+    return rows_out
+
+
+def mean_row(rows):
+    """One kernel-table row for the launches of several shards: the mean of
+    each time, the largest error."""
+    out = {k: statistics.mean(r[k] for r in rows)
+           for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["bound_by"] = rows[0]["bound_by"]
+    return out
+
+
+def _spawn(cmds, timeout, env=None):
+    """Start every command together; wait for all of them, killing the rest
+    as soon as one fails (its peers would wait in a collective).  Raises
+    with the failed commands' error output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env) for c in cmds]
+    deadline = time.monotonic() + timeout
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    outs = [p.communicate() for p in procs]
+    failed = [(r, p.returncode, err) for r, (p, (_, err)) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError("\n".join(f"process {r} exited {rc}:\n{err[-3000:]}"
+                                       for r, rc, err in failed))
+    return [out for out, _ in outs]
+
+
+def run_battery(data, model, device, tmp):
+    """``mesh_battery`` on data*model processes (NCCL over the cards, or
+    gloo on the CPU, one thread each); each rank's results."""
+    world = data * model
+    out = os.path.join(tmp, f"{device}_{data}x{model}")
+    os.makedirs(out)
+    inputs = os.path.join(out, "inputs.npz")
+    np.savez(inputs, **mesh_battery.make_inputs(SEED, data))
+    cmd = [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.mesh_battery"]
+    _spawn([cmd + [str(r), str(world), str(data), str(model), os.path.join(out, "store"),
+                   inputs, out, device] for r in range(world)],
+           timeout=600, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    return [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(world)]
+
+
+def mesh_worker(rank, world, store, out):
+    """One rank of the multi-card serve: the full-row Kaggle hybrid DLRM,
+    big set ROW_HASH over a (1, world) mesh, serving 5 requests of B=8192 on
+    the dense wire, routed and broadcast, each held against the REPLICATE
+    model built on this card from the same seed (atol 1e-4; no routed
+    drops).  Writes its numbers to ``out``/rank<r>.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_distributed(rank, world, f"file://{store}")
+    try:
+        mesh = make_mesh(data=1, model=world)
+        config = kaggle_config()
+        rh = DLRM(config, ShardingPolicy.ROW_HASH, hybrid=True, mesh=mesh,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+        rep = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        reqs = [request(config, gen, BATCH) for _ in range(REQUESTS + 1)]
+        drops = []
+
+        def routed(dense, idx, mask):
+            pooled, dropped = rh.collection.lookup(rh.emb_params(), idx, mask,
+                                                   batch_size=BATCH, routed=True,
+                                                   return_stats=True)
+            drops.append(int(dropped.item()))
+            return rh.apply_from_pooled(dense, pooled)
+
+        result = {"rank": rank, "device": torch.cuda.get_device_name(dev),
+                  "big_shard": list(rh.emb_big.shape)}
+        with torch.no_grad():
+            want = [rep(*r) for r in reqs[:REQUESTS]]
+            for name, fn in (("routed", routed), ("broadcast", rh)):
+                fn(*reqs[-1])
+                outs, times, _ = serve(fn, reqs[:REQUESTS])
+                for o, w in zip(outs, want):
+                    torch.testing.assert_close(o, w, rtol=0, atol=1e-4)
+                result[name] = dict(
+                    ms_per_request=statistics.median(times),
+                    max_abs_err=max((o - w).abs().max().item() for o, w in zip(outs, want)))
+        if any(drops):
+            raise AssertionError(f"routed lookups dropped {drops}")
+        result["routed_drops"] = drops
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def compare_battery(got, want, label):
+    """Every rank's NCCL results against rank 0 of the gloo run: drop counts,
+    hot ids and refusals exactly, values at the CPU tests' tolerances."""
+    cases = 0
+    for r, ranked in enumerate(got):
+        if set(ranked) != set(want[0]):
+            raise AssertionError(f"{label} rank {r}: other results "
+                                 f"{sorted(set(ranked) ^ set(want[0]))}")
+        for key, val in want[0].items():
+            case, name = key.split("/", 1)
+            if name == "error":
+                raise AssertionError(f"{label} {case}: {bytes(val).decode()[-2000:]}")
+            if name.endswith("dropped") or name in ("hot_ids", "error_text"):
+                np.testing.assert_array_equal(ranked[key], val, err_msg=f"{label} {key}")
+            else:
+                tol = (TRACE_TOL if case in ("train_routed_trace", "train_hot")
+                       else STEP_TOL)
+                np.testing.assert_allclose(ranked[key], val, **tol, err_msg=f"{label} {key}")
+        cases = len({k.split("/", 1)[0] for k in ranked})
+    return cases
+
+
+def multi_gpu_phase():
+    """Across min(4, count) cards (only where the machine shows more than
+    one): the toy battery of the sharded engine over NCCL equal to the same
+    battery over gloo on the CPU (which the CPU tests hold against the JAX
+    package), on a (1, W) mesh and, with 4 cards, a (2, 2) one; then the
+    full-row ROW_HASH routed serve over the W cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"multi_gpu: skipped: the machine shows {n} CUDA device "
+              "(torch.cuda.device_count()); the phase needs 2 or more", flush=True)
+        return
+    w = min(4, n)
+    tmp = tempfile.mkdtemp(prefix="pel_multi_gpu_")
+    try:
+        for data, model in [(1, w)] + ([(2, 2)] if w == 4 else []):
+            t0 = time.perf_counter()
+            got = run_battery(data, model, "cuda", tmp)
+            want = run_battery(data, model, "cpu", tmp)
+            cases = compare_battery(got, want, f"multi_gpu {data}x{model}")
+            print(f"multi_gpu: toy battery, mesh (data {data}, model {model}) over NCCL on "
+                  f"{data * model} cards: {cases} cases equal to the gloo run on the CPU "
+                  f"(rtol 1e-5 atol 1e-6; 3-step traces rtol 1e-4; drop counts exact) in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = os.path.join(tmp, "serve")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        _spawn([[sys.executable, os.path.abspath(__file__), "--mesh-worker", str(r), str(w),
+                 os.path.join(out, "store"), out] for r in range(w)], timeout=900)
+        for r in range(w):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                print(f"multi_gpu serve, full-row Kaggle hybrid, big set ROW_HASH over {w} "
+                      f"cards, B={BATCH}: " + f.read(), flush=True)
+        print(f"multi_gpu serve: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
+        return 2
+    if argv[:1] == ["--mesh-worker"]:  # one rank of multi_gpu's serve
+        rank, world = map(int, argv[1:3])
+        return mesh_worker(rank, world, *argv[3:5])
+    only_multi_gpu = argv == ["--only", "multi_gpu"]
+    if argv and not only_multi_gpu:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -881,6 +1427,12 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+
+    if only_multi_gpu:  # the phase that needs several cards, alone
+        multi_gpu_phase()
+        print(f"chip_smoke: multi_gpu phase passed in {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        return 0
 
     # -- 2b. kernel edge cases: K1 and K2 on every code path, toy sizes ---------
     t0 = time.perf_counter()
@@ -1139,6 +1691,21 @@ def main() -> int:
     toy_train_checks(gen)
     print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 12. mesh_1: the sharded engine through NCCL at world size 1 ------------
+    t0 = time.perf_counter()
+    masked_launches = mesh_1_phase(gen)
+    print(f"mesh_1 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 13. shards_4: four shards of the full-row big set in one process -------
+    t0 = time.perf_counter()
+    shard_rows = shards_4_phase(gen)
+    print(f"shards_4 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 14. multi_gpu: the sharded engine over several cards, where there are --
+    t0 = time.perf_counter()
+    multi_gpu_phase()
+    print(f"multi_gpu phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           "(build included)", flush=True)
     src = "pim_embedding_lookup_tpu_torch/csrc/"
@@ -1152,7 +1719,9 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     print("kernels: K1, K2, K3, K4 forward, K4 backward; K1 and K2 launches over "
-          "the served requests and the timed train steps", flush=True)
+          "the served requests and the timed train steps; masked K1 and K2: the mean "
+          "of ROW_HASH's 4 shard launches (shards_4), launches over mesh_1's broadcast "
+          "requests and train steps", flush=True)
     print(json.dumps({"kernels": [
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu",
               "272", k1_launches + train_launches["K1"], main_f32),
@@ -1164,6 +1733,10 @@ def main() -> int:
               "csr_pool.cu", "204", k4_launches[0], k4_fwd),
         entry("K4 backward embedding_bag_csr_grad (CSR bag gradient)",
               "csr_pool.cu", "230", k4_launches[1], k4_bwd),
+        entry("K1 masked embedding_bag_fixedl (row shard, ownership mask)",
+              "gather_pool.cu", "272", masked_launches["K1"], mean_row(shard_rows["K1"])),
+        entry("K2 masked embedding_bag_csr_packed (row shard, ownership mask)",
+              "csr_pool.cu", "92", masked_launches["K2"], mean_row(shard_rows["K2"])),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1173,4 +1746,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

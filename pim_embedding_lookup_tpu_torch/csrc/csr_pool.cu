@@ -11,7 +11,11 @@
 //
 // Indices are [T, C] (entry stride C) and offsets [T, B+1]: bag b of table t
 // owns entries [off[t][b], off[t][b+1]) of row t of the indices, and entries
-// at or past off[t][B] are padding.  Each table keeps its own offsets row,
+// at or past off[t][B] are padding.  An optional mask [T, C] (one byte an
+// entry, the stride of the indices) drops the entries whose byte is 0: a
+// row shard's ownership mask, so that the rows of other shards (and their
+// ids, out of this shard's range) are never read.  A bag whose entries are
+// all dropped pools to 0.  Each table keeps its own offsets row,
 // so the padding of one table never falls into a bag of the next.  Bag
 // (t, b) writes output row t*B + b.
 //
@@ -83,11 +87,12 @@ __device__ __forceinline__ void bag_range(const int* off, int b,
 
 constexpr int kUnroll = 4;  // U: row loads of a bag issued before the adds
 
-template <typename T, bool VEC, bool BY_GROUP>
+template <typename T, bool VEC, bool BY_GROUP, bool MASKED>
 __global__ void __launch_bounds__(pel::kBlock)
 csr_pool_kernel(const T* __restrict__ storage, const int* __restrict__ indices,
-                const int* __restrict__ offsets, float* __restrict__ out,
-                int tables, int batch, long long capacity, int d, int group) {
+                const int* __restrict__ offsets, const unsigned char* __restrict__ mask,
+                float* __restrict__ out, int tables, int batch, long long capacity,
+                int d, int group) {
   const int lane = threadIdx.x & 31;
   const int bags_per_tile = 32 / group;
   const int g = lane / group;  // this lane's bag in the tile
@@ -115,9 +120,9 @@ csr_pool_kernel(const T* __restrict__ storage, const int* __restrict__ indices,
       tile.E = (int)__reduce_max_sync(pel::kFull, bag ? (unsigned)tile.e : 0u);
     }
     tile.ids = indices + t * capacity;
-    tile.mask = nullptr;
+    tile.mask = MASKED ? mask + t * capacity : nullptr;
     tile.dst = bag ? out + (t * batch + b0 + g) * (long long)d : nullptr;
-    pel::pool_tile<T, VEC, false, kUnroll, BY_GROUP>(storage, d, group, tile);
+    pel::pool_tile<T, VEC, MASKED, kUnroll, BY_GROUP>(storage, d, group, tile);
   }
 }
 
@@ -148,33 +153,45 @@ unsigned int grid_of(long long bags, const dim3& block) {
   return (unsigned int)((bags + block.y - 1) / block.y);
 }
 
-template <typename T, bool VEC, bool BY_GROUP>
+template <typename T, bool VEC, bool BY_GROUP, bool MASKED>
 int launch_pool(const void* storage, const void* indices, const void* offsets,
-                void* out, int tables, int batch, long long capacity, int d,
-                int group, int device, void* stream) {
+                const void* mask, void* out, int tables, int batch, long long capacity,
+                int d, int group, int device, void* stream) {
   if (!pel::geometry_ok<T, VEC>(storage, d, group)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int bags_per_tile = 32 / group;
   const long long tiles = (long long)tables * ((batch + bags_per_tile - 1) / bags_per_tile);
   const int warps_per_block = pel::kBlock / 32;
-  const int grid = pel::wave_blocks<&csr_pool_kernel<T, VEC, BY_GROUP>>(
+  const int grid = pel::wave_blocks<&csr_pool_kernel<T, VEC, BY_GROUP, MASKED>>(
       device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  csr_pool_kernel<T, VEC, BY_GROUP><<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
-      (const T*)storage, (const int*)indices, (const int*)offsets, (float*)out,
-      tables, batch, capacity, d, group);
+  csr_pool_kernel<T, VEC, BY_GROUP, MASKED><<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
+      (const T*)storage, (const int*)indices, (const int*)offsets,
+      (const unsigned char*)mask, (float*)out, tables, batch, capacity, d, group);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool MASKED>
+int launch_pool(const void* storage, const void* indices, const void* offsets,
+                const void* mask, void* out, int tables, int batch, long long capacity,
+                int d, int vec, int group, int by_group, int device, void* stream) {
+  const auto launch =
+      vec ? (by_group ? launch_pool<T, true, true, MASKED> : launch_pool<T, true, false, MASKED>)
+          : (by_group ? launch_pool<T, false, true, MASKED> : launch_pool<T, false, false, MASKED>);
+  return launch(storage, indices, offsets, mask, out, tables, batch, capacity, d, group,
+                device, stream);
+}
+
+// The MASKED instances run where the caller gives a mask ([T, C] bytes, an
+// entry kept where its byte is set); the others take no per-entry load.
 template <typename T>
 int launch_pool(const void* storage, const void* indices, const void* offsets,
-                void* out, int tables, int batch, long long capacity, int d,
-                int vec, int group, int by_group, int device, void* stream) {
-  const auto launch = vec ? (by_group ? launch_pool<T, true, true> : launch_pool<T, true, false>)
-                          : (by_group ? launch_pool<T, false, true> : launch_pool<T, false, false>);
-  return launch(storage, indices, offsets, out, tables, batch, capacity, d, group, device,
-                stream);
+                const void* mask, void* out, int tables, int batch, long long capacity,
+                int d, int vec, int group, int by_group, int device, void* stream) {
+  const auto launch = mask != nullptr ? launch_pool<T, true> : launch_pool<T, false>;
+  return launch(storage, indices, offsets, mask, out, tables, batch, capacity, d, vec, group,
+                by_group, device, stream);
 }
 
 }  // namespace
@@ -182,18 +199,18 @@ int launch_pool(const void* storage, const void* indices, const void* offsets,
 extern "C" {
 
 int pel_csr_pool_f32(const void* storage, const void* indices,
-                     const void* offsets, void* out, int tables, int batch,
-                     long long capacity, int d, int vec, int group, int by_group,
-                     int device, void* stream) {
-  return launch_pool<float>(storage, indices, offsets, out, tables, batch,
+                     const void* offsets, const void* mask, void* out, int tables,
+                     int batch, long long capacity, int d, int vec, int group,
+                     int by_group, int device, void* stream) {
+  return launch_pool<float>(storage, indices, offsets, mask, out, tables, batch,
                             capacity, d, vec, group, by_group, device, stream);
 }
 
 int pel_csr_pool_bf16(const void* storage, const void* indices,
-                      const void* offsets, void* out, int tables, int batch,
-                      long long capacity, int d, int vec, int group, int by_group,
-                      int device, void* stream) {
-  return launch_pool<__nv_bfloat16>(storage, indices, offsets, out, tables,
+                      const void* offsets, const void* mask, void* out, int tables,
+                      int batch, long long capacity, int d, int vec, int group,
+                      int by_group, int device, void* stream) {
+  return launch_pool<__nv_bfloat16>(storage, indices, offsets, mask, out, tables,
                                     batch, capacity, d, vec, group, by_group,
                                     device, stream);
 }

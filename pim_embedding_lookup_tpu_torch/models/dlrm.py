@@ -68,7 +68,10 @@ class DLRM(nn.Module):
     Query format: dense [B, dense_dim] f32, indices [T, B*L] per-table local
     row ids (bag-major), mask [T, B*L] bool.  ``forward`` returns [B]
     logits.  Built on ``device`` (CUDA unless named) with weights drawn from
-    ``generator``, which must live on that device.
+    ``generator``, which must live on that device.  On a ``mesh``
+    (``parallel.mesh.PortMesh``) the device is the mesh's, the embedding
+    buffers are this process's shards, and a query is this process's data
+    row's slice of the batch; one seed gives the same model on every mesh.
     """
 
     def __init__(
@@ -79,6 +82,7 @@ class DLRM(nn.Module):
         hybrid: bool = False,
         device=None,
         generator: torch.Generator,
+        mesh=None,
     ):
         super().__init__()
         if torch.backends.cuda.matmul.allow_tf32:
@@ -86,17 +90,11 @@ class DLRM(nn.Module):
                 "DLRM runs its MLPs in full f32; "
                 "torch.backends.cuda.matmul.allow_tf32 must be False"
             )
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
         self.config = config
         self.hybrid = hybrid
-        if hybrid:
-            self.collection = HybridEmbeddingCollection.create(
-                config.tables, policy, device=device
-            )
-        else:
-            self.collection = EmbeddingCollection.create(
-                config.tables, policy, device=device
-            )
+        coll = HybridEmbeddingCollection if hybrid else EmbeddingCollection
+        self.collection = coll.create(config.tables, policy, device=device, mesh=mesh)
         d = config.sparse_dim
         if config.mlp_bot[-1] != d:
             raise ValueError(

@@ -11,7 +11,11 @@ step built here
      row-wise AdaGrad step,
 
 so no dense [rows, D] gradient is built and the update costs O(entries).
-The embedding storage, the accumulator and the MLP params are updated in
+On a mesh each process feeds its data row's slice of the batch: the loss is
+the mean over the global batch (each process divides by the global B), the
+dense gradients are summed over the data axis, and the step returns the
+global loss; model peers see the same pooled tensor, so their dense steps
+agree with no further collective.  The embedding storage, the accumulator and the MLP params are updated in
 place, which stands in for the JAX step's buffer donation.  The CSR wire
 has no step factory here, as in the JAX package: a caller composes
 ``lookup_csr``, ``DLRM.apply_from_pooled`` and ``_apply_sparse_csr``.
@@ -29,6 +33,7 @@ from ..parallel.hybrid import (
     sparse_update_hybrid,
     sparse_update_hybrid_csr,
 )
+from ..parallel.mesh import DATA_AXIS
 from ..parallel.sparse_update import init_accumulator, sparse_update, sparse_update_csr
 from .dlrm import DLRM, bce_loss
 from .train import OptimizerFactory, make_optimizer
@@ -63,6 +68,16 @@ def dense_params(model: DLRM) -> list[torch.Tensor]:
     return [*model.bot.parameters(), *model.top.parameters()]
 
 
+def _sum_grads_over_data(mesh, params):
+    """Sum the params' gradients over the data axis, as one flat
+    all-reduce."""
+    flat = mesh.psum(torch.cat([p.grad.reshape(-1) for p in params]), DATA_AXIS)
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at:at + p.grad.numel()].view_as(p.grad))
+        at += p.grad.numel()
+
+
 def make_sparse_train_state(
     model: DLRM, *, optimizer: str = "sgd", lr: float = 0.1,
     dense_optimizer: OptimizerFactory | None = None,
@@ -87,30 +102,55 @@ def make_sparse_train_step(
     capacity_factor: float | None = None,
     hot_cache: bool = False,
 ) -> Callable:
-    """The step ``(acc, dense, indices, mask, labels) -> (acc, loss)`` over
-    the dense wire.  It updates the model's embedding storage, ``acc`` and
-    the MLP params in place; the loss is detached.  ``routed`` and
-    ``hot_cache`` need the multi-device port."""
+    """The step ``(acc, dense, indices, mask, labels[, hot_ids, hot_rows])
+    -> (acc, loss)`` over the dense wire.  It updates the model's embedding
+    storage, ``acc`` and the MLP params in place; the loss is detached.
+
+    ``routed=True`` (a model on a mesh) sends the big-set lookup and the
+    scatter update through the all-to-all routing; drop-safe at the default
+    ``capacity_factor``.  ``hot_cache=True`` (routed only): the step takes
+    two trailing args, a hot-row snapshot from ``hotcache.build_hot_cache``
+    that serves hot entries locally; it goes stale as updates land and the
+    caller rebuilds it."""
     if hot_cache and not routed:
         raise ValueError("hot_cache is a routed-lookup feature")
-    if routed:
-        raise NotImplementedError(
-            "routed sparse train step needs the multi-device port (ROADMAP.md)")
     coll = model.collection
+    mesh = coll.mesh
+    if routed and mesh is None:
+        raise ValueError("a routed sparse train step needs a model on a mesh "
+                         "(DLRM(..., mesh=...))")
+    hybrid = isinstance(coll, HybridEmbeddingCollection)
+    params = dense_params(model)
 
-    def train_step(acc, dense, indices, mask, labels):
+    def lookup(indices, mask, b, hc):
+        emb = model.emb_params()
+        if not routed:
+            return coll.lookup(emb, indices, mask, batch_size=b)
+        kw = dict(batch_size=b, capacity_factor=capacity_factor, hot_cache=hc)
+        if hybrid:
+            return coll.lookup(emb, indices, mask, routed=True, **kw)
+        return coll.lookup_routed(emb, indices, mask, **kw)
+
+    def train_step(acc, dense, indices, mask, labels, *hc_args):
+        if bool(hc_args) != hot_cache:
+            raise TypeError("step built with hot_cache=%s but got %d trailing cache args"
+                            % (hot_cache, len(hc_args)))
         with torch.no_grad():
-            pooled = coll.lookup(model.emb_params(), indices, mask,
-                                 batch_size=dense.shape[0])  # [B, T, D]
+            pooled = lookup(indices, mask, dense.shape[0], hc_args or None)  # [B, T, D]
         pooled.requires_grad_(True)
         dense_opt.zero_grad(set_to_none=True)
         loss = bce_loss(model.apply_from_pooled(dense, pooled), labels)
+        if mesh is not None:  # the mean over the global batch
+            loss = loss / mesh.data
         loss.backward()
+        if mesh is not None:
+            _sum_grads_over_data(mesh, params)
+            loss = mesh.psum(loss.detach().clone(), DATA_AXIS)
         dense_opt.step()
         with torch.no_grad():
             _, acc = _apply_sparse(coll, model.emb_params(), acc, indices, mask,
                                    pooled.grad, lr=lr, optimizer=optimizer, eps=eps,
-                                   capacity_factor=capacity_factor)
+                                   routed=routed, capacity_factor=capacity_factor)
         return acc, loss.detach()
 
     return train_step

@@ -22,10 +22,12 @@ per (bag, lane).  The wrappers take T tables at once (indices [T, C],
 offsets [T, B+1]), one launch for all of them.
 
 The plain versions run only for CPU tensors; a CUDA tensor launches the
-kernel or raises.  Where the storage requires grad (and grad mode is on),
-``embedding_bag_csr_packed`` is differentiable w.r.t. the storage through
-the same autograd function as K4: the forward is the pool kernel, the
-backward K4's gradient kernel.
+kernel or raises.  K2 also takes an optional per-entry mask (a row shard's
+ownership), whose dropped entries it never reads; ``masked_launches``
+counts those launches.  Where the storage requires grad (and grad mode is
+on), ``embedding_bag_csr_packed`` is differentiable w.r.t. the storage
+through the same autograd function as K4: the forward is the pool kernel,
+the backward K4's gradient kernel.
 """
 
 from __future__ import annotations
@@ -42,9 +44,10 @@ _LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
-# the pool kernels also take the row path and the walk, after d: vector,
-# group and by_group
-_POOL_ARGS = _LAUNCH_ARGS[:8] + [ctypes.c_int] * 3 + _LAUNCH_ARGS[8:]
+# the pool kernels also take the mask (after the offsets; NULL: none), and
+# the row path and the walk after d: vector, group and by_group
+_POOL_ARGS = ([ctypes.c_void_p] + _LAUNCH_ARGS[:8] + [ctypes.c_int] * 3
+              + _LAUNCH_ARGS[8:])
 _SIGNATURES = {
     "pel_csr_pool_f32": (_POOL_ARGS, ctypes.c_int),
     "pel_csr_pool_bf16": (_POOL_ARGS, ctypes.c_int),
@@ -53,7 +56,7 @@ _SIGNATURES = {
 }
 
 
-def _check_csr(indices, offsets, batch_size, device):
+def _check_csr(indices, offsets, batch_size, device, mask=None):
     for name, t in (("indices", indices), ("offsets", offsets)):
         if t.dtype != torch.int32 or t.dim() not in (1, 2) or not t.is_contiguous():
             raise TypeError(f"{name} must be a contiguous 1-D or 2-D int32 tensor")
@@ -65,23 +68,32 @@ def _check_csr(indices, offsets, batch_size, device):
     if batch_size < 0 or offsets.shape[-1] != batch_size + 1:
         raise ValueError(f"offsets hold {offsets.shape[-1]} boundaries for "
                          f"batch_size={batch_size}")
+    if mask is not None:
+        if mask.dtype not in (torch.bool, torch.uint8) or not mask.is_contiguous():
+            raise TypeError("mask must be a contiguous bool or uint8 tensor")
+        if mask.shape != indices.shape or mask.device != device:
+            raise ValueError(f"mask {tuple(mask.shape)} on {mask.device} for indices "
+                             f"{tuple(indices.shape)} on {device}")
 
 
 def _as_2d(indices, offsets):
     return indices.reshape(-1, indices.shape[-1]), offsets.reshape(-1, offsets.shape[-1])
 
 
-def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path):
+def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path, mask=None):
     """One launch of a csr_pool.cu kernel over [T, C] ids and [T, B+1]
     offsets on ``src``'s device and current stream; ``path`` is the pool
-    kernels' (vector, group, by_group)."""
+    kernels' (vector, group, by_group), and they also take the mask."""
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
     idx2, off2 = _as_2d(indices, offsets)
     lib = _build.load("csr_pool", _SIGNATURES)
     stream = torch.cuda.current_stream(src.device).cuda_stream
+    pointers = [src.data_ptr(), idx2.data_ptr(), off2.data_ptr()]
+    if path:
+        pointers.append(None if mask is None else mask.data_ptr())
     err = getattr(lib, fn_name)(
-        src.data_ptr(), idx2.data_ptr(), off2.data_ptr(), out.data_ptr(),
+        *pointers, out.data_ptr(),
         idx2.shape[0], batch_size, idx2.shape[1], d, *path, src.device.index, stream,
     )
     if err != 0:
@@ -104,13 +116,16 @@ def _segments(indices, offsets, batch_size):
 
 def embedding_bag_csr_packed_reference(
     storage: torch.Tensor, d: int, indices: torch.Tensor, offsets: torch.Tensor,
-    *, batch_size: int,
+    *, batch_size: int, mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K2/K3: ``index_select`` plus ``index_add_``
-    over the segment ids.  [B, d] f32, or [T*B, d] for [T, C] indices."""
+    over the segment ids.  [B, d] f32, or [T*B, d] for [T, C] indices.
+    Entries whose ``mask`` is unset are dropped like padding."""
     t = 1 if indices.dim() == 1 else indices.shape[0]
     fseg, valid = _segments(indices, offsets, batch_size)
-    ids = torch.where(valid, indices.reshape(-1).long(), 0)  # padding not read
+    if mask is not None:
+        valid = valid & mask.reshape(-1).bool()
+    ids = torch.where(valid, indices.reshape(-1).long(), 0)  # dropped: not read
     rows = storage.reshape(-1, d).index_select(0, ids).float()
     rows = torch.where(valid[:, None], rows, 0.0)
     out = torch.zeros(t * (batch_size + 1), d, dtype=torch.float32,
@@ -119,14 +134,14 @@ def embedding_bag_csr_packed_reference(
     return out.reshape(t, batch_size + 1, d)[:, :batch_size].reshape(-1, d)
 
 
-def _pool(storage, d, indices, offsets, batch_size):
+def _pool(storage, d, indices, offsets, batch_size, mask=None):
     """Checked K2/K3 body: the plain version for CPU tensors, else one
     launch.  Returns (out, whether a kernel was launched)."""
     _check_storage(storage, d)
-    _check_csr(indices, offsets, batch_size, storage.device)
+    _check_csr(indices, offsets, batch_size, storage.device, mask)
     if storage.device.type == "cpu":
         return embedding_bag_csr_packed_reference(
-            storage, d, indices, offsets, batch_size=batch_size), False
+            storage, d, indices, offsets, batch_size=batch_size, mask=mask), False
     t = 1 if indices.dim() == 1 else indices.shape[0]
     out = torch.empty(t * batch_size, d, dtype=torch.float32, device=storage.device)
     if out.numel() == 0:
@@ -134,7 +149,7 @@ def _pool(storage, d, indices, offsets, batch_size):
     vector, group = row_path(storage, d)
     by_group = walks_by_group(group, indices.shape[-1], batch_size)
     _launch(f"pel_csr_pool_{_STORAGE_DTYPES[storage.dtype]}", storage, indices,
-            offsets, out, batch_size, d, vector, group, by_group)
+            offsets, out, batch_size, d, vector, group, by_group, mask=mask)
     return out, True
 
 
@@ -145,19 +160,26 @@ def embedding_bag_csr_packed(
     offsets: torch.Tensor,  # [B+1] or [T, B+1] int32
     *,
     batch_size: int,
+    mask: torch.Tensor | None = None,  # [C] or [T, C] bool/uint8
 ) -> torch.Tensor:  # [B, d] or [T*B, d] f32
     """SUM-pooled CSR embedding bag over fused storage (K2; K3 at d=128).
-    Row t*B + b of the result pools bag b of table t.  Valid ids must lie
-    in [0, rows)."""
+    Row t*B + b of the result pools bag b of table t.  ``mask`` keeps the
+    entries where it is set (a row shard's ownership): the others are never
+    read, so their ids may hold anything.  Kept ids must lie in [0, rows).
+    A masked pool has no gradient."""
     if storage.requires_grad and torch.is_grad_enabled():
+        if mask is not None:
+            raise ValueError("a masked CSR pool is forward-only")
         return _CSRBagSum.apply(storage, d, indices, offsets, batch_size,
                                 embedding_bag_csr_packed)
-    out, launched = _pool(storage, d, indices, offsets, batch_size)
+    out, launched = _pool(storage, d, indices, offsets, batch_size, mask)
     embedding_bag_csr_packed.launches += launched
+    embedding_bag_csr_packed.masked_launches += launched and mask is not None
     return out
 
 
 embedding_bag_csr_packed.launches = 0
+embedding_bag_csr_packed.masked_launches = 0
 
 
 # -- K4: the differentiable CSR bag ---------------------------------------------

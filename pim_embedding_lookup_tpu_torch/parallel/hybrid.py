@@ -1,18 +1,24 @@
 """Hybrid embedding collection: one-hot matmuls for small tables, fused
 gather+pool for big ones.
 
-The counterpart of ``pim_embedding_lookup_tpu.parallel.hybrid`` (lookup
-and the sparse optimizer step on one device; no routing, no hot cache).  Tables with at most ``MXU_THRESHOLD``
-rows form the small set: each is padded to a power-of-two bucket, equal
+The counterpart of ``pim_embedding_lookup_tpu.parallel.hybrid``: lookups and
+the sparse optimizer step, on one device or on a mesh, with routed big-set
+lookups and updates and the hot-row cache.  Tables with at most
+``MXU_THRESHOLD`` rows form the small set: each is padded to a power-of-two bucket, equal
 buckets lie side by side, and each bucket pools as one batched product of a
 bf16 one-hot with the bf16 weights, accumulated in f32, as in the JAX
 package.  The rest form the big set, an EmbeddingCollection whose lookup
-runs the gather+pool kernel on the card.
+runs the gather+pool kernel on the card.  On a mesh the small set is
+planned over the model axis but replicated on every process; the big set is
+sharded by its policy, and ``routed``, ``capacity_factor``, ``hot_cache``,
+``return_stats`` and ``data_sharded`` pass through to it.
 
 Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}``,
 and so is the row-AdaGrad accumulator.  The sparse step updates the small
 set by densifying each bucket's gradient and stepping it row by row, the
-big set by the entry-wise scatter of ``sparse_update``.
+big set by the entry-wise scatter of ``sparse_update``.  On a mesh the small
+set's entry stream is first gathered over the data axis, so that every
+replica applies the whole batch.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..config import ShardingPolicy, TableConfig
 from ..device import resolve_device
 from ..ops.ragged import segment_ids_from_offsets
 from .collection import _NEG_INF, EmbeddingCollection, _csr_counts, _finish_combiner
+from .mesh import DATA_AXIS, PortMesh
 from .planner import FusedLayout
 from .sparse_update import (
     _check_supported,
@@ -93,6 +100,7 @@ class HybridEmbeddingCollection:
     perm: tuple[int, ...]  # position of original table t in concat(small, big)
     device: torch.device
     buckets: tuple[Bucket, ...] = ()
+    mesh: PortMesh | None = None
     # small_ids, big_ids and perm on the device, so that a lookup copies
     # nothing from the host
     _index: dict = dataclasses.field(init=False, repr=False, compare=False)
@@ -110,22 +118,25 @@ class HybridEmbeddingCollection:
         policy: ShardingPolicy = ShardingPolicy.AUTO,
         *,
         device=None,
+        mesh: PortMesh | None = None,
     ) -> "HybridEmbeddingCollection":
-        """Tables of at most MXU_THRESHOLD rows go to the small set; the big
-        set is lane-packed where its dim allows."""
-        device = resolve_device(device)
+        """Tables of at most MXU_THRESHOLD rows go to the small set
+        (replicated); the big set, lane-packed where its dim allows, is
+        placed by ``policy`` over the mesh's model axis."""
+        device = mesh.device if mesh is not None else resolve_device(device)
         small_raw = [i for i, t in enumerate(tables) if t.num_rows <= MXU_THRESHOLD]
         big_ids = tuple(i for i, t in enumerate(tables) if t.num_rows > MXU_THRESHOLD)
         small = None
         small_ids: tuple[int, ...] = ()
         buckets: tuple[Bucket, ...] = ()
         if small_raw:
-            small_ids, lay, buckets = _plan_small_bucketed(tables, small_raw, 1)
-            small = EmbeddingCollection(layout=lay, device=device)
+            small_ids, lay, buckets = _plan_small_bucketed(
+                tables, small_raw, 1 if mesh is None else mesh.model)
+            small = EmbeddingCollection(layout=lay, device=device, mesh=mesh)
         big = (
             EmbeddingCollection.create(
                 [tables[i] for i in big_ids], policy, packed="auto",
-                device=device,
+                device=device, mesh=mesh,
             )
             if big_ids
             else None
@@ -141,6 +152,7 @@ class HybridEmbeddingCollection:
             perm=perm,
             device=device,
             buckets=buckets,
+            mesh=mesh,
         )
 
     # -- params -------------------------------------------------------------
@@ -170,9 +182,20 @@ class HybridEmbeddingCollection:
         *,
         batch_size: int,
         combiner: str = "sum",  # "sum" | "mean" | "max"
-    ) -> torch.Tensor:  # [B, T, D] f32
-        """Pooled lookup in the caller's table order."""
+        routed: bool = False,
+        capacity_factor: float | None = None,
+        hot_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+        return_stats: bool = False,
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:  # [B, T, D] f32
+        """Pooled lookup in the caller's table order.  ``routed=True``
+        sends the big set through ``lookup_routed`` (SUM/MEAN), with
+        ``capacity_factor`` and ``hot_cache``; the small set has nothing to
+        route.  ``return_stats`` adds the big set's drop count (0 off the
+        routed path)."""
+        if routed and combiner == "max":
+            raise ValueError("routed lookup supports sum/mean combiners")
         mask = mask.to(torch.bool)
+        dropped = torch.zeros((), dtype=torch.int32, device=self.device)
         parts = []
         if self.small is not None:
             sel = self._index["small_ids"]
@@ -182,12 +205,20 @@ class HybridEmbeddingCollection:
             ))
         if self.big is not None:
             sel = self._index["big_ids"]
-            parts.append(self.big.lookup(
-                params["big"], indices[sel], mask[sel], batch_size=batch_size,
-                combiner=combiner,
-            ))
+            kw = dict(batch_size=batch_size, combiner=combiner)
+            if routed:
+                out = self.big.lookup_routed(
+                    params["big"], indices[sel], mask[sel], capacity_factor=capacity_factor,
+                    hot_cache=hot_cache, return_stats=return_stats, **kw)
+                bp, dropped = out if return_stats else (out, dropped)
+            else:
+                bp = self.big.lookup(params["big"], indices[sel], mask[sel], **kw)
+            parts.append(bp)
         pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        return pooled[:, self._index["perm"]]
+        out = pooled[:, self._index["perm"]]
+        if return_stats:
+            return out, dropped
+        return out
 
     def lookup_csr(
         self,
@@ -203,12 +234,13 @@ class HybridEmbeddingCollection:
     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:  # [B, T, D] f32
         """Pooled lookup over ragged (CSR) bags in the caller's table order,
         with EmbeddingCollection.lookup_csr's contract: the small set pools
-        its bucketed one-hot rows by a segment reduce, the big set runs the
-        CSR kernel (K2).  ``return_stats`` adds the big set's count of
+        its bucketed one-hot rows by a segment reduce (over this process's
+        window when ``data_sharded``), the big set runs the CSR kernel (K2),
+        or the routed path.  ``return_stats`` adds the big set's count of
         dropped entries, which is 0 off the routed path."""
-        if routed:
-            raise NotImplementedError(
-                "routed lookup_csr needs the multi-device port (ROADMAP.md)")
+        if routed and combiner == "max":
+            raise ValueError("routed lookup_csr supports sum/mean combiners")
+        dropped = torch.zeros((), dtype=torch.int32, device=self.device)
         parts = []
         if self.small is not None:
             sel = self._index["small_ids"]
@@ -218,14 +250,17 @@ class HybridEmbeddingCollection:
             ))
         if self.big is not None:
             sel = self._index["big_ids"]
-            parts.append(self.big.lookup_csr(
+            out = self.big.lookup_csr(
                 params["big"], indices[sel], offsets[sel], combiner=combiner,
-                data_sharded=data_sharded, capacity_factor=capacity_factor,
-            ))
+                data_sharded=data_sharded, routed=routed, capacity_factor=capacity_factor,
+                return_stats=routed and return_stats,
+            )
+            bp, dropped = out if routed and return_stats else (out, dropped)
+            parts.append(bp)
         pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         out = pooled[:, self._index["perm"]]
         if return_stats:
-            return out, torch.zeros((), dtype=torch.int32, device=out.device)
+            return out, dropped
         return out
 
 
@@ -320,10 +355,12 @@ def init_accumulator_hybrid(coll: HybridEmbeddingCollection) -> dict:
 
 
 def _check_sets(coll, optimizer, routed, name):
-    """Refuse what the step cannot do before either set is touched."""
-    for sub in (coll.small, coll.big):
-        if sub is not None:
-            _check_supported(sub, optimizer, routed, name)
+    """Refuse what the step cannot do before either set is touched (the
+    small set never routes)."""
+    if coll.small is not None:
+        _check_supported(coll.small, optimizer, False, name)
+    if coll.big is not None:
+        _check_supported(coll.big, optimizer, routed, name)
 
 
 def sparse_update_hybrid(
@@ -342,9 +379,10 @@ def sparse_update_hybrid(
     return_stats: bool = False,
 ):
     """Apply the embedding optimizer step to both sets: the small set by
-    the bucketed densified step, the big set by ``sparse_update``.  Returns
-    (params, accs), or with ``return_stats`` also the big set's count of
-    dropped entries (0 off the routed path)."""
+    the bucketed densified step, the big set by ``sparse_update``
+    (``routed``: through the all-to-all routing).  Returns (params, accs),
+    or with ``return_stats`` also the big set's count of dropped entries
+    (0 off the routed path)."""
     _check_sets(coll, optimizer, routed, "sparse_update_hybrid")
     params, accs = dict(params), dict(accs)
     mask = mask.to(torch.bool)
@@ -353,13 +391,13 @@ def sparse_update_hybrid(
         sel = coll._index["small_ids"]
         params["small"], accs["small"] = _mxu_sparse_update(
             coll.buckets, params["small"], accs["small"], indices[sel], mask[sel],
-            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps, mesh=coll.mesh,
         )
     if coll.big is not None:
         sel = coll._index["big_ids"]
         params["big"], accs["big"], dropped = sparse_update(
             coll.big, params["big"], accs["big"], indices[sel], mask[sel],
-            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps, routed=routed,
             capacity_factor=capacity_factor, return_stats=True,
         )
     if return_stats:
@@ -384,7 +422,7 @@ def sparse_update_hybrid_csr(
     return_stats: bool = False,
 ):
     """CSR (ragged-bag) form of ``sparse_update_hybrid``: the backward of
-    ``lookup_csr``.  ``data_sharded`` is the same as False on one device."""
+    ``lookup_csr``, with its ``data_sharded`` contract."""
     _check_sets(coll, optimizer, routed, "sparse_update_hybrid_csr")
     params, accs = dict(params), dict(accs)
     dropped = torch.zeros((), dtype=torch.int32, device=coll.device)
@@ -393,12 +431,13 @@ def sparse_update_hybrid_csr(
         params["small"], accs["small"] = _mxu_sparse_update_csr(
             coll.buckets, params["small"], accs["small"], indices[sel], offsets[sel],
             g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+            mesh=coll.mesh if data_sharded else None,
         )
     if coll.big is not None:
         sel = coll._index["big_ids"]
         params["big"], accs["big"], dropped = sparse_update_csr(
             coll.big, params["big"], accs["big"], indices[sel], offsets[sel],
-            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps,
+            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps, routed=routed,
             data_sharded=data_sharded, capacity_factor=capacity_factor,
             return_stats=True,
         )
@@ -408,9 +447,14 @@ def sparse_update_hybrid_csr(
 
 
 def _mxu_sparse_update(buckets, fused, acc, indices, mask, g_pooled, *, lr,
-                       optimizer, eps):
+                       optimizer, eps, mesh=None):
     """Small-set step over the dense wire: every kept entry of a bag gets
-    the bag's cotangent (sum-pool backward), then the bucketed step."""
+    the bag's cotangent (sum-pool backward), then the bucketed step.  On a
+    mesh the whole batch's entries, gathered over the data axis."""
+    if mesh is not None:
+        indices = mesh.all_gather(indices, DATA_AXIS, 1)
+        mask = mesh.all_gather(mask, DATA_AXIS, 1)
+        g_pooled = mesh.all_gather(g_pooled.contiguous(), DATA_AXIS, 0)
     _, g_e, _ = _entry_updates(indices, mask, g_pooled.float(),
                                indices.shape[1] // g_pooled.shape[0])
     t, c = indices.shape
@@ -420,14 +464,19 @@ def _mxu_sparse_update(buckets, fused, acc, indices, mask, g_pooled, *, lr,
 
 
 def _mxu_sparse_update_csr(buckets, fused, acc, indices, offsets, g_pooled, *,
-                           lr, optimizer, eps):
+                           lr, optimizer, eps, mesh=None):
     """Small-set step over the CSR wire: bag cotangents gathered by segment
-    id from the offsets (one data shard)."""
+    id from the offsets.  With ``mesh`` (data-sharded windows) every
+    window's entries, gathered over the data axis in data-row order."""
     _, g_e, valid = _entry_updates_csr(indices, offsets, g_pooled.float())
     t, c = indices.shape
-    return _mxu_apply_entries(buckets, fused, acc, indices, valid.reshape(t, c),
-                              g_e.reshape(t, c, -1), lr=lr, optimizer=optimizer,
-                              eps=eps)
+    valid, g_e = valid.reshape(t, c), g_e.reshape(t, c, -1)
+    if mesh is not None:
+        indices = mesh.all_gather(indices, DATA_AXIS, 1)
+        valid = mesh.all_gather(valid, DATA_AXIS, 1)
+        g_e = mesh.all_gather(g_e, DATA_AXIS, 1)
+    return _mxu_apply_entries(buckets, fused, acc, indices, valid, g_e, lr=lr,
+                              optimizer=optimizer, eps=eps)
 
 
 def _mxu_apply_entries(buckets, fused, acc, indices, mask, g_e, *, lr,

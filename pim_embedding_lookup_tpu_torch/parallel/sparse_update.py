@@ -1,19 +1,27 @@
 """Sparse in-place embedding updates: each entry's step is scatter-added
 straight into the fused storage, and no dense [rows, D] gradient is built.
 
-The counterpart of ``pim_embedding_lookup_tpu.parallel.sparse_update`` on
-one device (REPLICATE; routed updates and the other policies need the
-multi-device port).  Every valid entry (id, bag cotangent) becomes one
+The counterpart of ``pim_embedding_lookup_tpu.parallel.sparse_update``, on
+one device or on a mesh.  Every valid entry (id, bag cotangent) becomes one
 d-wide step, SGD or row-wise AdaGrad (one f32 accumulator per fused row),
 added with ``index_add_``: the JAX package's XLA scatters, not a Pallas
 kernel.  Storage and accumulator are updated in place, which stands in for
 the JAX step's buffer donation.
 
-Dropped entries (masked, CSR padding, ids outside the storage) keep a valid
-row id and add an exact identity there: -0.0 to a weight (w + -0.0 == w for
+On a mesh the entry stream is first all-gathered over the data axis in
+data-row order, so every data replica applies the identical stream and the
+replicas stay bitwise equal.  Then each process applies what it holds: a
+row shard the entries it owns, a COLUMN shard its dim slice of every entry
+(row AdaGrad's mean_d(g^2) averaged over the model axis, so that every
+slice adds the same value to the replicated accumulator).  ``routed=True``
+instead sends (id, update) pairs to their owners through the capacity
+buckets of the routed lookup, and counts what overflows.
+
+Dropped entries (masked, CSR padding, other shards' ids) keep a valid row
+id and add an exact identity there: -0.0 to a weight (w + -0.0 == w for
 every w, signed zeros included), 0.0 to the non-negative accumulator.  An
-out-of-range index would be a device-side assert on CUDA, and compacting the
-entries out would wait for the device.
+out-of-range index would be a device-side assert on CUDA, and compacting
+the entries out would wait for the device.
 """
 
 from __future__ import annotations
@@ -22,7 +30,15 @@ import torch
 
 from ..config import ShardingPolicy
 from ..ops.ragged import segment_ids_from_offsets
-from .collection import EmbeddingCollection
+from .collection import (
+    EmbeddingCollection,
+    _bucket_slots,
+    _owner_local,
+    _rowish,
+    _slice_entries,
+    routed_bucket_k,
+)
+from .mesh import DATA_AXIS, MODEL_AXIS
 
 OPTIMIZERS = ("sgd", "row_adagrad")
 
@@ -56,7 +72,7 @@ def _entry_updates_csr(g_idx, offsets, g_pooled):
 
 
 def _scatter_step(emb, local, step, keep):
-    """Add per-entry steps [C, D] at fused row ids ``local`` in the
+    """Add per-entry steps [C, D] at local row ids ``local`` in the
     storage's dtype.  Lane-packed [S, 128] storage has the bytes of
     [rows, D], so one view serves both layouts; dropped entries add -0.0
     at row 0."""
@@ -66,16 +82,17 @@ def _scatter_step(emb, local, step, keep):
     return emb
 
 
-def _apply_entries(emb, acc, ids, updates, valid, *, lr, eps, use_adagrad):
-    """Scatter step over a flat entry stream (ids [E], updates [E, D], valid
-    [E]), in place.  Row AdaGrad adds every entry's mean_d(g^2) into ``acc``
-    before any entry reads it, then steps each entry by
+def _apply_entries(emb, acc, local, updates, keep, *, lr, eps, use_adagrad, mean_sq=None):
+    """Scatter step over a flat entry stream (local row ids [E], updates
+    [E, D], kept [E]), in place.  Row AdaGrad adds every entry's
+    mean_d(g^2) (through ``mean_sq`` where the dims are split) into
+    ``acc`` before any entry reads it, then steps each entry by
     -lr * rsqrt(acc[row] + eps) * g_e."""
-    rows = acc.shape[0]
-    local = ids.long()
-    keep = valid & (local >= 0) & (local < rows)
+    local = local.long()
     if use_adagrad:
         sq = (updates * updates).mean(dim=-1)  # [E]
+        if mean_sq is not None:
+            sq = mean_sq(sq)
         safe = torch.where(keep, local, 0)
         acc.index_add_(0, safe, torch.where(keep, sq, 0.0))
         scale = lr * torch.rsqrt(acc[safe] + eps)  # [E]
@@ -85,26 +102,81 @@ def _apply_entries(emb, acc, ids, updates, valid, *, lr, eps, use_adagrad):
     return emb, acc
 
 
-def _check_supported(coll, optimizer, routed, name):
+def _owned_entries(coll, ids, valid):
+    """(local row ids, kept) of a flat entry stream on this process's
+    storage: a row shard keeps the entries it owns, other policies every
+    valid entry whose id lies in the storage."""
+    lay = coll.layout
+    if _rowish(lay.policy):
+        owner, local = _owner_local(ids, lay.rows_per_shard, lay.num_shards,
+                                    lay.policy == ShardingPolicy.ROW_HASH)
+        return local, (owner == coll.shard) & (local < lay.rows_per_shard) & valid
+    return ids, valid & (ids >= 0) & (ids < lay.total_rows)
+
+
+def _routed_apply_entries(coll, emb, acc, ids, updates, valid, *, cf, lr, eps,
+                          use_adagrad):
+    """All-to-all routed optimizer step (ROW, ROW_HASH, TABLE_WISE) over a
+    flat entry stream: model peer mi takes the mi-th E/M slice, sends
+    (owner-local id, update) pairs to their owners through the capacity
+    buckets, and applies the ~cf*E/M pairs it receives.  Returns the count
+    of dropped updates over the model axis, [1] int32."""
+    lay, mesh = coll.layout, coll.mesh
+    m, mi, rps = mesh.model, mesh.index(MODEL_AXIS), lay.rows_per_shard
+    em = -(-ids.shape[0] // m)
+    gs, vs, us = _slice_entries(mi, m, em, ids, valid, updates)
+    owner, local = _owner_local(gs, rps, m, lay.policy == ShardingPolicy.ROW_HASH)
+    k = routed_bucket_k(em, cf, m)
+    slot, ok = _bucket_slots(owner.clamp(0, m - 1).long(), vs, m, k)
+    dropped = mesh.psum((vs & ~ok).sum(dtype=torch.int32).reshape(1), MODEL_AXIS)
+
+    send_ids = torch.full((m * k + 1,), rps, dtype=gs.dtype, device=gs.device)
+    send_ids[slot] = torch.where(ok, local, rps).to(gs.dtype)
+    send_upd = torch.zeros(m * k + 1, us.shape[-1], dtype=us.dtype, device=us.device)
+    send_upd[slot] = torch.where(ok[:, None], us, 0.0)
+    recv_ids = mesh.all_to_all(send_ids[: m * k])
+    recv_upd = mesh.all_to_all(send_upd[: m * k])
+    keep = (recv_ids >= 0) & (recv_ids < rps)
+    _apply_entries(emb, acc, recv_ids, recv_upd, keep, lr=lr, eps=eps,
+                   use_adagrad=use_adagrad)
+    return dropped
+
+
+def _apply(coll, fused, acc, ids, updates, valid, *, lr, eps, optimizer, routed,
+           capacity_factor):
+    """Apply a flat entry stream on this process; returns the drop count,
+    0-d int32 (0 off the routed path)."""
+    use_adagrad = optimizer == "row_adagrad"
     if routed:
-        raise NotImplementedError(
-            f"routed {name} needs the multi-device port (ROADMAP.md)")
-    if coll.layout.policy != ShardingPolicy.REPLICATE:
-        raise NotImplementedError(
-            f"{name} for policy {coll.layout.policy.value}: only REPLICATE "
-            "is ported (the other policies are listed in ROADMAP.md)")
+        return _routed_apply_entries(
+            coll, fused, acc, ids, updates, valid, cf=coll._resolve_cf(capacity_factor),
+            lr=lr, eps=eps, use_adagrad=use_adagrad).reshape(())
+    mean_sq = None
+    mesh = coll.mesh
+    if coll.layout.policy == ShardingPolicy.COLUMN and use_adagrad:
+        mean_sq = lambda sq: mesh.psum(sq, MODEL_AXIS) / mesh.model  # noqa: E731
+    local, keep = _owned_entries(coll, ids, valid)
+    _apply_entries(fused, acc, local, updates, keep, lr=lr, eps=eps,
+                   use_adagrad=use_adagrad, mean_sq=mean_sq)
+    return torch.zeros((), dtype=torch.int32, device=acc.device)
+
+
+def _check_supported(coll, optimizer, routed, name):
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown embedding optimizer {optimizer!r}; "
                          f"expected one of {OPTIMIZERS}")
+    if routed and not _rowish(coll.layout.policy):
+        raise ValueError(f"routed {name} needs ROW/ROW_HASH/TABLE_WISE")
+    coll._require_mesh(name)
 
 
 def sparse_update(
     coll: EmbeddingCollection,
-    fused: torch.Tensor,  # fused storage, updated in place
-    acc: torch.Tensor,  # [total_rows] f32 row-AdaGrad accumulator, in place
-    indices: torch.Tensor,  # [T, B*L] local (per-table) ids
+    fused: torch.Tensor,  # this process's storage, updated in place
+    acc: torch.Tensor,  # its f32 row-AdaGrad accumulator (init_accumulator), in place
+    indices: torch.Tensor,  # [T, B*L] local (per-table) ids, this data row's slice
     mask: torch.Tensor,  # [T, B*L] bool
-    g_pooled: torch.Tensor,  # [B, T, D] d(loss)/d(pooled)
+    g_pooled: torch.Tensor,  # [B, T, D] d(loss)/d(pooled), this data row's
     *,
     lr: float,
     optimizer: str = "sgd",  # "sgd" | "row_adagrad"
@@ -114,19 +186,28 @@ def sparse_update(
     return_stats: bool = False,
 ):
     """Scatter-apply the embedding optimizer step.  Returns (fused, acc),
-    or (fused, acc, dropped) with ``return_stats=True``: the broadcast
-    path drops nothing, so ``dropped`` is 0.  ``routed`` and
-    ``capacity_factor`` belong to the multi-device path."""
-    del capacity_factor  # only the routed path reads it
+    or (fused, acc, dropped) with ``return_stats=True``.  ``routed=True``
+    (row policies) routes (id, update) pairs to their owners;
+    ``capacity_factor=None`` is the collection's safe factor, at which
+    nothing drops."""
     _check_supported(coll, optimizer, routed, "sparse_update")
     pooling = indices.shape[1] // g_pooled.shape[0]
     g_idx = coll.globalize(indices.to(torch.int32))
-    ids, updates, valid = _entry_updates(g_idx, mask.to(torch.bool), g_pooled.float(),
-                                         pooling)
-    fused, acc = _apply_entries(fused, acc, ids, updates, valid, lr=lr, eps=eps,
-                                use_adagrad=optimizer == "row_adagrad")
+    mask = mask.to(torch.bool)
+    g_pooled = g_pooled.float()
+    mesh = coll.mesh
+    if mesh is not None:  # the whole batch, in data-row order
+        g_idx = mesh.all_gather(g_idx, DATA_AXIS, 1)
+        mask = mesh.all_gather(mask, DATA_AXIS, 1)
+        g_pooled = mesh.all_gather(g_pooled, DATA_AXIS, 0)
+    if coll.layout.policy == ShardingPolicy.COLUMN:
+        w = coll.layout.dim // coll.layout.num_shards
+        g_pooled = g_pooled[..., coll.shard * w:(coll.shard + 1) * w]
+    ids, updates, valid = _entry_updates(g_idx, mask, g_pooled, pooling)
+    dropped = _apply(coll, fused, acc, ids, updates, valid, lr=lr, eps=eps,
+                     optimizer=optimizer, routed=routed, capacity_factor=capacity_factor)
     if return_stats:
-        return fused, acc, torch.zeros((), dtype=torch.int32, device=acc.device)
+        return fused, acc, dropped
     return fused, acc
 
 
@@ -134,7 +215,7 @@ def sparse_update_csr(
     coll: EmbeddingCollection,
     fused: torch.Tensor,
     acc: torch.Tensor,
-    indices: torch.Tensor,  # [T, C] local ids, padded
+    indices: torch.Tensor,  # [T, C] local ids, padded (this process's window if data_sharded)
     offsets: torch.Tensor,  # [T, B+1] bag offsets
     g_pooled: torch.Tensor,  # [B, T, D] d(loss)/d(pooled SUM)
     *,
@@ -148,19 +229,31 @@ def sparse_update_csr(
 ):
     """CSR (ragged-bag) form of ``sparse_update``: the backward of
     ``lookup_csr`` with SUM pooling.  Padding ids may hold anything.
-    ``data_sharded`` is the same as False on one device."""
-    del capacity_factor, data_sharded
+    ``data_sharded`` follows lookup_csr: each process holds its own window,
+    and the entry streams are all-gathered over the data axis; otherwise
+    every process holds the whole batch.  COLUMN is refused, as in the JAX
+    package."""
     _check_supported(coll, optimizer, routed, "sparse_update_csr")
+    if coll.layout.policy == ShardingPolicy.COLUMN:
+        raise ValueError("sparse_update_csr: COLUMN sharding not supported (use the dense "
+                         "form or a rowish policy)")
     g_idx = coll.globalize(indices.to(torch.int32))
     ids, updates, valid = _entry_updates_csr(g_idx, offsets, g_pooled.float())
-    fused, acc = _apply_entries(fused, acc, ids, updates, valid, lr=lr, eps=eps,
-                                use_adagrad=optimizer == "row_adagrad")
+    if data_sharded and coll.mesh is not None:
+        ids = coll.mesh.all_gather(ids, DATA_AXIS, 0)
+        updates = coll.mesh.all_gather(updates, DATA_AXIS, 0)
+        valid = coll.mesh.all_gather(valid, DATA_AXIS, 0)
+    dropped = _apply(coll, fused, acc, ids, updates, valid, lr=lr, eps=eps,
+                     optimizer=optimizer, routed=routed, capacity_factor=capacity_factor)
     if return_stats:
-        return fused, acc, torch.zeros((), dtype=torch.int32, device=acc.device)
+        return fused, acc, dropped
     return fused, acc
 
 
 def init_accumulator(coll: EmbeddingCollection) -> torch.Tensor:
-    """Row-wise AdaGrad accumulator: 1-D [total_rows] f32 zeros, one per
-    fused row even when the storage is lane-packed."""
-    return torch.zeros(coll.layout.total_rows, dtype=torch.float32, device=coll.device)
+    """Row-wise AdaGrad accumulator: 1-D f32 zeros, one per fused row even
+    when the storage is lane-packed; [rows_per_shard] on a row shard, the
+    whole [total_rows] replicated otherwise."""
+    lay = coll.layout
+    rows = lay.rows_per_shard if _rowish(lay.policy) else lay.total_rows
+    return torch.zeros(rows, dtype=torch.float32, device=coll.device)

@@ -5,7 +5,9 @@ warp-tile pool kernels on both row paths (16-byte vector and scalar).  Then
 the training path: the gradients of the big-set lookups through K1 and K2
 against the plain versions' autograd, one sparse train step on the card
 against the same step on the CPU, and dropped entries with ids far out of
-range.
+range.  Last the sharded engine: K2 with a row shard's ownership mask, and
+every sharded lookup and sparse update on an NCCL mesh of one card against
+the same call under REPLICATE.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the repo's conftest, so on a machine with a card
@@ -20,6 +22,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from pim_embedding_lookup_tpu_torch import DLRM, DLRMConfig, ShardingPolicy, TableConfig
 from pim_embedding_lookup_tpu_torch.models.sparse_train import (
@@ -30,6 +33,7 @@ from pim_embedding_lookup_tpu_torch.models.sparse_train import (
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
 from pim_embedding_lookup_tpu_torch.parallel.collection import EmbeddingCollection
+from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
     init_accumulator,
     sparse_update,
@@ -430,3 +434,125 @@ def test_dropped_entries_change_nothing(cuda, optimizer):
     before, after = table.view(-1, 16), outs[0][0].view(-1, 16)
     assert torch.equal(after[~touched], before[~touched])
     assert not torch.equal(after[touched], before[touched])
+
+
+# -- the sharded engine ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("d", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_csr_kernel_matches_plain(cuda, dtype, d, packed):
+    """K2 with a per-entry mask (a row shard's ownership) against its plain
+    version: empty bags, bags whose entries are all masked (exactly 0),
+    masked entries and padding, masked or not, holding ids of 1 << 30 that
+    fault if read; d = 4 (f32: 16-byte rows; bf16: 8-byte rows, the scalar
+    path) and 16, packed and unpacked, f32 and bf16 storage."""
+    n, t, b, dead = 4096, 3, 300, 10
+    rng = np.random.default_rng(d + 2 * packed)
+    rows = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    storage = rows.to(dtype).reshape(-1, 128) if packed else rows.to(dtype)
+    idx, off = _csr(20 + d, n, t, b, 6)
+    mask = torch.from_numpy(rng.random(idx.shape) < 0.5)
+    for ti in range(t):  # the first ``dead`` bags of each table: all masked
+        mask[ti, :off[ti, dead]] = False
+    valid = torch.arange(idx.shape[1])[None, :] < off[:, -1:]
+    assert (mask & ~valid).any() and (~mask & ~valid).any()  # padding both ways
+    idx = torch.where(mask & valid, idx, NEVER_READ)
+    idx, off, mask = idx.to(cuda), off.to(cuda), mask.to(cuda)
+    before = (embedding_bag_csr_packed.launches, embedding_bag_csr_packed.masked_launches)
+    got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=b, mask=mask)
+    want = embedding_bag_csr_packed_reference(storage, d, idx, off, batch_size=b, mask=mask)
+    torch.cuda.synchronize()
+    assert (embedding_bag_csr_packed.launches, embedding_bag_csr_packed.masked_launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got.view(t, b, d)[:, :dead], torch.zeros(t, dead, d, device=cuda))
+    # a uint8 mask is the same mask
+    torch.testing.assert_close(
+        embedding_bag_csr_packed(storage, d, idx, off, batch_size=b, mask=mask.to(torch.uint8)),
+        got, rtol=0, atol=0)
+
+
+MESH_ROWS = (100, 1000, 37, 4000)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A (1, 1) mesh over an NCCL process group of one process, joined
+    through a file store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    init_distributed(0, 1, f"file://{tmp_path_factory.mktemp('nccl') / 'store'}")
+    yield make_mesh(data=1, model=1)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("policy", ["row", "row_hash", "table_wise", "column"])
+def test_mesh_of_one_matches_replicate(nccl_mesh, policy):
+    """On an NCCL mesh of one card each sharded call equals the same call
+    under REPLICATE on the card: lookup and lookup_csr (both data_sharded
+    forms) for sum/mean/max, the routed lookups with no drops, and one
+    sparse row-AdaGrad update, broadcast and routed.  The masked kernels run
+    on every row shard's lookup."""
+    cuda = nccl_mesh.device
+    rng = np.random.default_rng(0)
+    tables = tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
+                   for i, n in enumerate(MESH_ROWS))
+    host = [rng.standard_normal((n, 16)).astype(np.float32) for n in MESH_ROWS]
+    sharded = EmbeddingCollection.create(tables, ShardingPolicy(policy), packed="auto",
+                                         mesh=nccl_mesh)
+    rep = EmbeddingCollection.create(tables, ShardingPolicy.REPLICATE, packed="auto",
+                                     device=cuda)
+    fs, fr = sharded.device_put_tables(host), rep.device_put_tables(host)
+    b, pooling = 64, 3
+    idx = torch.from_numpy(np.stack([rng.integers(0, n, b * pooling) for n in MESH_ROWS])
+                           .astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random(idx.shape) < 0.7).to(cuda)
+    cidx, coff = (x.to(cuda) for x in _csr(30, min(MESH_ROWS), len(MESH_ROWS), b, 5))
+    rowish = policy != "column"
+    before = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.masked_launches)
+    for comb in ("sum", "mean", "max"):
+        torch.testing.assert_close(
+            sharded.lookup(fs, idx, mask, batch_size=b, combiner=comb),
+            rep.lookup(fr, idx, mask, batch_size=b, combiner=comb), **TOL)
+        for ds in (False, True):
+            torch.testing.assert_close(
+                sharded.lookup_csr(fs, cidx, coff, combiner=comb, data_sharded=ds),
+                rep.lookup_csr(fr, cidx, coff, combiner=comb), **TOL)
+    launched = (embedding_bag_fixedl.launches - before[0],
+                embedding_bag_csr_packed.masked_launches - before[1])
+    # sum and mean pool through the kernels, on the mesh and under REPLICATE;
+    # only a row shard masks
+    assert launched == (4, 4 if rowish else 0)
+    if rowish:
+        for comb in ("sum", "mean"):
+            out, dropped = sharded.lookup_routed(fs, idx, mask, batch_size=b, combiner=comb,
+                                                 return_stats=True)
+            assert int(dropped.item()) == 0
+            torch.testing.assert_close(out, rep.lookup(fr, idx, mask, batch_size=b,
+                                                       combiner=comb), **TOL)
+            out, dropped = sharded.lookup_csr(fs, cidx, coff, combiner=comb, routed=True,
+                                              return_stats=True)
+            assert int(dropped.item()) == 0
+            torch.testing.assert_close(out, rep.lookup_csr(fr, cidx, coff, combiner=comb),
+                                       **TOL)
+    g = torch.from_numpy(rng.standard_normal((b, len(MESH_ROWS), 16)).astype(np.float32))
+    want_f, want_a = fr.clone(), init_accumulator(rep)
+    sparse_update(rep, want_f, want_a, idx, mask, g.to(cuda), lr=0.1, optimizer="row_adagrad")
+    for routed in (False, True) if rowish else (False,):
+        f, a = fs.clone(), init_accumulator(sharded)
+        sparse_update(sharded, f, a, idx, mask, g.to(cuda), lr=0.1, optimizer="row_adagrad",
+                      routed=routed)
+        # index_add_ adds rows hit by several entries in a run-dependent order
+        np.testing.assert_allclose(np.concatenate(sharded.unfuse_host(f)),
+                                   np.concatenate(rep.unfuse_host(want_f)), rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(_per_table(sharded, a), _per_table(rep, want_a),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def _per_table(coll, acc):
+    """A row-AdaGrad accumulator in table order, whatever the placement."""
+    lay = coll.layout
+    return torch.cat([acc[o:o + n] for o, n in zip(lay.row_offsets, lay.table_rows)])

@@ -197,7 +197,7 @@ def test_routed_and_other_policies_raise(rng):
     rep = TColl.create(_tables(tcfg, (40, 50), 16), tcfg.ShardingPolicy.REPLICATE,
                        device="cpu")
     params = rep.init(torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="routed lookup_csr requires ROW"):
         rep.lookup_csr(params, *q, routed=True)
     with pytest.raises(ValueError, match="return_stats"):
         rep.lookup_csr(params, *q, return_stats=True)
@@ -206,10 +206,14 @@ def test_routed_and_other_policies_raise(rng):
     row = TColl.create(_tables(tcfg, (40, 50), 16), tcfg.ShardingPolicy.ROW,
                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        row.lookup_csr(row.init(torch.Generator()).requires_grad_(True), *q)
+    with pytest.raises(ValueError, match="mesh"):
         row.lookup_csr(row.init(torch.Generator()), *q)
     hyb = THybrid.create(_tables(tcfg, (40, 50_000), 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="routed lookup_csr requires ROW"):
         hyb.lookup_csr(hyb.init(torch.Generator()), *q, routed=True)
+    with pytest.raises(ValueError, match="sum/mean"):
+        hyb.lookup_csr(hyb.init(torch.Generator()), *q, routed=True, combiner="max")
 
 
 # -- length-bucketed CSR ------------------------------------------------------

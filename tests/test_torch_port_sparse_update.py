@@ -238,12 +238,13 @@ def test_unsupported_cases_raise(case):
     idx = torch.zeros(len(ROWS), 4, dtype=torch.int32)
     kw = dict(lr=0.1, optimizer="adam" if case == "unknown_optimizer" else "sgd",
               routed=case == "routed")
-    err = ValueError if case == "unknown_optimizer" else NotImplementedError
-    with pytest.raises(err):
+    err = {"routed": "ROW/ROW_HASH/TABLE_WISE", "row_policy": "mesh",
+           "unknown_optimizer": "optimizer"}[case]
+    with pytest.raises(ValueError, match=err):
         tsu.sparse_update(tc, fused, tsu.init_accumulator(tc), idx,
                           torch.ones(idx.shape, dtype=torch.bool),
                           torch.ones(4, len(ROWS), DIM), **kw)
-    with pytest.raises(err):
+    with pytest.raises(ValueError, match=err):
         tsu.sparse_update_csr(tc, fused, tsu.init_accumulator(tc), idx,
                               torch.tensor([[0, 1, 2, 3, 4]] * len(ROWS), dtype=torch.int32),
                               torch.ones(4, len(ROWS), DIM), **kw)
@@ -256,7 +257,7 @@ def test_hybrid_checks_both_sets_before_updating():
     params = th.init(torch.Generator())
     small = params["small"].clone()
     idx = torch.zeros(3, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="REPLICATE"):
+    with pytest.raises(ValueError, match="REPLICATE"):
         thybrid.sparse_update_hybrid(
             th, params, thybrid.init_accumulator_hybrid(th), idx,
             torch.ones(3, 4, dtype=torch.bool), torch.ones(4, 3, DIM), lr=0.1)

@@ -297,9 +297,9 @@ def test_sparse_sgd_matches_dense_backward():
 def test_sparse_step_refuses_routed_and_hot_cache(mesh):
     _, _, tmodel = _models(mesh, _mixed, hybrid=True)
     opt, _ = tst.make_sparse_train_state(tmodel)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="mesh"):
         tst.make_sparse_train_step(tmodel, opt, routed=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="mesh"):
         tst.make_sparse_train_step(tmodel, opt, routed=True, hot_cache=True)
     with pytest.raises(ValueError, match="routed"):
         tst.make_sparse_train_step(tmodel, opt, hot_cache=True)
