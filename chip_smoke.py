@@ -22,7 +22,14 @@ CSR wire (K2), and the dense-autodiff step (K1 forward, its transpose
 backward), each held against the same step pooled by the plain version, with
 rows the batch did not touch unchanged; and at toy sizes the sparse SGD step
 against the dense-autodiff one, and the train steps on the card against the
-port on the CPU.
+port on the CPU.  Then the sharded engine: ``mesh_1`` (an NCCL process group
+of one: the same model with its big set under ROW_HASH served, trained by
+the sparse step and by the dense-autodiff step, and the big set's CSR-wire
+and routed gradients, each equal to REPLICATE), ``multihost_1`` (the
+multi-host entry in a subprocess that has a launcher's environment for a
+job of one), ``shards_4`` (the four shards of each policy in one process:
+the masked K1, K2 and K4-backward launches against their plain versions,
+timed) and, with two cards or more, ``multi_gpu``.
 
     python3 chip_smoke.py
 
@@ -39,6 +46,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -63,7 +71,13 @@ from pim_embedding_lookup_tpu_torch import (
     kaggle_config,
     toy_config,
 )
-from pim_embedding_lookup_tpu_torch import make_optimizer, make_train_step, mesh_battery, ops
+from pim_embedding_lookup_tpu_torch import (
+    make_optimizer,
+    make_train_step,
+    mesh_battery,
+    multihost_battery,
+    ops,
+)
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.models.train import emb_tensors
 from pim_embedding_lookup_tpu_torch.models.sparse_train import (
@@ -91,7 +105,7 @@ from pim_embedding_lookup_tpu_torch.ops.ragged import (
     plan_length_buckets,
 )
 from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
-from pim_embedding_lookup_tpu_torch.parallel import lookup_csr_bucketed
+from pim_embedding_lookup_tpu_torch.parallel import lookup_csr_bucketed, multihost
 from pim_embedding_lookup_tpu_torch.parallel.collection import (
     _csr_finish,
     _csr_local_pool,
@@ -563,6 +577,55 @@ def k4_phase(gen):
     return fwd, bwd, launches
 
 
+def k4_masked_case(name, storage, d, id_sets, gen):
+    """K4's backward with a row shard's ownership mask against its plain
+    version on set 0 (the shard's owner-local ids [T, C], offsets [T, B+1]
+    and mask [T, C]); kernel, plain and library times cycling through all
+    sets: the library's is the backward of F.embedding_bag with the mask as
+    per-sample weights, a dense gradient too.  Bound from set 0's data: g,
+    the offsets, a mask byte a valid entry, the ids of the kept ones, and
+    the shard's dense f32 gradient written once."""
+    idx, off, mask = id_sets[0]
+    t, b = off.shape[0], off.shape[1] - 1
+    rows = storage.numel() // d
+    g = torch.randn(t * b, d, generator=gen, device=DEV)
+    got = embedding_bag_csr_grad(g, idx, off, rows, mask)
+    want = embedding_bag_csr_grad_reference(g, idx, off, rows, mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    # f32 atomicAdd sums rows shared by several bags in a run-dependent order
+    torch.testing.assert_close(got, want, **KERNEL_TOL)
+    del got, want
+
+    kernel = lambda i, o, m: embedding_bag_csr_grad(g, i, o, rows, m)  # noqa: E731
+    kernel_ms = device_ms(kernel, id_sets)
+    kernel_call_ms = call_ms(kernel, id_sets)
+    plain_ms = device_ms(lambda i, o, m: embedding_bag_csr_grad_reference(g, i, o, rows, m),
+                         id_sets)
+    weight = storage.view(-1, d).clone().requires_grad_(True)
+    lib_outs = [(F.embedding_bag(i, weight, o, mode="sum", include_last_offset=True,
+                                 per_sample_weights=w),)
+                for i, o, w in (compact(*s) for s in id_sets)]
+    library_ms = device_ms(lambda o: torch.autograd.grad(o, weight, g, retain_graph=True),
+                           lib_outs)
+    del lib_outs, weight
+
+    valid = torch.arange(idx.shape[1], device=DEV)[None, :] < off[:, -1:]
+    active = int(valid.sum().item())
+    kept = int((valid & mask).sum().item())
+    bound_ms, bound_by = bound(
+        t * b * d * 4 + t * (b + 1) * 4  # g and the offsets read
+        + active + kept * 4  # a mask byte a valid entry, the kept ids
+        + rows * d * 4,  # the dense f32 gradient, written once
+        kept * d)
+    row = dict(case=name, tables=t, bags=b, capacity=idx.shape[1], d=d, rows=rows,
+               active_entries=active, kept_entries=kept, max_abs_err=err,
+               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print("K4 backward masked " + json.dumps(row), flush=True)
+    return row
+
+
 # -- training ------------------------------------------------------------------
 
 TRAIN_LR = 0.1
@@ -962,10 +1025,12 @@ def _mesh_1(gen, mesh):
     each wire, broadcast (K1 / K2 with the ownership mask, then the
     all-reduce over the model axis) and routed at the default capacity
     factor (buckets, two all_to_all_single calls, no drops); then 3 sparse
-    row-AdaGrad steps, broadcast and routed.  Everything equals the
+    row-AdaGrad steps, broadcast and routed; then autodiff through the
+    sharded lookups (``_mesh_1_autodiff``).  Everything equals the
     REPLICATE model's result: logits atol 1e-4, one step rtol 1e-5 / atol
-    1e-6, three steps rtol 1e-4.  Returns the masked K1 and K2 launches of
-    the broadcast paths (served requests and train steps)."""
+    1e-6, three steps rtol 1e-4.  Returns the masked K1, K2 and K4-backward
+    launches of the broadcast paths (served requests, train steps and the
+    CSR-wire gradient)."""
     config = kaggle_config()
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=DEV).item())
     t0 = time.perf_counter()
@@ -1111,7 +1176,124 @@ def _mesh_1(gen, mesh):
               f"atol 1e-6), after 3 steps {max(e for i, e in errs if i == 1):.3g} (rtol 1e-4)",
               flush=True)
     print("mesh_1 train: summary " + json.dumps(training), flush=True)
+    autodiff = _mesh_1_autodiff(gen, config, rep, rh, init)
+    masked["K1"] += autodiff["K1"]
+    masked["K4 bwd"] = autodiff["K4 bwd"]
     return masked
+
+
+def _mesh_1_autodiff(gen, config, rep, rh, init):
+    """Autodiff through the sharded lookups on the mesh of one, each beside
+    REPLICATE from the same state: one dense-autodiff SGD step of the whole
+    model (K1 masked forward, its transpose, the storage's gradient summed
+    over the data axis), timed as the train phase times a step, equal under
+    deterministic algorithms at rtol 1e-5 / atol 1e-6; the big set's
+    gradient of sum(lookup_csr * w) (K2 masked forward, K4's masked
+    backward, launched once) and of sum(lookup_routed * w) on the dense
+    wire, equal at 1e-5.  Returns the masked K1 and K4-backward launches."""
+    batches = train_batches(config, gen, BATCH, "dense", 4)
+    models = (("REPLICATE", rep), ("ROW_HASH broadcast", rh))
+    steps, timing, states = {}, {}, {}
+    k1 = 0
+    for name, model in models:  # timed, as a trainer runs it
+        with torch.no_grad():
+            model.load_state_dict(init)
+        step = steps[name] = make_train_step(model, make_optimizer(TRAIN_LR, "sgd"))
+        step(*batches[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        embedding_bag_fixedl.launches = 0
+        times = []
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            step(*batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if embedding_bag_fixedl.launches != len(batches) - 1:
+            raise AssertionError(f"mesh_1 autodiff {name}: K1 launched "
+                                 f"{embedding_bag_fixedl.launches} times in "
+                                 f"{len(batches) - 1} steps")
+        if name != "REPLICATE":
+            k1 += embedding_bag_fixedl.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dev = device_ms(lambda b_: step(*b_), [(b,) for b in batches[1:]], calls=1)
+        ops_count = aten_ops(lambda: step(*batches[1]))
+        med = statistics.median(times)
+        timing[name] = dict(ms_per_step=med, device_ms_per_step=dev, idle_share=1 - dev / med,
+                            aten_ops=ops_count, peak_gb=peak_gb)
+        for t in emb_tensors(model):
+            t.grad = None
+    for name, model in models:  # checked: one step from the same state, deterministic
+        with torch.no_grad():
+            model.load_state_dict(init)
+        with deterministic():
+            loss, _ = steps[name](*batches[0])
+        states[name] = (loss, {k: v.detach().clone() for k, v in model.state_dict().items()})
+        for t in emb_tensors(model):
+            t.requires_grad_(False)
+            t.grad = None
+    del steps
+    (loss_r, want), (loss_h, got) = states["REPLICATE"], states["ROW_HASH broadcast"]
+    torch.testing.assert_close(loss_h, loss_r, **STEP_TOL)
+    err = 0.0
+    for key, val in want.items():
+        torch.testing.assert_close(got[key], val, **STEP_TOL, msg=lambda m: f"{key}: {m}")
+        err = max(err, (got[key] - val).abs().max().item())
+    del states, want, got
+    for name, row in timing.items():
+        print(f"mesh_1 train, {name}, dense-autodiff sgd, B={BATCH}: ms/step median "
+              f"{row['ms_per_step']:.4f}, device {row['device_ms_per_step']:.4f} ms/step, "
+              f"idle share {row['idle_share']:.3f}; ATen operations per step "
+              f"{row['aten_ops']}; peak memory {row['peak_gb']:.3f} GB", flush=True)
+    print(f"mesh_1 train: the ROW_HASH dense-autodiff step equals REPLICATE's "
+          f"(deterministic algorithms; loss and every tensor max abs err {err:.3g}, rtol "
+          "1e-5, atol 1e-6); summary " + json.dumps(timing), flush=True)
+
+    # the big set's gradients, REPLICATE beside ROW_HASH
+    sel = torch.tensor(rep.collection.big_ids, device=DEV)
+    _, cidx, coff = csr_request(config, gen, BATCH)
+    _, idx, mask = request(config, gen, BATCH)
+    w = torch.randn(BATCH, len(sel), 16, generator=gen, device=DEV)
+    grads, launched = {}, {}
+    for name, model in (("REPLICATE", rep), ("ROW_HASH", rh)):
+        coll = model.collection.big
+        for wire in ("CSR", "routed"):
+            if wire == "routed" and name == "REPLICATE":
+                continue
+            table = model.emb_big.detach().clone().requires_grad_(True)
+            embedding_bag_csr_grad.launches = embedding_bag_csr_grad.masked_launches = 0
+            t0 = time.perf_counter()
+            if wire == "CSR":
+                out = coll.lookup_csr(table, cidx[sel], coff[sel])
+            else:
+                out = coll.lookup_routed(table, idx[sel], mask[sel], batch_size=BATCH)
+            (out * w).sum().backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched[(name, wire)] = (embedding_bag_csr_grad.launches,
+                                      embedding_bag_csr_grad.masked_launches)
+            grads[(name, wire)] = (table.grad, ms)
+            del out, table
+    want = {("ROW_HASH", "CSR"): (1, 1), ("REPLICATE", "CSR"): (1, 0),
+            ("ROW_HASH", "routed"): (0, 0)}
+    if launched != want:
+        raise AssertionError(f"mesh_1 gradients: K4 backward (all, masked) launched {launched}")
+    table = rep.emb_big.detach().clone().requires_grad_(True)
+    (rep.collection.big.lookup(table, idx[sel], mask[sel], batch_size=BATCH) * w).sum().backward()
+    ref = {"CSR": grads[("REPLICATE", "CSR")][0], "routed": table.grad}
+    for wire in ("CSR", "routed"):
+        got, ms = grads[("ROW_HASH", wire)]
+        err = (got - ref[wire]).abs().max().item()
+        torch.testing.assert_close(got, ref[wire], **KERNEL_TOL)
+        what = ("sum(lookup_csr * w): K2 masked forward, K4 masked backward"
+                if wire == "CSR" else "sum(lookup_routed * w), dense wire")
+        rep_ms = f" (REPLICATE {grads[('REPLICATE', 'CSR')][1]:.4f})" if wire == "CSR" else ""
+        print(f"mesh_1 gradient, big set ROW_HASH, {what}, B={BATCH}: "
+              f"{tuple(got.shape)} f32 equal to REPLICATE's (max abs err {err:.3g}, tol "
+              f"1e-5); forward and backward, host ms {ms:.4f}{rep_ms}; K4 backward "
+              f"launches (all, masked) {launched[('ROW_HASH', wire)]}", flush=True)
+    del grads, ref, table
+    return {"K1": k1, "K4 bwd": launched[("ROW_HASH", "CSR")][1]}
 
 
 def global_storage(src_layout, src_rows, layout):
@@ -1139,8 +1321,10 @@ def shards_4_phase(gen):
     timed beside it, the library call and the bound (the rows the shard
     owns, every id, mask and offset byte, the output).  The shards' partials
     (the per-shard bodies) summed, maxed for MAX, or side by side for
-    COLUMN, then finished, equal the REPLICATE lookup.  Returns the masked
-    K1 and K2 rows of ROW_HASH's four shards."""
+    COLUMN, then finished, equal the REPLICATE lookup.  On ROW_HASH's
+    shards also K4's masked backward over the CSR sets, against its plain
+    version and timed.  Returns the masked K1, K2 and K4-backward rows of
+    ROW_HASH's four shards."""
     config = kaggle_config()
     hyb = HybridEmbeddingCollection.create(config.tables, ShardingPolicy.REPLICATE, device=DEV)
     rep = hyb.big
@@ -1158,7 +1342,7 @@ def shards_4_phase(gen):
                                           combiner=comb) if wire == "dense"
                                else rep.lookup_csr(storage, *csr_sets[0], combiner=comb))
                 for wire in ("dense", "CSR") for comb in ("sum", "max")}
-    rows_out = {"K1": [], "K2": []}
+    rows_out = {"K1": [], "K2": [], "K4 bwd": []}
     for policy in SHARD_POLICIES:
         lay = plan(tables, SHARDS, policy, "auto")
         coll = EmbeddingCollection(lay, DEV)
@@ -1231,6 +1415,9 @@ def shards_4_phase(gen):
             if policy == ShardingPolicy.ROW_HASH:
                 rows_out["K1"].append(k1)
                 rows_out["K2"].append(k2)
+                rows_out["K4 bwd"].append(k4_masked_case(
+                    f"shards_4 row_hash shard {s} (ownership mask; 10 tables x B=8192, "
+                    "pooling-1 mixture)", shards[s], dsub, k2_sets, gen))
         del shards
     return rows_out
 
@@ -1246,11 +1433,13 @@ def mean_row(rows):
 
 
 def _spawn(cmds, timeout, env=None):
-    """Start every command together; wait for all of them, killing the rest
-    as soon as one fails (its peers would wait in a collective).  Raises
-    with the failed commands' error output."""
+    """Start every command together (``env``: one environment for all, or
+    a list of one each); wait for all of them, killing the rest as soon as
+    one fails (its peers would wait in a collective).  Raises with the
+    failed commands' error output."""
+    envs = env if isinstance(env, list) else [env] * len(cmds)
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env) for c in cmds]
+                              env=e) for c, e in zip(cmds, envs)]
     deadline = time.monotonic() + timeout
     try:
         while time.monotonic() < deadline:
@@ -1334,9 +1523,116 @@ def mesh_worker(rank, world, store, out):
     return 0
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launcher_env(rank, world, local, port):
+    """The environment torchrun gives process ``rank`` of hosts of
+    ``local`` processes each."""
+    return dict(os.environ, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), WORLD_SIZE=str(world), RANK=str(rank),
+                LOCAL_RANK=str(rank % local), LOCAL_WORLD_SIZE=str(local),
+                GROUP_RANK=str(rank // local))
+
+
+def run_multihost_battery(device, world, tmp):
+    """``multihost_battery`` on 2 simulated hosts of world/2 processes
+    (NCCL over the cards, or gloo on the CPU); each rank's case results."""
+    out = os.path.join(tmp, f"multihost_{device}_{world}")
+    os.makedirs(out)
+    port = _free_port()
+    cmd = [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.multihost_battery", out, device]
+    _spawn([cmd] * world, timeout=600,
+           env=[launcher_env(r, world, world // 2, port) for r in range(world)])
+    results = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def multihost_1_phase():
+    """``parallel.multihost`` in a job of one, as torchrun starts it: a
+    subprocess (``--multihost-worker``) with the launcher's environment for
+    one host of one process."""
+    tmp = tempfile.mkdtemp(prefix="pel_multihost_1_")
+    try:
+        _spawn([[sys.executable, os.path.abspath(__file__), "--multihost-worker", tmp]],
+               timeout=600, env=launcher_env(0, 1, 1, _free_port()))
+        with open(os.path.join(tmp, "multihost_1.json")) as f:
+            result = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("multihost_1: " + json.dumps(result), flush=True)
+    return result
+
+
+def multihost_worker(out):
+    """The process of multihost_1: ``initialize()`` twice (one device),
+    ``make_pod_mesh()`` -> (1, 1), ``is_primary()``; the full-row Kaggle
+    hybrid DLRM with its big set under ROW_HASH serves 5 dense-wire
+    requests of B=8192 through ``make_global_queries``, each equal to the
+    REPLICATE model from the same seed (atol 1e-4); a toy
+    ``device_put_tables`` -> ``unfuse_host`` round trip, exact.  Writes
+    ``out``/multihost_1.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = multihost.initialize()
+    try:
+        again = multihost.initialize()
+        mesh = multihost.make_pod_mesh()
+        if again != dev or (mesh.data, mesh.model) != (1, 1) or not multihost.is_primary():
+            raise AssertionError(f"multihost_1: initialize {dev} then {again}, pod mesh "
+                                 f"{mesh.shape}, primary {multihost.is_primary()}")
+        config = kaggle_config()
+        rh = DLRM(config, ShardingPolicy.ROW_HASH, hybrid=True, mesh=mesh,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+        rep = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        reqs = [request(config, gen, BATCH) for _ in range(REQUESTS + 1)]
+
+        def serve_pod(dense, idx, mask):
+            return rh(dense, *multihost.make_global_queries(mesh, idx, mask))
+
+        with torch.no_grad():
+            want = [rep(*r) for r in reqs[:REQUESTS]]
+            serve_pod(*reqs[-1])  # warm-up
+            embedding_bag_fixedl.launches = 0
+            outs, times, _ = serve(serve_pod, reqs[:REQUESTS])
+        k1 = embedding_bag_fixedl.launches
+        if k1 != REQUESTS:
+            raise AssertionError(f"multihost_1: K1 launched {k1} times for {REQUESTS} requests")
+        for o, w in zip(outs, want):
+            if o.shape != (BATCH,) or not torch.isfinite(o).all():
+                raise AssertionError("multihost_1: bad logits")
+            torch.testing.assert_close(o, w, rtol=0, atol=1e-4)
+        rng = np.random.default_rng(SEED)
+        toy = [TableConfig(num_rows=n, dim=16, name=f"t{i}")
+               for i, n in enumerate((100, 1000, 37))]
+        coll = EmbeddingCollection.create(toy, ShardingPolicy.ROW_HASH, packed="auto", mesh=mesh)
+        host = [rng.standard_normal((t.num_rows, 16)).astype(np.float32) for t in toy]
+        back = coll.unfuse_host(multihost.device_put_tables(coll, host))
+        if not all(np.array_equal(a, b) for a, b in zip(host, back)):
+            raise AssertionError("multihost_1: device_put_tables -> unfuse_host is not exact")
+        result = dict(device=str(dev), mesh=mesh.shape, primary=multihost.is_primary(),
+                      ms_per_request=times, median_ms=statistics.median(times),
+                      k1_masked_launches=k1,
+                      max_abs_err=max((o - w).abs().max().item() for o, w in zip(outs, want)),
+                      round_trip_exact=True)
+        with open(os.path.join(out, "multihost_1.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def compare_battery(got, want, label):
     """Every rank's NCCL results against rank 0 of the gloo run: drop counts,
-    hot ids and refusals exactly, values at the CPU tests' tolerances."""
+    hot ids and refusals exactly, values at the CPU tests' tolerances (a
+    result that passes through bf16 within 2**-6 of its largest value)."""
     cases = 0
     for r, ranked in enumerate(got):
         if set(ranked) != set(want[0]):
@@ -1348,9 +1644,12 @@ def compare_battery(got, want, label):
                 raise AssertionError(f"{label} {case}: {bytes(val).decode()[-2000:]}")
             if name.endswith("dropped") or name in ("hot_ids", "error_text"):
                 np.testing.assert_array_equal(ranked[key], val, err_msg=f"{label} {key}")
+            elif (case, name) in mesh_battery.BF16_RESULTS:
+                np.testing.assert_allclose(ranked[key], val, rtol=0,
+                                           atol=2.0 ** -6 * np.abs(val).max(),
+                                           err_msg=f"{label} {key}")
             else:
-                tol = (TRACE_TOL if case in ("train_routed_trace", "train_hot")
-                       else STEP_TOL)
+                tol = TRACE_TOL if case in mesh_battery.TRACE_CASES else STEP_TOL
                 np.testing.assert_allclose(ranked[key], val, **tol, err_msg=f"{label} {key}")
         cases = len({k.split("/", 1)[0] for k in ranked})
     return cases
@@ -1360,8 +1659,10 @@ def multi_gpu_phase():
     """Across min(4, count) cards (only where the machine shows more than
     one): the toy battery of the sharded engine over NCCL equal to the same
     battery over gloo on the CPU (which the CPU tests hold against the JAX
-    package), on a (1, W) mesh and, with 4 cards, a (2, 2) one; then the
-    full-row ROW_HASH routed serve over the W cards."""
+    package), on a (1, W) mesh and, with 4 cards, a (2, 2) one; the
+    multihost battery on 2 simulated hosts over NCCL and over gloo, every
+    case passing on every rank of both; then the full-row ROW_HASH routed
+    serve over the W cards."""
     n = torch.cuda.device_count()
     if n < 2:
         print(f"multi_gpu: skipped: the machine shows {n} CUDA device "
@@ -1379,6 +1680,18 @@ def multi_gpu_phase():
                   f"{data * model} cards: {cases} cases equal to the gloo run on the CPU "
                   f"(rtol 1e-5 atol 1e-6; 3-step traces rtol 1e-4; drop counts exact) in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        hw = 2 * (w // 2)  # 2 hosts of hw / 2 processes
+        hosts = {kind: run_multihost_battery(kind, hw, tmp) for kind in ("cuda", "cpu")}
+        for kind, ranks in hosts.items():
+            for r, results in enumerate(ranks):
+                failed = {k: v for k, v in results.items() if v != "ok"}
+                if failed or set(results) != set(multihost_battery.CASES):
+                    raise AssertionError(f"multihost battery, {kind}, rank {r}: {failed}")
+        print(f"multi_gpu: multihost battery, 2 simulated hosts of {hw // 2} processes, "
+              f"NCCL over {hw} cards and gloo on the CPU: all {len(multihost_battery.CASES)} "
+              f"cases passed on every rank of both, against the same numpy oracle, in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         out = os.path.join(tmp, "serve")
         os.makedirs(out)
         t0 = time.perf_counter()
@@ -1401,6 +1714,8 @@ def main(argv) -> int:
     if argv[:1] == ["--mesh-worker"]:  # one rank of multi_gpu's serve
         rank, world = map(int, argv[1:3])
         return mesh_worker(rank, world, *argv[3:5])
+    if argv[:1] == ["--multihost-worker"]:  # the process of multihost_1
+        return multihost_worker(argv[1])
     only_multi_gpu = argv == ["--only", "multi_gpu"]
     if argv and not only_multi_gpu:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1696,6 +2011,11 @@ def main(argv) -> int:
     masked_launches = mesh_1_phase(gen)
     print(f"mesh_1 phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 12b. multihost_1: parallel.multihost in a job of one ---------------------
+    t0 = time.perf_counter()
+    multihost_1 = multihost_1_phase()
+    print(f"multihost_1 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 13. shards_4: four shards of the full-row big set in one process -------
     t0 = time.perf_counter()
     shard_rows = shards_4_phase(gen)
@@ -1719,9 +2039,11 @@ def main(argv) -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     print("kernels: K1, K2, K3, K4 forward, K4 backward; K1 and K2 launches over "
-          "the served requests and the timed train steps; masked K1 and K2: the mean "
-          "of ROW_HASH's 4 shard launches (shards_4), launches over mesh_1's broadcast "
-          "requests and train steps", flush=True)
+          "the served requests and the timed train steps; masked K1, K2 and K4 backward: "
+          "the mean of ROW_HASH's 4 shard launches (shards_4), launches over mesh_1's "
+          "broadcast requests, train steps (sparse and dense-autodiff) and CSR-wire "
+          "gradient; multihost_1's masked K1 launches "
+          f"{multihost_1['k1_masked_launches']} are its subprocess's", flush=True)
     print(json.dumps({"kernels": [
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu",
               "272", k1_launches + train_launches["K1"], main_f32),
@@ -1737,6 +2059,8 @@ def main(argv) -> int:
               "gather_pool.cu", "272", masked_launches["K1"], mean_row(shard_rows["K1"])),
         entry("K2 masked embedding_bag_csr_packed (row shard, ownership mask)",
               "csr_pool.cu", "92", masked_launches["K2"], mean_row(shard_rows["K2"])),
+        entry("K4 backward masked embedding_bag_csr_grad (row shard, ownership mask)",
+              "csr_pool.cu", "230", masked_launches["K4 bwd"], mean_row(shard_rows["K4 bwd"])),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

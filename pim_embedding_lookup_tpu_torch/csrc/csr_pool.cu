@@ -15,7 +15,9 @@
 // entry, the stride of the indices) drops the entries whose byte is 0: a
 // row shard's ownership mask, so that the rows of other shards (and their
 // ids, out of this shard's range) are never read.  A bag whose entries are
-// all dropped pools to 0.  Each table keeps its own offsets row,
+// all dropped pools to 0.  The backward takes the same mask: a dropped entry
+// adds nothing to the gradient, and its id is never loaded (a row shard's
+// gradient under autodiff).  Each table keeps its own offsets row,
 // so the padding of one table never falls into a bag of the next.  Bag
 // (t, b) writes output row t*B + b.
 //
@@ -62,7 +64,10 @@
 // csr_grad_kernel (K4's backward) keeps the first design: one thread per
 // (bag, lane), one f32 atomicAdd of g[bag, lane] per (entry, lane), so rows
 // shared by several bags sum in an order that changes from run to run.  It
-// reaches 96 % of its bound (writing the dense gradient).
+// reaches 96 % of its bound (writing the dense gradient, which the caller
+// zeroes).  Its MASKED instance loads each entry's mask byte first and skips
+// the entry where it is 0: a row shard's gradient, whose bound is the same
+// dense write of the shard's rows.
 //
 // Plain C interface, loaded with ctypes.  Each launch function returns
 // cudaGetLastError() after the launch (0 = success).
@@ -126,9 +131,11 @@ csr_pool_kernel(const T* __restrict__ storage, const int* __restrict__ indices,
   }
 }
 
+template <bool MASKED>
 __global__ void csr_grad_kernel(const float* __restrict__ g,
                                 const int* __restrict__ indices,
                                 const int* __restrict__ offsets,
+                                const unsigned char* __restrict__ mask,
                                 float* __restrict__ dtable, int tables,
                                 int batch, long long capacity, int d) {
   const long long bag = (long long)blockIdx.x * blockDim.y + threadIdx.y;
@@ -137,10 +144,12 @@ __global__ void csr_grad_kernel(const float* __restrict__ g,
   const long long t = bag / batch;
   const int b = (int)(bag - t * batch);
   const int* idx = indices + t * capacity;
+  const unsigned char* keep = MASKED ? mask + t * capacity : nullptr;
   long long start, end;
   bag_range(offsets + t * (batch + 1), b, capacity, &start, &end);
   const float gv = g[bag * d + lane];
   for (long long e = start; e < end; ++e) {
+    if (MASKED && !keep[e]) continue;  // dropped: its id is never loaded
     const long long row = idx[e];
     atomicAdd(dtable + row * d + lane, gv);
   }
@@ -215,16 +224,18 @@ int pel_csr_pool_bf16(const void* storage, const void* indices,
                                     device, stream);
 }
 
+// mask: [T, C] bytes, an entry kept where its byte is set; NULL: none (the
+// unmasked instance, which takes no per-entry load)
 int pel_csr_grad_f32(const void* g, const void* indices, const void* offsets,
-                     void* dtable, int tables, int batch, long long capacity,
-                     int d, int device, void* stream) {
+                     const void* mask, void* dtable, int tables, int batch,
+                     long long capacity, int d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block = block_of(d);
-  csr_grad_kernel<<<grid_of((long long)tables * batch, block), block, 0,
-                    (cudaStream_t)stream>>>(
+  const auto kernel = mask != nullptr ? csr_grad_kernel<true> : csr_grad_kernel<false>;
+  kernel<<<grid_of((long long)tables * batch, block), block, 0, (cudaStream_t)stream>>>(
       (const float*)g, (const int*)indices, (const int*)offsets,
-      (float*)dtable, tables, batch, capacity, d);
+      (const unsigned char*)mask, (float*)dtable, tables, batch, capacity, d);
   return (int)cudaGetLastError();
 }
 

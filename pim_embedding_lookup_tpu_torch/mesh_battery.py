@@ -5,9 +5,12 @@ Inputs come from ``make_inputs(seed, data)`` (numpy only) through an
 ``.npz`` file, so that another implementation can compute the same cases
 from the same arrays.  Each rank runs every case (lookups under every
 policy on both wires, routed lookups and updates with their drop counts,
-the hot-row cache, the sparse updates, the hybrid collection and the sparse
-train step) and writes what it computed, gathered to the global batch and
-the global tables, to ``<out>/rank<r>.npz``.  A case that raises records
+the hot-row cache, the sparse updates, the hybrid collection, the sparse
+train step, the gradients of the lookups w.r.t. the storage, and the
+dense-autodiff train step) and writes what it computed, gathered to the
+global batch and the global tables, to ``<out>/rank<r>.npz``.  A gradient
+is that of ``sum(lookup * w)`` for a fixed cotangent ``w``, each process
+taking its data row's part of ``w`` where its query is data-sharded.  A case that raises records
 its error as ``<case>/error``, so that a failure names its case and no
 rank waits for a collective that another skipped.
 
@@ -30,7 +33,7 @@ import torch
 from . import config as tcfg
 from .config import ShardingPolicy
 from .convert import params_from_jax
-from .models import DLRM
+from .models import DLRM, fit, make_optimizer, make_train_step
 from .models.sparse_train import make_sparse_train_state, make_sparse_train_step
 from .parallel.collection import EmbeddingCollection
 from .parallel.hotcache import build_hot_cache, hot_ids_from_sample
@@ -49,6 +52,10 @@ LR = 0.05
 HOT_K = 16
 POISON = 1 << 30  # padding ids: a read would fault on the card
 POLICIES = ("replicate", "row", "row_hash", "column", "table_wise")
+# cases whose results compound three steps, and results that pass through
+# bf16 (the hybrid small set's gradient): their comparisons' tolerances widen
+TRACE_CASES = ("train_routed_trace", "train_hot", "train_autodiff_trace", "fit-row_hash")
+BF16_RESULTS = (("grad_hybrid", "small"),)
 ROWISH = ("row", "row_hash", "table_wise")
 
 
@@ -116,6 +123,7 @@ def make_inputs(seed: int, data: int) -> dict[str, np.ndarray]:
                                     for n in MIXED_ROWS]).astype(np.int32)
         inp[f"mmask{s}"] = rng.random((len(MIXED_ROWS), BATCH * 2)) < 0.8
         inp[f"mlabels{s}"] = (rng.random(BATCH) < 0.5).astype(np.float32)
+    inp["mg"] = rng.standard_normal((BATCH, len(MIXED_ROWS), DIM)).astype(np.float32)
     return inp
 
 
@@ -243,20 +251,25 @@ class Battery:
         out["routed_mean"], out["routed_dropped"] = self.batch(pooled), dropped
         return out
 
-    def model(self, policy):
-        m = DLRM(mixed_config(tcfg), ShardingPolicy(policy), hybrid=True, mesh=self.mesh,
+    def model(self, policy, hybrid=True):
+        m = DLRM(mixed_config(tcfg), ShardingPolicy(policy), hybrid=hybrid, mesh=self.mesh,
                  generator=torch.Generator(device=self.dev).manual_seed(0))
         coll = m.collection
-        emb = {key: getattr(coll, key).fused_host_array(
-                   [self.inp[f"mtable{i}"] for i in getattr(coll, f"{key}_ids")])
-               for key in ("small", "big")}
+        if hybrid:
+            emb = {key: getattr(coll, key).fused_host_array(
+                       [self.inp[f"mtable{i}"] for i in getattr(coll, f"{key}_ids")])
+                   for key in ("small", "big")}
+        else:
+            emb = coll.fused_host_array(host_tables(self.inp, "mtable", MIXED_ROWS))
         params_from_jax({"emb": emb, **mlp_params(self.inp)}, m)
         return m
 
-    def model_state(self, m, acc):
+    def model_state(self, m, acc=None):
         coll = m.collection
         out = {}
-        for key in ("small", "big"):
+        if not m.hybrid:
+            out["emb"] = coll.gather_storage(m.emb.detach())
+        for key in ("small", "big") if m.hybrid else ():
             sub = getattr(coll, key)
             out[f"emb_{key}"] = sub.gather_storage(getattr(m, f"emb_{key}"))
             out[f"acc_{key}"] = sub.gather_accumulator(acc[key])
@@ -288,6 +301,59 @@ class Battery:
             losses.append(loss)
         return {"losses": torch.stack(losses), **self.model_state(m, acc)}
 
+    def train_autodiff(self, policy, kind, steps):
+        """``steps`` dense-autodiff steps of the mixed DLRM with every table
+        in one collection under ``policy`` (all f32)."""
+        m = self.model(policy, hybrid=False)
+        step = make_train_step(m, make_optimizer(LR, kind))
+        losses = [step(*self.step_batch(s))[0] for s in range(steps)]
+        return {"losses": torch.stack(losses), **self.model_state(m)}
+
+    def fit(self, policy):
+        """``fit`` over two batches, reporting on the third every step."""
+        m = self.model(policy, hybrid=False)
+        reports = fit(m, [self.step_batch(s) for s in range(2)], lr=LR, test_freq=1,
+                      test_batches=[self.step_batch(2)])
+        rows = [[r.step, r.loss, r.accuracy, r.auc] for r in reports]
+        return {"reports": torch.tensor(rows, dtype=torch.float64), **self.model_state(m)}
+
+    def _grad(self, coll, storage, lookup, w):
+        """The global storage's gradient of sum(lookup(storage) * w)."""
+        storage.requires_grad_(True)
+        (lookup(storage) * w).sum().backward()
+        return {"grad": coll.gather_storage(storage.grad)}
+
+    def grad(self, policy, combiner):
+        c, fused = self.loaded(policy)
+        return self._grad(c, fused, lambda f: c.lookup(
+            f, self.rows(self.inp["idx"]), self.rows(self.inp["mask"]),
+            batch_size=BATCH // self.mesh.data, combiner=combiner), self.rows(self.inp["g"], 0))
+
+    def grad_csr(self, policy, combiner, data_sharded=False, routed=False):
+        c, fused = self.loaded(policy)
+        if data_sharded:
+            q, w = self.csr_window(), self.rows(self.inp["g"], 0)
+        else:
+            q, w = (self.t(self.inp["cidx"]), self.t(self.inp["coff"])), self.t(self.inp["g"])
+        return self._grad(c, fused, lambda f: c.lookup_csr(
+            f, *q, combiner=combiner, data_sharded=data_sharded, routed=routed), w)
+
+    def grad_routed(self, policy):
+        c, fused = self.loaded(policy)
+        return self._grad(c, fused, lambda f: c.lookup_routed(
+            f, self.rows(self.inp["zidx"]), self.rows(self.inp["zmask"]),
+            batch_size=BATCH // self.mesh.data), self.rows(self.inp["g"], 0))
+
+    def grad_hybrid(self):
+        h, params = self.hybrid("row")
+        for v in params.values():
+            v.requires_grad_(True)
+        out = h.lookup(params, self.rows(self.inp["midx0"]), self.rows(self.inp["mmask0"]),
+                       batch_size=BATCH // self.mesh.data)
+        (out * self.rows(self.inp["mg"], 0)).sum().backward()
+        return {key: getattr(h, key).gather_storage(params[key].grad)
+                for key in ("small", "big")}
+
     def guard(self, which):
         """The error a refused call raises, as 'Type: message'."""
         c, fused = self.loaded("column" if which in ("routed_column", "csr_update_column")
@@ -309,8 +375,9 @@ class Battery:
             "hot_unrouted": lambda: make_sparse_train_step(self.model("row_hash"), None,
                                                            hot_cache=True),
             "step_args": lambda: self._hot_step_without_cache(),
-            "autodiff": lambda: c.lookup(fused.clone().requires_grad_(True), *q,
-                                         batch_size=bd),
+            "grad_rowshard_max": lambda: c.lookup(fused.clone().requires_grad_(True), *q,
+                                                  batch_size=bd, combiner="max"),
+            "grad_hot": lambda: self._hot_lookup_under_grad(c, fused),
         }
         try:
             calls[which]()
@@ -323,6 +390,12 @@ class Battery:
         opt, acc = make_sparse_train_state(m, lr=LR)
         step = make_sparse_train_step(m, opt, lr=LR, routed=True, hot_cache=True)
         step(acc, *self.step_batch(0))
+
+    def _hot_lookup_under_grad(self, c, fused):
+        ids, rows = build_hot_cache(c, fused, hot_ids_from_sample(c, self.inp["zidx"], HOT_K))
+        c.lookup_routed(fused.clone().requires_grad_(True), self.rows(self.inp["zidx"]),
+                        self.rows(self.inp["zmask"]), batch_size=BATCH // self.mesh.data,
+                        hot_cache=(ids, rows))
 
     def cases(self):
         """(name, thunk) of every case, in the same order on every rank."""
@@ -358,8 +431,26 @@ class Battery:
             "row_hash", "row_adagrad", TRAIN_STEPS, routed=True)))
         out.append(("train_hot", lambda: self.train(
             "row_hash", "row_adagrad", TRAIN_STEPS, routed=True, hot=True)))
+        for p in POLICIES:
+            out.append((f"grad-{p}-sum", lambda p=p: self.grad(p, "sum")))
+            out.append((f"grad_csr-{p}-sum", lambda p=p: self.grad_csr(p, "sum")))
+            out.append((f"train_autodiff-{p}", lambda p=p: self.train_autodiff(p, "sgd", 1)))
+        out.append(("grad-row_hash-mean", lambda: self.grad("row_hash", "mean")))
+        out.append(("grad_csr_ds-row_hash-mean",
+                    lambda: self.grad_csr("row_hash", "mean", data_sharded=True)))
+        for p in ("replicate", "column"):
+            out.append((f"grad-{p}-max", lambda p=p: self.grad(p, "max")))
+        for p in ROWISH:
+            out.append((f"grad_routed-{p}", lambda p=p: self.grad_routed(p)))
+        out.append(("grad_csr_routed_ds-row_hash", lambda: self.grad_csr(
+            "row_hash", "sum", data_sharded=True, routed=True)))
+        out.append(("grad_hybrid", self.grad_hybrid))
+        out.append(("train_autodiff_trace", lambda: self.train_autodiff(
+            "row_hash", "adagrad", TRAIN_STEPS)))
+        out.append(("fit-row_hash", lambda: self.fit("row_hash")))
         for g in ("routed_column", "routed_max", "stats_unrouted", "routed_update_replicate",
-                  "csr_update_column", "hot_unrouted", "step_args", "autodiff"):
+                  "csr_update_column", "hot_unrouted", "step_args", "grad_rowshard_max",
+                  "grad_hot"):
             out.append((f"guard-{g}", lambda g=g: self.guard(g)))
         return out
 

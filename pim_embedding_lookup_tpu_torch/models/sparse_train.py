@@ -36,7 +36,7 @@ from ..parallel.hybrid import (
 from ..parallel.mesh import DATA_AXIS
 from ..parallel.sparse_update import init_accumulator, sparse_update, sparse_update_csr
 from .dlrm import DLRM, bce_loss
-from .train import OptimizerFactory, make_optimizer
+from .train import OptimizerFactory, make_optimizer, sum_grads_over_data
 
 
 def _init_acc(coll):
@@ -66,16 +66,6 @@ def _apply_sparse_csr(coll, emb, acc, indices, offsets, g_pooled, *, lr,
 def dense_params(model: DLRM) -> list[torch.Tensor]:
     """The dense tower's params: the bot and top MLPs."""
     return [*model.bot.parameters(), *model.top.parameters()]
-
-
-def _sum_grads_over_data(mesh, params):
-    """Sum the params' gradients over the data axis, as one flat
-    all-reduce."""
-    flat = mesh.psum(torch.cat([p.grad.reshape(-1) for p in params]), DATA_AXIS)
-    at = 0
-    for p in params:
-        p.grad.copy_(flat[at:at + p.grad.numel()].view_as(p.grad))
-        at += p.grad.numel()
 
 
 def make_sparse_train_state(
@@ -144,7 +134,7 @@ def make_sparse_train_step(
             loss = loss / mesh.data
         loss.backward()
         if mesh is not None:
-            _sum_grads_over_data(mesh, params)
+            sum_grads_over_data(mesh, params)
             loss = mesh.psum(loss.detach().clone(), DATA_AXIS)
         dense_opt.step()
         with torch.no_grad():

@@ -8,6 +8,13 @@ that.  The model's tensors are trained in place, which stands in for the
 JAX step's returned params: an optimizer here is a factory that binds an
 optimizer rule to tensors, as an optax transformation is bound to a
 params tree by ``init``.
+
+On a mesh each process feeds its data row's slice of the batch.  The loss
+is the mean over the global batch (each process divides by the global B);
+the lookups' backward sums the tables' gradients over the data axis
+(``parallel.collection``), and the step sums the dense params' gradients
+over it, once each.  Evaluation gathers the probabilities over the data
+axis, so the metrics cover the global batch.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from ..parallel.mesh import DATA_AXIS
 from .dlrm import DLRM, bce_loss
 
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
@@ -77,23 +85,42 @@ def emb_tensors(model: DLRM) -> list[torch.Tensor]:
     return [emb]
 
 
+def sum_grads_over_data(mesh, params):
+    """Sum the params' gradients over the data axis, as one flat
+    all-reduce."""
+    flat = mesh.psum(torch.cat([p.grad.reshape(-1) for p in params]), DATA_AXIS)
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at:at + p.grad.numel()].view_as(p.grad))
+        at += p.grad.numel()
+
+
 def make_train_step(model: DLRM, optimizer: OptimizerFactory) -> Callable:
     """A step over (dense, indices, mask, labels) that differentiates the
     BCE loss w.r.t. every tensor of ``model``, the embedding storage
     included, and applies ``optimizer`` to all of them in place.  The
     storage is marked as requiring grad, so the lookups build their
-    backward; a lookup under ``torch.no_grad`` still builds none.
-    Returns (loss, logits), detached."""
+    backward; a lookup under ``torch.no_grad`` still builds none.  On a
+    mesh the batch is this process's data row's slice (module docstring).
+    Returns (loss, logits), detached: the global loss, this slice's
+    logits."""
     tables = emb_tensors(model)
     for t in tables:
         t.requires_grad_(True)
-    opt = optimizer([*model.parameters(), *tables])
+    params = list(model.parameters())  # the MLPs: the tables are buffers
+    opt = optimizer([*params, *tables])
+    mesh = model.collection.mesh
 
     def train_step(dense, indices, mask, labels):
         opt.zero_grad(set_to_none=True)
         logits = model(dense, indices, mask)
         loss = bce_loss(logits, labels)
+        if mesh is not None:  # the mean over the global batch
+            loss = loss / mesh.data
         loss.backward()
+        if mesh is not None:
+            sum_grads_over_data(mesh, params)
+            loss = mesh.psum(loss.detach().clone(), DATA_AXIS)
         opt.step()
         return loss.detach(), logits.detach()
 
@@ -101,6 +128,8 @@ def make_train_step(model: DLRM, optimizer: OptimizerFactory) -> Callable:
 
 
 def make_eval_step(model: DLRM) -> Callable:
+    """Click probabilities of (dense, indices, mask); on a mesh those of
+    this data row's slice."""
     @torch.no_grad()
     def eval_step(dense, indices, mask):
         return torch.sigmoid(model(dense, indices, mask))
@@ -155,9 +184,17 @@ def fit(
     """Train ``model`` in place over (dense, indices, mask, labels)
     batches (tensors or numpy arrays; moved to the model's device), and
     every ``test_freq`` steps report loss, accuracy and AUC on
-    ``test_batches``.  Returns the reports."""
+    ``test_batches``.  On a mesh every batch is this process's data row's
+    slice, and the reports cover the global batches.  Returns the
+    reports."""
     device = model.collection.device
+    mesh = model.collection.mesh
     as_dev = functools.partial(torch.as_tensor, device=device)
+
+    def global_batch(x):
+        x = as_dev(x)
+        return x if mesh is None else mesh.all_gather(x.contiguous(), DATA_AXIS, 0)
+
     train_step = make_train_step(model, make_optimizer(lr, optimizer_kind))
     eval_step = make_eval_step(model)
     reports: list[TrainReport] = []
@@ -168,9 +205,9 @@ def fit(
         if test_freq and step % test_freq == 0 and test_batches:
             probs, labs = [], []
             for tdense, tindices, tmask, tlabels in test_batches:
-                probs.append(eval_step(as_dev(tdense), as_dev(tindices),
-                                       as_dev(tmask)).cpu().numpy())
-                labs.append(torch.as_tensor(tlabels).cpu().numpy())
+                probs.append(global_batch(eval_step(as_dev(tdense), as_dev(tindices),
+                                                    as_dev(tmask))).cpu().numpy())
+                labs.append(global_batch(tlabels).cpu().numpy())
             probs, labs = np.concatenate(probs), np.concatenate(labs)
             rep = TrainReport(step=step, loss=float(loss),
                               accuracy=binary_accuracy(probs, labs),

@@ -22,12 +22,12 @@ per (bag, lane).  The wrappers take T tables at once (indices [T, C],
 offsets [T, B+1]), one launch for all of them.
 
 The plain versions run only for CPU tensors; a CUDA tensor launches the
-kernel or raises.  K2 also takes an optional per-entry mask (a row shard's
-ownership), whose dropped entries it never reads; ``masked_launches``
-counts those launches.  Where the storage requires grad (and grad mode is
-on), ``embedding_bag_csr_packed`` is differentiable w.r.t. the storage
-through the same autograd function as K4: the forward is the pool kernel,
-the backward K4's gradient kernel.
+kernel or raises.  K2 and K4's backward also take an optional per-entry
+mask (a row shard's ownership), whose dropped entries they never read;
+``masked_launches`` counts those launches.  Where the storage requires grad
+(and grad mode is on), ``embedding_bag_csr_packed`` is differentiable
+w.r.t. the storage through the same autograd function as K4: the forward is
+the pool kernel, the backward K4's gradient kernel, both with the mask.
 """
 
 from __future__ import annotations
@@ -40,14 +40,14 @@ from . import _build
 from .gather_pool import _MAX_DIM, _STORAGE_DTYPES, _check_storage, row_path, walks_by_group
 from .ragged import segment_ids_from_offsets
 
-_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [
+# (source, indices, offsets, mask or NULL, out, tables, batch, capacity, d,
+# device, stream); the pool kernels also take the row path and the walk
+# after d: vector, group and by_group
+_LAUNCH_ARGS = [ctypes.c_void_p] * 5 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
-# the pool kernels also take the mask (after the offsets; NULL: none), and
-# the row path and the walk after d: vector, group and by_group
-_POOL_ARGS = ([ctypes.c_void_p] + _LAUNCH_ARGS[:8] + [ctypes.c_int] * 3
-              + _LAUNCH_ARGS[8:])
+_POOL_ARGS = _LAUNCH_ARGS[:9] + [ctypes.c_int] * 3 + _LAUNCH_ARGS[9:]
 _SIGNATURES = {
     "pel_csr_pool_f32": (_POOL_ARGS, ctypes.c_int),
     "pel_csr_pool_bf16": (_POOL_ARGS, ctypes.c_int),
@@ -82,18 +82,16 @@ def _as_2d(indices, offsets):
 
 def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path, mask=None):
     """One launch of a csr_pool.cu kernel over [T, C] ids and [T, B+1]
-    offsets on ``src``'s device and current stream; ``path`` is the pool
-    kernels' (vector, group, by_group), and they also take the mask."""
+    offsets (and the [T, C] mask, if any) on ``src``'s device and current
+    stream; ``path`` is the pool kernels' (vector, group, by_group)."""
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
     idx2, off2 = _as_2d(indices, offsets)
     lib = _build.load("csr_pool", _SIGNATURES)
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    pointers = [src.data_ptr(), idx2.data_ptr(), off2.data_ptr()]
-    if path:
-        pointers.append(None if mask is None else mask.data_ptr())
     err = getattr(lib, fn_name)(
-        *pointers, out.data_ptr(),
+        src.data_ptr(), idx2.data_ptr(), off2.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
         idx2.shape[0], batch_size, idx2.shape[1], d, *path, src.device.index, stream,
     )
     if err != 0:
@@ -166,11 +164,10 @@ def embedding_bag_csr_packed(
     Row t*B + b of the result pools bag b of table t.  ``mask`` keeps the
     entries where it is set (a row shard's ownership): the others are never
     read, so their ids may hold anything.  Kept ids must lie in [0, rows).
-    A masked pool has no gradient."""
+    Differentiable w.r.t. the storage where it requires grad; the gradient
+    takes the same mask."""
     if storage.requires_grad and torch.is_grad_enabled():
-        if mask is not None:
-            raise ValueError("a masked CSR pool is forward-only")
-        return _CSRBagSum.apply(storage, d, indices, offsets, batch_size,
+        return _CSRBagSum.apply(storage, d, indices, offsets, batch_size, mask,
                                 embedding_bag_csr_packed)
     out, launched = _pool(storage, d, indices, offsets, batch_size, mask)
     embedding_bag_csr_packed.launches += launched
@@ -187,17 +184,23 @@ embedding_bag_csr_packed.masked_launches = 0
 
 def embedding_bag_csr_grad_reference(
     g: torch.Tensor, indices: torch.Tensor, offsets: torch.Tensor, num_rows: int,
+    mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K4's backward: dtable[idx[e]] += g[seg(e)]
-    over the valid entries, by ``index_add_``.  [num_rows, D] f32."""
+    over the valid entries (those of a bag, and kept by ``mask``), by
+    ``index_add_``.  [num_rows, D] f32.  Other entries add an exact zero at
+    row 0, so their ids are never used."""
     b = offsets.shape[-1] - 1
     fseg, valid = _segments(indices, offsets, b)
+    if mask is not None:
+        valid = valid & mask.reshape(-1).bool()
     t = fseg.numel() // indices.shape[-1]
     g_rows = torch.cat([g.reshape(t, b, -1),
                         g.new_zeros(t, 1, g.shape[-1])], dim=1).reshape(-1, g.shape[-1])
     dtable = torch.zeros(num_rows, g.shape[-1], dtype=torch.float32, device=g.device)
     ids = torch.where(valid, indices.reshape(-1).long(), 0)
-    dtable.index_add_(0, ids, g_rows.index_select(0, fseg).float())  # padding adds 0
+    rows = torch.where(valid[:, None], g_rows.index_select(0, fseg).float(), 0.0)
+    dtable.index_add_(0, ids, rows)
     return dtable
 
 
@@ -206,9 +209,11 @@ def embedding_bag_csr_grad(
     indices: torch.Tensor,  # [C] or [T, C] int32
     offsets: torch.Tensor,  # [B+1] or [T, B+1] int32
     num_rows: int,
+    mask: torch.Tensor | None = None,  # [C] or [T, C] bool/uint8
 ) -> torch.Tensor:  # [num_rows, D] f32
-    """K4's backward: the dense table gradient of the SUM bag."""
-    _check_csr(indices, offsets, offsets.shape[-1] - 1, g.device)
+    """K4's backward: the dense table gradient of the SUM bag.  Entries
+    whose ``mask`` is unset add nothing and are never read."""
+    _check_csr(indices, offsets, offsets.shape[-1] - 1, g.device, mask)
     t = 1 if indices.dim() == 1 else indices.shape[0]
     b = offsets.shape[-1] - 1
     if g.dtype != torch.float32 or g.dim() != 2 or not g.is_contiguous():
@@ -216,37 +221,42 @@ def embedding_bag_csr_grad(
     if g.shape[0] != t * b or g.shape[1] > _MAX_DIM:
         raise ValueError(f"g {tuple(g.shape)} for {t} tables x {b} bags")
     if g.device.type == "cpu":
-        return embedding_bag_csr_grad_reference(g, indices, offsets, num_rows)
+        return embedding_bag_csr_grad_reference(g, indices, offsets, num_rows, mask)
     dtable = torch.zeros(num_rows, g.shape[1], dtype=torch.float32, device=g.device)
     if g.numel() == 0:
         return dtable
-    _launch("pel_csr_grad_f32", g, indices, offsets, dtable, b, g.shape[1])
+    _launch("pel_csr_grad_f32", g, indices, offsets, dtable, b, g.shape[1], mask=mask)
     embedding_bag_csr_grad.launches += 1
+    embedding_bag_csr_grad.masked_launches += mask is not None
     return dtable
 
 
 embedding_bag_csr_grad.launches = 0
+embedding_bag_csr_grad.masked_launches = 0
 
 
 class _CSRBagSum(torch.autograd.Function):
-    """SUM bag over fused storage ([S, 128] packed or [N, d]) with its
-    gradient w.r.t. the storage only.  ``counted`` is the public function
-    whose ``launches`` count the forward's kernel."""
+    """SUM bag over fused storage ([S, 128] packed or [N, d]), with an
+    optional per-entry mask, and its gradient w.r.t. the storage only.
+    ``counted`` is the public function whose ``launches`` (and, for a mask,
+    ``masked_launches``) count the forward's kernel."""
 
     @staticmethod
-    def forward(ctx, storage, d, indices, offsets, batch_size, counted):
-        out, launched = _pool(storage, d, indices, offsets, batch_size)
+    def forward(ctx, storage, d, indices, offsets, batch_size, mask, counted):
+        out, launched = _pool(storage, d, indices, offsets, batch_size, mask)
         counted.launches += launched
-        ctx.save_for_backward(indices, offsets)
+        if mask is not None:
+            counted.masked_launches += launched
+        ctx.save_for_backward(indices, offsets, mask)
         ctx.shape, ctx.dtype = storage.shape, storage.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
-        indices, offsets = ctx.saved_tensors
+        indices, offsets, mask = ctx.saved_tensors
         rows = ctx.shape.numel() // g.shape[1]
-        dtable = embedding_bag_csr_grad(g.float().contiguous(), indices, offsets, rows)
-        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None
+        dtable = embedding_bag_csr_grad(g.float().contiguous(), indices, offsets, rows, mask)
+        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None, None
 
 
 def embedding_bag_csr_sum(
@@ -269,7 +279,7 @@ def embedding_bag_csr_sum(
     src = table if table.dtype in _STORAGE_DTYPES else table.float()
     out = _CSRBagSum.apply(
         src.contiguous(), src.shape[1], indices.to(torch.int32).contiguous(),
-        offsets.to(torch.int32).contiguous(), batch_size, embedding_bag_csr_sum)
+        offsets.to(torch.int32).contiguous(), batch_size, None, embedding_bag_csr_sum)
     return out.to(table.dtype)
 
 

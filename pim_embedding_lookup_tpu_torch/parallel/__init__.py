@@ -1,5 +1,6 @@
 """Table placement and embedding collections."""
 
+from . import multihost
 from .bucketed import lookup_csr_bucketed
 from .collection import EmbeddingCollection
 from .hybrid import HybridEmbeddingCollection
@@ -7,5 +8,5 @@ from .planner import FusedLayout, plan, resolve_pack
 
 __all__ = [
     "EmbeddingCollection", "HybridEmbeddingCollection", "FusedLayout", "plan",
-    "resolve_pack", "lookup_csr_bucketed",
+    "resolve_pack", "lookup_csr_bucketed", "multihost",
 ]

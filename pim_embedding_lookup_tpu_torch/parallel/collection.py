@@ -26,6 +26,20 @@ over the model axis.  Dense-wire queries are the process's data row's slice
 process's own window (``ops.ragged.shard_csr``).  ``lookup_routed`` and
 ``lookup_csr(routed=True)`` send each entry to its owner through
 capacity-bucketed all-to-alls instead (``_route_rows``).
+
+Every lookup is differentiable w.r.t. the storage where the storage
+requires grad (and grad mode is on), on a mesh too, through the
+collectives' transposes (``parallel.mesh``).  The gradient a process holds
+is its shard of the gradient of the global loss, as ``jax.grad`` gives it:
+where the query is sharded over the data axis (the dense wire, routed
+lookups, ``lookup_csr(data_sharded=True)``) the global loss is the sum of
+the data rows' losses, and the lookup's backward sums the storage's
+gradient over the data axis at its input (``PortMesh.pvary``), so that the
+caller sums nothing; where every data row passes the whole CSR batch
+(``data_sharded=False``) each computes the whole loss, counted once, and
+nothing is summed.  Model peers compute the same loss, which counts once.
+A row shard's MAX under grad raises as JAX's pmax does; the routed
+lookup's hot-row cache under grad is not ported.
 """
 
 from __future__ import annotations
@@ -142,16 +156,17 @@ class EmbeddingCollection:
                 f"{name}: policy {self.layout.policy.value} shards the storage over "
                 "a mesh; create the collection with mesh=... (only REPLICATE runs "
                 "without one)")
+        if self.mesh is not None:
+            self.mesh.check_member(name)
 
-    def _check_lookup(self, name, storage):
-        """Autodiff through a sharded lookup is not ported; a sharded
-        policy needs a mesh."""
-        sharded = self.mesh is not None or self.layout.policy != ShardingPolicy.REPLICATE
-        if sharded and storage.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name}: autodiff through a sharded lookup is not ported (ROADMAP.md); "
-                "train sharded storage with the sparse step")
+    def _lookup_input(self, name, storage, data_sharded=True):
+        """The storage a lookup reads: checked, and on a mesh with a
+        data-sharded query under grad, passed through ``pvary`` over the
+        data axis (the module docstring)."""
         self._require_mesh(name)
+        if self.mesh is None or not data_sharded:
+            return storage
+        return self.mesh.pvary(storage, DATA_AXIS)
 
     # -- storage ------------------------------------------------------------
 
@@ -276,7 +291,7 @@ class EmbeddingCollection:
             raise ValueError(f"capacity {c} not divisible by batch {b}")
         if combiner not in ("sum", "mean", "max"):
             raise ValueError(f"unknown combiner {combiner!r}")
-        self._check_lookup("lookup", fused_table)
+        fused_table = self._lookup_input("lookup", fused_table)
         pooling = c // b
         mask = mask.to(torch.bool)
         g_idx = self.globalize(indices.to(torch.int32))
@@ -319,7 +334,8 @@ class EmbeddingCollection:
         gets all of it.  ``data_sharded=True``: each process passes its own
         window (``ops.ragged.shard_csr``; offsets relative to the window)
         and gets its Bd bags.  The pooling is the same either way; the flag
-        only says whether a routed drop count is summed over the data axis.
+        says whether a routed drop count, and under grad the storage's
+        gradient, is summed over the data axis.
 
         ``routed=True`` (ROW/ROW_HASH/TABLE_WISE, SUM/MEAN) sends the
         entries to their owners through the all-to-all routing of
@@ -336,7 +352,7 @@ class EmbeddingCollection:
                 raise ValueError("routed lookup_csr supports sum/mean")
         elif combiner not in ("sum", "mean", "max"):
             raise ValueError(f"unknown combiner {combiner!r}")
-        self._check_lookup("lookup_csr", fused_table)
+        fused_table = self._lookup_input("lookup_csr", fused_table, data_sharded)
         b = offsets.shape[1] - 1
         g_idx = self.globalize(indices.to(torch.int32)).contiguous()
         offsets = offsets.to(torch.int32).contiguous()
@@ -416,7 +432,10 @@ class EmbeddingCollection:
         b = batch_size if batch_size is not None else c
         if c % b:
             raise ValueError(f"capacity {c} not divisible by batch {b}")
-        self._check_lookup("lookup_routed", fused_table)
+        if hot_cache is not None and fused_table.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError("lookup_routed: the hot-row cache under autodiff is "
+                                      "not ported (ROADMAP.md)")
+        fused_table = self._lookup_input("lookup_routed", fused_table)
         mask = mask.to(torch.bool)
         g_idx = self.globalize(indices.to(torch.int32))
         lay = self.layout

@@ -11,7 +11,10 @@ package.  The rest form the big set, an EmbeddingCollection whose lookup
 runs the gather+pool kernel on the card.  On a mesh the small set is
 planned over the model axis but replicated on every process; the big set is
 sharded by its policy, and ``routed``, ``capacity_factor``, ``hot_cache``,
-``return_stats`` and ``data_sharded`` pass through to it.
+``return_stats`` and ``data_sharded`` pass through to it.  Both sets are
+differentiable w.r.t. their storage, with the big set's contract
+(``collection``'s module docstring): the small set, replicated, has its
+gradient summed over the data axis only, where the query is data-sharded.
 
 Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}``,
 and so is the row-AdaGrad accumulator.  The sparse step updates the small
@@ -200,7 +203,8 @@ class HybridEmbeddingCollection:
         if self.small is not None:
             sel = self._index["small_ids"]
             parts.append(_mxu_pooled_lookup(
-                params["small"], self.buckets, indices[sel], mask[sel],
+                self.small._lookup_input("lookup", params["small"]), self.buckets,
+                indices[sel], mask[sel],
                 batch_size=batch_size, combiner=combiner,
             ))
         if self.big is not None:
@@ -245,7 +249,8 @@ class HybridEmbeddingCollection:
         if self.small is not None:
             sel = self._index["small_ids"]
             parts.append(_mxu_csr_lookup(
-                params["small"], self.buckets, indices[sel], offsets[sel],
+                self.small._lookup_input("lookup_csr", params["small"], data_sharded),
+                self.buckets, indices[sel], offsets[sel],
                 combiner=combiner,
             ))
         if self.big is not None:

@@ -2,12 +2,29 @@
 
 The counterpart of ``pim_embedding_lookup_tpu.parallel.mesh``.  One process
 drives one device: rank r sits at data row ``r // model`` and model column
-``r % model``, as device r of the JAX package's ``make_mesh`` does.  The JAX
-package's collectives inside ``shard_map`` (psum, pmax, all_gather and
-all_to_all over an axis) become ``torch.distributed`` calls on the axis's
-process group.  Every collective goes through them, even over an axis of
-size 1.  The backend follows the device: NCCL for CUDA, gloo for the CPU.
-Nothing falls back from one to the other.
+``r % model``, as device r of the JAX package's ``make_mesh`` does.  A mesh
+smaller than the world takes ranks [0, data * model); the other ranks hold
+a ``PortMesh`` whose ``member`` is False and join none of its collectives.
+The JAX package's collectives inside ``shard_map`` (psum, pmax, all_gather
+and all_to_all over an axis) become ``torch.distributed`` calls on the
+axis's process group.  Every collective goes through them, even over an
+axis of size 1.  The backend follows the device: NCCL for CUDA, gloo for
+the CPU.  Nothing falls back from one to the other.
+
+Under autograd (an input that requires grad, grad mode on) the collectives
+are differentiable, with the transposes JAX gives them where every peer of
+the axis computes the same loss from their result:
+
+  psum        the cotangent passes through: each peer already holds all of it
+  pmax        raises, as JAX has no differentiation rule for pmax
+  all_gather  each peer takes its own slice of the cotangent
+  all_to_all  the reverse all_to_all, which is the same exchange
+  pvary       the identity, whose cotangent is summed over the axis: it marks
+              a value that the axis's peers hold alike but use on different
+              data (JAX's pvary, whose transpose is psum)
+
+``torch.distributed.nn.functional`` is not used: its all_reduce also
+all-reduces the cotangent, which counts each peer's loss once per peer.
 """
 
 from __future__ import annotations
@@ -16,7 +33,6 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..config import MeshConfig
 from ..device import resolve_device
@@ -50,30 +66,37 @@ def init_distributed(rank: int, world_size: int, init_method: str,
 @dataclasses.dataclass(frozen=True, eq=False)
 class PortMesh:
     """This process's place in the (data, model) mesh, and the collectives
-    over each axis.  A reducing collective works in place where its input is
-    contiguous, and returns the result."""
+    over each axis.  Without grad a reducing collective works in place where
+    its input is contiguous, and returns the result.  Outside the mesh
+    (``member`` False) every collective and position raises."""
 
-    device_mesh: DeviceMesh
+    data: int
+    model: int
     device: torch.device
+    rank: int  # in the default group
+    groups: dict = dataclasses.field(repr=False)  # axis -> this rank's group
 
     @property
-    def data(self) -> int:
-        return self.device_mesh.size(0)
-
-    @property
-    def model(self) -> int:
-        return self.device_mesh.size(1)
+    def member(self) -> bool:
+        return self.rank < self.data * self.model
 
     @property
     def shape(self) -> dict[str, int]:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
 
+    def check_member(self, what: str = "this call"):
+        if not self.member:
+            raise ValueError(f"{what}: rank {self.rank} is outside the "
+                             f"{self.data}x{self.model} mesh")
+
     def index(self, axis: str) -> int:
         """This process's position along ``axis``."""
-        return self.device_mesh.get_local_rank(axis)
+        self.check_member(f"index({axis!r})")
+        return self.rank // self.model if axis == DATA_AXIS else self.rank % self.model
 
     def group(self, axis: str):
-        return self.device_mesh.get_group(axis)
+        self.check_member(f"a collective over {axis!r}")
+        return self.groups[axis]
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -101,11 +124,15 @@ class PortMesh:
         return self.data_slice(indices, 1), self.data_slice(offsets, 1)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        if _differentiated(x):
+            return _Psum.apply(x, self.group(axis))
         x = x.contiguous()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group(axis))
         return x
 
     def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        if _differentiated(x):
+            raise NotImplementedError("Differentiation rule for 'pmax' not implemented")
         x = x.contiguous()
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group(axis))
         return x
@@ -113,26 +140,102 @@ class PortMesh:
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """Every peer's ``x`` along ``axis``, concatenated on ``dim`` in the
         peers' order (JAX's tiled all_gather)."""
-        wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-        parts = [torch.empty_like(wire) for _ in range(self.size(axis))]
-        dist.all_gather(parts, wire, group=self.group(axis))
-        out = torch.cat(parts, dim=dim)
-        return out.bool() if x.dtype == torch.bool else out
+        if _differentiated(x):
+            return _AllGather.apply(x, self.group(axis), self.size(axis), self.index(axis),
+                                    dim)
+        return _all_gather(x, self.group(axis), self.size(axis), dim)
 
     def all_to_all(self, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
         """Split ``x``'s first dim into equal blocks, one per peer, and
         return the blocks the peers sent, in their order."""
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group(axis))
-        return out
+        if _differentiated(x):
+            return _AllToAll.apply(x, self.group(axis))
+        return _all_to_all(x, self.group(axis))
+
+    def pvary(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` itself, with its cotangent summed over ``axis`` (the module
+        docstring); without grad ``x`` as it is."""
+        if _differentiated(x):
+            return _Pvary.apply(x, self.group(axis))
+        return x
+
+
+def _differentiated(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def _all_gather(x, group, size, dim):
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    parts = [torch.empty_like(wire) for _ in range(size)]
+    dist.all_gather(parts, wire, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.bool() if x.dtype == torch.bool else out
+
+
+def _all_to_all(x, group):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _summed(x, group):
+    """A copy of ``x`` summed over ``group`` (the input is left as it is)."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index, dim):
+        ctx.index, ctx.dim, ctx.width = index, dim, x.shape[dim]
+        return _all_gather(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
 
 
 def make_mesh(config: MeshConfig | None = None, *, data: int | None = None,
               model: int | None = None, device=None) -> PortMesh:
-    """The (data, model) mesh over the default process group, which must
-    be joined first (``init_distributed``).  With no sizes every process
-    goes on the model axis; the sizes must multiply to the world size.
+    """The (data, model) mesh over ranks [0, data * model) of the default
+    process group, which must be joined first (``init_distributed``).  With
+    no sizes every process goes on the model axis.  Every rank of the
+    default group must call this (``new_group`` is collective over it); a
+    rank past data * model gets a mesh whose ``member`` is False.
     ``device`` is this process's device (CUDA unless named; a CUDA device
     with no index is the current card)."""
     if config is not None:
@@ -144,7 +247,7 @@ def make_mesh(config: MeshConfig | None = None, *, data: int | None = None,
         data = n // model
     elif model is None:
         model = n // data
-    if data * model != n:
+    if data < 1 or model < 1 or data * model > n:
         raise ValueError(f"mesh {data}x{model} needs {data * model} processes, have {n}")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -153,8 +256,17 @@ def make_mesh(config: MeshConfig | None = None, *, data: int | None = None,
     if BACKENDS.get(dev.type) != backend:
         raise ValueError(f"a {dev.type} mesh needs the {BACKENDS.get(dev.type)} backend, "
                          f"the process group runs {backend}")
-    dm = init_device_mesh(dev.type, (data, model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
-    return PortMesh(dm, dev)
+    rank, groups = dist.get_rank(), {}
+    # every rank makes every group, in one order: new_group is collective
+    for axis, members in ((MODEL_AXIS, [[i * model + j for j in range(model)]
+                                        for i in range(data)]),
+                          (DATA_AXIS, [[i * model + j for i in range(data)]
+                                       for j in range(model)])):
+        for ranks in members:
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = group
+    return PortMesh(data, model, dev, rank, groups)
 
 
 def shard_count(mesh: PortMesh | None) -> int:

@@ -5,9 +5,10 @@ warp-tile pool kernels on both row paths (16-byte vector and scalar).  Then
 the training path: the gradients of the big-set lookups through K1 and K2
 against the plain versions' autograd, one sparse train step on the card
 against the same step on the CPU, and dropped entries with ids far out of
-range.  Last the sharded engine: K2 with a row shard's ownership mask, and
-every sharded lookup and sparse update on an NCCL mesh of one card against
-the same call under REPLICATE.
+range.  Last the sharded engine: K2 and K4's backward with a row shard's
+ownership mask, and every sharded lookup, its gradient, the sparse update
+and the dense-autodiff step on an NCCL mesh of one card against the same
+call under REPLICATE.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the repo's conftest, so on a machine with a card
@@ -24,7 +25,14 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from pim_embedding_lookup_tpu_torch import DLRM, DLRMConfig, ShardingPolicy, TableConfig
+from pim_embedding_lookup_tpu_torch import (
+    DLRM,
+    DLRMConfig,
+    ShardingPolicy,
+    TableConfig,
+    make_optimizer,
+    make_train_step,
+)
 from pim_embedding_lookup_tpu_torch.models.sparse_train import (
     _apply_sparse_csr,
     make_sparse_train_state,
@@ -474,6 +482,40 @@ def test_masked_csr_kernel_matches_plain(cuda, dtype, d, packed):
         got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("d,tables", [(16, 3), (4, 2), (16, 1), (20, 2), (128, 2)])
+def test_masked_csr_grad_kernel_matches_plain(cuda, d, tables):
+    """K4's backward with a per-entry mask against its plain version: empty
+    bags, bags whose entries are all masked (no gradient), and masked
+    entries and padding holding ids of 1 << 30 that fault if read; a uint8
+    mask is the same mask.  The unmasked launch over the same entries adds
+    the masked ones too."""
+    n, b, dead = 2048, 300, 10
+    rng = np.random.default_rng(d + tables)
+    idx, off = _csr(40 + d, n, tables, b, 6)
+    mask = torch.from_numpy(rng.random(idx.shape) < 0.5)
+    for ti in range(tables):  # the first ``dead`` bags of each table: all masked
+        mask[ti, :off[ti, dead]] = False
+    valid = torch.arange(idx.shape[1])[None, :] < off[:, -1:]
+    clean = idx.clone()
+    idx = torch.where(mask & valid, idx, NEVER_READ)
+    g = torch.from_numpy(rng.standard_normal((tables * b, d)).astype(np.float32))
+    idx, off, mask, g, clean = (x.to(cuda) for x in (idx, off, mask, g, clean))
+    rows = n
+    before = (embedding_bag_csr_grad.launches, embedding_bag_csr_grad.masked_launches)
+    got = embedding_bag_csr_grad(g, idx, off, rows, mask)
+    want = embedding_bag_csr_grad_reference(g, idx, off, rows, mask)
+    torch.cuda.synchronize()
+    assert (embedding_bag_csr_grad.launches, embedding_bag_csr_grad.masked_launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(embedding_bag_csr_grad(g, idx, off, rows, mask.to(torch.uint8)),
+                               got, **TOL)
+    unmasked = embedding_bag_csr_grad(g, clean, off, rows)
+    torch.testing.assert_close(unmasked, embedding_bag_csr_grad_reference(g, clean, off, rows),
+                               **TOL)
+    assert unmasked.abs().sum() > got.abs().sum()
+
+
 MESH_ROWS = (100, 1000, 37, 4000)
 
 
@@ -556,3 +598,70 @@ def _per_table(coll, acc):
     """A row-AdaGrad accumulator in table order, whatever the placement."""
     lay = coll.layout
     return torch.cat([acc[o:o + n] for o, n in zip(lay.row_offsets, lay.table_rows)])
+
+
+@pytest.mark.parametrize("policy", ["row", "row_hash", "table_wise", "column"])
+def test_mesh_of_one_gradients_match_replicate(nccl_mesh, policy):
+    """On an NCCL mesh of one card the storage's gradient through each
+    sharded call equals the gradient of the same call under REPLICATE:
+    lookup (sum, mean; max on COLUMN), lookup_csr (both data_sharded forms),
+    and the routed lookups; a row shard's MAX under grad raises JAX's
+    error; one dense-autodiff step of a sharded DLRM equals REPLICATE's.
+    A row shard's CSR gradient launches K4's masked backward."""
+    cuda = nccl_mesh.device
+    rng = np.random.default_rng(1)
+    tables = tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
+                   for i, n in enumerate(MESH_ROWS))
+    host = [rng.standard_normal((n, 16)).astype(np.float32) for n in MESH_ROWS]
+    sharded = EmbeddingCollection.create(tables, ShardingPolicy(policy), packed="auto",
+                                         mesh=nccl_mesh)
+    rep = EmbeddingCollection.create(tables, ShardingPolicy.REPLICATE, packed="auto",
+                                     device=cuda)
+    fs, fr = sharded.device_put_tables(host), rep.device_put_tables(host)
+    b, pooling = 64, 3
+    idx = torch.from_numpy(np.stack([rng.integers(0, n, b * pooling) for n in MESH_ROWS])
+                           .astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random(idx.shape) < 0.7).to(cuda)
+    cidx, coff = (x.to(cuda) for x in _csr(31, min(MESH_ROWS), len(MESH_ROWS), b, 5))
+    w = torch.from_numpy(rng.standard_normal((b, len(MESH_ROWS), 16)).astype(np.float32)).to(cuda)
+    rowish = policy != "column"
+
+    def grad(coll, storage, fn):
+        table = storage.clone().requires_grad_(True)
+        (fn(coll, table) * w).sum().backward()
+        return np.concatenate(coll.unfuse_host(table.grad))
+
+    calls = [lambda c, f, m=comb: c.lookup(f, idx, mask, batch_size=b, combiner=m)
+             for comb in ("sum", "mean") + (() if rowish else ("max",))]
+    calls += [lambda c, f, ds=ds: c.lookup_csr(f, cidx, coff, data_sharded=ds)
+              for ds in (False, True)]
+    masked = embedding_bag_csr_grad.masked_launches
+    for fn in calls:
+        np.testing.assert_allclose(grad(sharded, fs, fn), grad(rep, fr, fn), rtol=1e-5,
+                                   atol=1e-5)
+    assert embedding_bag_csr_grad.masked_launches - masked == (2 if rowish else 0)
+    if rowish:
+        for fn, ref in ((lambda c, f: c.lookup_routed(f, idx, mask, batch_size=b),
+                         lambda c, f: c.lookup(f, idx, mask, batch_size=b)),
+                        (lambda c, f: c.lookup_csr(f, cidx, coff, routed=True),
+                         lambda c, f: c.lookup_csr(f, cidx, coff))):
+            np.testing.assert_allclose(grad(sharded, fs, fn), grad(rep, fr, ref), rtol=1e-5,
+                                       atol=1e-5)
+        with pytest.raises(NotImplementedError, match="pmax"):
+            sharded.lookup(fs.clone().requires_grad_(True), idx, mask, batch_size=b,
+                           combiner="max")
+    cfg = DLRMConfig(dense_dim=13, mlp_bot=(32, 16), mlp_top=(32, 1), tables=tables)
+    dense = torch.from_numpy(rng.random((b, 13), dtype=np.float32)).to(cuda)
+    labels = torch.from_numpy((rng.random(b) < 0.5).astype(np.float32)).to(cuda)
+    states = []
+    for pol, mesh in ((ShardingPolicy(policy), nccl_mesh), (ShardingPolicy.REPLICATE, None)):
+        model = DLRM(cfg, pol, mesh=mesh, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(5))
+        loss, _ = make_train_step(model, make_optimizer(0.1))(dense, idx, mask, labels)
+        states.append((loss, model.collection.unfuse_host(model.emb),
+                       [p.detach() for p in model.parameters()]))
+    (ls, es, ps), (lr_, er, pr) = states
+    torch.testing.assert_close(ls, lr_, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.concatenate(es), np.concatenate(er), rtol=1e-5, atol=1e-6)
+    for a, r in zip(ps, pr):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)

@@ -146,13 +146,14 @@ def test_init_within_table_bounds(dtype):
 
 
 def test_other_policies_raise_not_implemented(rng):
-    """Autodiff through a sharded lookup is what is left to port; without a
-    mesh a sharded policy is refused."""
+    """Without a mesh a sharded policy is refused, with or without grad
+    (autodiff through a sharded lookup runs on a mesh:
+    ``test_torch_port_mesh.py``)."""
     tc = TColl.create(_tables(tcfg, (40, 50), 16), tcfg.ShardingPolicy.ROW,
                       device="cpu")
     idx, mask = _query(rng, (40, 50), 4, 1)
     q = torch.from_numpy(idx), torch.from_numpy(mask)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):
         tc.lookup(tc.init(torch.Generator()).requires_grad_(True), *q, batch_size=4)
     with pytest.raises(ValueError, match="mesh"):
         tc.lookup(tc.init(torch.Generator()), *q, batch_size=4)

@@ -205,7 +205,7 @@ def test_routed_and_other_policies_raise(rng):
         rep.lookup_csr(params, *q, combiner="median")
     row = TColl.create(_tables(tcfg, (40, 50), 16), tcfg.ShardingPolicy.ROW,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):
         row.lookup_csr(row.init(torch.Generator()).requires_grad_(True), *q)
     with pytest.raises(ValueError, match="mesh"):
         row.lookup_csr(row.init(torch.Generator()), *q)

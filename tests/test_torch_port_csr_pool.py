@@ -2,7 +2,9 @@
 they replace, in interpret mode: K2 (``pallas_embedding_bag_csr_packed``),
 K3 (the same CSR walk over full-width rows) and K4
 (``pallas_embedding_bag_csr`` with its custom VJP), on the shapes of
-tests/test_pallas.py, and the wrappers' checks.  The CUDA kernels themselves
+tests/test_pallas.py, K4's masked backward (a row shard's gradient) against
+``jax.grad`` of the JAX package's masked CSR pool, and the wrappers'
+checks.  The CUDA kernels themselves
 are held against their plain versions on the card by
 tests/test_torch_port_card.py and chip_smoke.py."""
 
@@ -18,7 +20,7 @@ from pim_embedding_lookup_tpu.ops.pallas_lookup import (
     pallas_embedding_bag_csr,
     pallas_embedding_bag_csr_packed,
 )
-from pim_embedding_lookup_tpu.ops.ragged import pack_bags
+from pim_embedding_lookup_tpu.ops.ragged import pack_bags, segment_ids_from_offsets
 from pim_embedding_lookup_tpu_torch.ops import csr_pool
 from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_grad,
@@ -242,6 +244,62 @@ def test_bag_sum_gives_no_gradient_to_ids():
     out = embedding_bag_csr_sum(w, idx, off, batch_size=2)
     grads = torch.autograd.grad(out.sum(), [w])
     assert grads[0].shape == w.shape and not idx.requires_grad
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_masked_grad_matches_jax_grad(rng, packed):
+    """K4's backward with a mask, through the masked pool's autograd and as
+    its plain version, against ``jax.grad`` of the masked CSR pool as the
+    JAX package's row shard computes it in XLA (collection.py
+    ``_csr_pooled_lookup``: a dropped entry reads row 0 and is multiplied
+    by 0, then a segment sum): two tables of ragged bags with empty ones
+    and padding, and dropped entries whose ids lie out of range."""
+    n, d, b, t, cap = 96, 16, 10, 2, 40
+    table = rng.standard_normal((n, d), dtype=np.float32)
+    idx, off = [], []
+    for _ in range(t):
+        bags = [rng.integers(0, n, size=rng.integers(0, 6)).tolist() for _ in range(b)]
+        bags[3] = []
+        i, o = pack_bags(bags, cap, pad_index=int(rng.integers(0, n)))
+        idx.append(i)
+        off.append(o)
+    off = np.stack(off)
+    mask = rng.random((t, cap)) < 0.6
+    far = np.where(rng.random((t, cap)) < 0.5, 1 << 30, -4)
+    idx = np.where(mask, np.stack(idx), far).astype(np.int32)
+    g = rng.standard_normal((t * b, d), dtype=np.float32)
+
+    def pool(tab):
+        outs = []
+        for k in range(t):
+            seg = segment_ids_from_offsets(jnp.asarray(off[k]), cap)
+            keep = (seg < b) & jnp.asarray(mask[k])
+            rows = tab[jnp.where(keep, jnp.asarray(idx[k]), 0)] * keep[:, None]
+            outs.append(jax.ops.segment_sum(rows, jnp.minimum(seg, b),
+                                            num_segments=b + 1)[:b])
+        return jnp.concatenate(outs)
+
+    want_out, vjp = jax.vjp(pool, jnp.asarray(table))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    assert np.abs(want).max() > 0
+    idx_t, off_t, mask_t, g_t = map(torch.from_numpy, (idx, off, mask, g))
+    storage = torch.from_numpy(table.reshape(-1, 128) if packed else table.copy())
+    storage.requires_grad_(True)
+    before = (embedding_bag_csr_grad.launches, embedding_bag_csr_grad.masked_launches)
+    out = embedding_bag_csr_packed(storage, d, idx_t, off_t, batch_size=b, mask=mask_t)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **TOL)
+    out.backward(g_t)
+    assert storage.grad.shape == storage.shape
+    np.testing.assert_allclose(storage.grad.reshape(n, d).numpy(), want, **TOL)
+    for m in (mask_t, mask_t.to(torch.uint8)):
+        np.testing.assert_allclose(
+            embedding_bag_csr_grad_reference(g_t, idx_t, off_t, n, m).numpy(), want, **TOL)
+        torch.testing.assert_close(embedding_bag_csr_grad(g_t, idx_t, off_t, n, m),
+                                   embedding_bag_csr_grad_reference(g_t, idx_t, off_t, n, m))
+    assert (embedding_bag_csr_grad.launches,
+            embedding_bag_csr_grad.masked_launches) == before  # CPU: no kernel
+    with pytest.raises(ValueError, match="mask"):
+        embedding_bag_csr_grad(g_t, idx_t, off_t, n, mask_t[:, :-1].contiguous())
 
 
 # -- the wrappers -----------------------------------------------------------

@@ -13,10 +13,13 @@ the JAX package from the same arrays, and every rank's results equal to
 rank 0's (the replicas agree bitwise).
 
 Tolerances: the sum over shards changes the order of f32 additions, so
-lookups and one train step compare at rtol 1e-5 / atol 1e-6, and three
-train steps at rtol 1e-4 (atol 1e-6 for values near 0).  Drop counts and
-the hot cache's ids compare exactly, and refused calls raise the JAX
-package's errors.
+lookups, gradients and one train step compare at rtol 1e-5 / atol 1e-6, and
+three train steps at rtol 1e-4 (atol 1e-6 for values near 0).  The hybrid
+small set's gradient passes through bf16 on both sides (the forward casts
+weights and one-hot to bf16), rounded once by JAX and twice by torch, so it
+compares within 2**-6 of its largest value, as the one-device step does in
+``test_torch_port_train.py``.  Drop counts and the hot cache's ids compare
+exactly, and refused calls raise the JAX package's errors.
 """
 
 import os
@@ -24,6 +27,7 @@ import subprocess
 import sys
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +35,7 @@ import pytest
 import pim_embedding_lookup_tpu.config as jcfg
 from pim_embedding_lookup_tpu.models import DLRM as JDLRM
 from pim_embedding_lookup_tpu.models import sparse_train as jst
+from pim_embedding_lookup_tpu.models import train as jtrain
 from pim_embedding_lookup_tpu.parallel import hotcache as jhot
 from pim_embedding_lookup_tpu.parallel import make_mesh
 from pim_embedding_lookup_tpu.parallel import sparse_update as jsu
@@ -170,12 +175,75 @@ def _hybrid_lookups(jm, inp):
             "routed_mean": pooled, "routed_dropped": dropped}
 
 
-def _model(jm, inp, policy):
-    model = JDLRM(mb.mixed_config(jcfg), jm, jcfg.ShardingPolicy(policy), hybrid=True)
+def _model(jm, inp, policy, hybrid=True):
+    model = JDLRM(mb.mixed_config(jcfg), jm, jcfg.ShardingPolicy(policy), hybrid=hybrid)
     mlp = {k: [{n: _j(a) for n, a in layer.items()} for layer in v]
            for k, v in mb.mlp_params(inp).items()}
     emb = model.collection.device_put_tables(mb.host_tables(inp, "mtable", mb.MIXED_ROWS))
     return model, {"emb": emb, **mlp}
+
+
+def _dense_state(params):
+    out = {"emb": params["emb"]}
+    for name in ("bot", "top"):
+        for j, layer in enumerate(params[name]):
+            out[f"{name}{j}_w"], out[f"{name}{j}_b"] = layer["w"], layer["b"]
+    return out
+
+
+def _train_autodiff(jm, inp, policy, kind, steps):
+    model, params = _model(jm, inp, policy, hybrid=False)
+    opt = jtrain.make_optimizer(mb.LR, kind)
+    step = jtrain.make_train_step(model, opt)
+    state, losses = opt.init(params), []
+    for s in range(steps):
+        batch = [_j(inp[f"{k}{s}"]) for k in ("mdense", "midx", "mmask", "mlabels")]
+        params, state, loss, _ = step(params, state, *batch)
+        losses.append(float(loss))
+    return {"losses": np.asarray(losses, np.float32), **_dense_state(params)}
+
+
+def _fit(jm, inp, policy):
+    model, params = _model(jm, inp, policy, hybrid=False)
+    batch = [tuple(inp[f"{k}{s}"] for k in ("mdense", "midx", "mmask", "mlabels"))
+             for s in range(3)]
+    params, reports = jtrain.fit(model, params, iter(batch[:2]), lr=mb.LR, test_freq=1,
+                                 test_batches=batch[2:])
+    rows = [[r.step, r.loss, r.accuracy, r.auc] for r in reports]
+    return {"reports": np.asarray(rows, np.float64), **_dense_state(params)}
+
+
+def _grad(fn, storage, w):
+    return jax.grad(lambda f: jnp.sum(fn(f) * w))(storage)
+
+
+def _grad_lookup(jm, inp, policy, comb):
+    jc, f = _coll(jm, inp, policy)
+    return {"grad": _grad(lambda f: jc.lookup(f, _j(inp["idx"]), _j(inp["mask"]),
+                                              batch_size=mb.BATCH, combiner=comb),
+                          f, _j(inp["g"]))}
+
+
+def _grad_csr(jm, inp, policy, comb, ds=False, routed=False):
+    jc, f = _coll(jm, inp, policy)
+    q = (inp["widx"], inp["woff"]) if ds else (inp["cidx"], inp["coff"])
+    return {"grad": _grad(lambda f: jc.lookup_csr(f, *map(_j, q), combiner=comb,
+                                                  data_sharded=ds, routed=routed),
+                          f, _j(inp["g"]))}
+
+
+def _grad_routed(jm, inp, policy):
+    jc, f = _coll(jm, inp, policy)
+    return {"grad": _grad(lambda f: jc.lookup_routed(f, _j(inp["zidx"]), _j(inp["zmask"]),
+                                                     batch_size=mb.BATCH),
+                          f, _j(inp["g"]))}
+
+
+def _grad_hybrid(jm, inp):
+    jh = JHybrid.create(mb.tables(jcfg, mb.MIXED_ROWS), jm, jcfg.ShardingPolicy.ROW)
+    params = jh.device_put_tables(mb.host_tables(inp, "mtable", mb.MIXED_ROWS))
+    return _grad(lambda p: jh.lookup(p, _j(inp["midx0"]), _j(inp["mmask0"]),
+                                     batch_size=mb.BATCH), params, _j(inp["mg"]))
 
 
 def _train(jm, inp, policy, opt, steps, routed=False, hot=False):
@@ -239,6 +307,8 @@ def _guard(jm, inp, which):
         "hot_unrouted": lambda: jst.make_sparse_train_step(
             _model(jm, inp, "row_hash")[0], None, hot_cache=True),
         "step_args": step_without_cache,
+        "grad_rowshard_max": lambda: _grad(lambda f: jc.lookup(
+            f, *q, batch_size=b, combiner="max"), f, 1.0),
     }
     return calls[which]
 
@@ -282,6 +352,24 @@ def _expected(name, jm, inp):
     if kind == "train_hot":
         return _train(jm, inp, "row_hash", "row_adagrad", mb.TRAIN_STEPS, routed=True,
                        hot=True)
+    if kind == "grad":
+        return _grad_lookup(jm, inp, *rest)
+    if kind == "grad_csr":
+        return _grad_csr(jm, inp, *rest)
+    if kind == "grad_csr_ds":
+        return _grad_csr(jm, inp, *rest, ds=True)
+    if kind == "grad_routed":
+        return _grad_routed(jm, inp, rest[0])
+    if kind == "grad_csr_routed_ds":
+        return _grad_csr(jm, inp, rest[0], "sum", ds=True, routed=True)
+    if kind == "grad_hybrid":
+        return _grad_hybrid(jm, inp)
+    if kind == "train_autodiff":
+        return _train_autodiff(jm, inp, rest[0], "sgd", 1)
+    if kind == "train_autodiff_trace":
+        return _train_autodiff(jm, inp, "row_hash", "adagrad", mb.TRAIN_STEPS)
+    if kind == "fit":
+        return _fit(jm, inp, rest[0])
     raise KeyError(name)
 
 
@@ -297,17 +385,21 @@ def check_case(cluster, case):
     if case.startswith("guard-"):
         text = bytes(got["error_text"]).decode()
         which = case.split("-", 1)[1]
-        if which == "autodiff":  # the one refusal the JAX package has no twin of
+        if which == "grad_hot":  # the one refusal the JAX package has no twin of
             assert text.startswith("NotImplementedError") and "ROADMAP" in text
         else:
             assert text == _error_text(_guard(jm, inp, which))
         return
     want = {k: np.asarray(v) for k, v in _expected(case, jm, inp).items()}
     assert set(got) == set(want)
-    tol = TRACE_TOL if case in ("train_routed_trace", "train_hot") else TOL
+    tol = TRACE_TOL if case in mb.TRACE_CASES else TOL
     for key, val in want.items():
         if key.endswith("dropped") or key == "hot_ids":
             np.testing.assert_array_equal(got[key], val, err_msg=key)
+        elif (case, key) in mb.BF16_RESULTS:  # module docstring
+            assert np.abs(val).max() > 0
+            np.testing.assert_allclose(got[key], val, rtol=0,
+                                       atol=2.0 ** -6 * np.abs(val).max(), err_msg=key)
         else:
             np.testing.assert_allclose(got[key], val, **tol, err_msg=key)
 
