@@ -15,7 +15,12 @@ its kernels and agrees with the same path pooled by the plain version,
 runs the length-bucketed CSR dispatch on one request, drives the
 full-width CSR lookup (K3) and the differentiable CSR bag (K4, forward and
 backward) through their entry points, and holds the port on the card
-against the port on the CPU at toy sizes.  Last it trains the same model at
+against the port on the CPU at toy sizes.  Then the int8 capacity mode
+(``int8``): the same model's big set quantized by
+``quantize_dlrm_embeddings`` in both scale modes, the int8 instances of K1
+and K2 against their plain versions (toy edge cases, then timed at the
+main shapes), and 5 requests on each wire in each mode served through the
+int8 big set beside the f32 model.  Last it trains the same model at
 full table rows, B=8192, fresh ids each step: the sparse step (SGD and
 row-wise AdaGrad scattered into the tables) on the dense wire (K1) and the
 CSR wire (K2), and the dense-autodiff step (K1 forward, its transpose
@@ -24,8 +29,9 @@ rows the batch did not touch unchanged; and at toy sizes the sparse SGD step
 against the dense-autodiff one, and the train steps on the card against the
 port on the CPU.  Then the sharded engine: ``mesh_1`` (an NCCL process group
 of one: the same model with its big set under ROW_HASH served, trained by
-the sparse step and by the dense-autodiff step, and the big set's CSR-wire
-and routed gradients, each equal to REPLICATE), ``multihost_1`` (the
+the sparse step and by the dense-autodiff step, the big set's CSR-wire and
+routed gradients, and its int8 big set served broadcast (masked int8 K1
+and K2) and routed with a hot cache, each equal to REPLICATE), ``multihost_1`` (the
 multi-host entry in a subprocess that has a launcher's environment for a
 job of one), ``shards_4`` (the four shards of each policy in one process:
 the masked K1, K2 and K4-backward launches against their plain versions,
@@ -77,6 +83,7 @@ from pim_embedding_lookup_tpu_torch import (
     mesh_battery,
     multihost_battery,
     ops,
+    quantize_dlrm_embeddings,
 )
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.models.train import emb_tensors
@@ -122,6 +129,7 @@ from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
     _mxu_sparse_update,
     _mxu_sparse_update_csr,
 )
+from pim_embedding_lookup_tpu_torch.parallel.hotcache import build_hot_cache, hot_ids_from_sample
 from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from pim_embedding_lookup_tpu_torch.parallel.planner import plan
 from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
@@ -252,41 +260,49 @@ def bound(moved_bytes, ops_count):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def k1_case(name, storage, d, pooling, id_sets):
+def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None):
     """K1 against its plain version on set 0; kernel, plain and library
-    times cycling through all sets; bound from set 0's data."""
+    times cycling through all sets; bound from set 0's data.  int8
+    ``storage`` (with ``scale`` in "row" mode) has no library call
+    (``int8_library_probe``): ``f32_weight``'s F.embedding_bag is timed
+    beside it as a reference point."""
     ids, mask = id_sets[0]
     bags = ids.numel() // pooling
-    kw = dict(pooling=pooling, batch_size=bags)
+    kw = dict(pooling=pooling, batch_size=bags, scale=scale)
     got = embedding_bag_fixedl(storage, d, ids, mask=mask, **kw)
     want = embedding_bag_fixedl_reference(storage, d, ids, mask=mask, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, **KERNEL_TOL)
 
-    weight = storage.view(-1, d)
+    int8 = storage.dtype == torch.int8
+    weight = (f32_weight if int8 else storage).view(-1, d)
     offsets = torch.arange(0, ids.numel(), pooling, dtype=torch.int32, device=DEV)
-    lib_sets = [(i, m.to(storage.dtype)) for i, m in id_sets]
+    lib_sets = [(i, m.to(weight.dtype)) for i, m in id_sets]
     kernel = lambda i, m: embedding_bag_fixedl(storage, d, i, mask=m, **kw)  # noqa: E731
     kernel_ms = device_ms(kernel, id_sets)
     kernel_call_ms = call_ms(kernel, id_sets)
     plain_ms = device_ms(
         lambda i, m: embedding_bag_fixedl_reference(storage, d, i, mask=m, **kw), id_sets)
-    library_ms = device_ms(
+    embedding_bag_ms = device_ms(
         lambda i, w: F.embedding_bag(i, weight, offsets, mode="sum", per_sample_weights=w),
         lib_sets)
 
     active = int(mask.sum().item())
     bound_ms, bound_by = bound(
         active * d * storage.element_size()  # rows read
+        + active * 4 * (scale is not None)  # their f32 scales
         + ids.numel() * 5  # int32 id + 1-byte mask per entry
         + bags * d * 4,  # f32 output
-        active * d)  # one add per loaded value
+        active * d * (1 + (scale is not None)))  # an add (and a multiply) per value
     row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
                bags=bags, pooling=pooling, d=d, active_entries=active,
                max_abs_err=err, kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by)
+               plain_ms=plain_ms, library_ms=None if int8 else embedding_bag_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if int8:
+        row.update(scale_mode="row" if scale is not None else "table",
+                   f32_embedding_bag_ms=embedding_bag_ms)
     print("K1 " + json.dumps(row), flush=True)
     return row
 
@@ -457,30 +473,32 @@ def compact(idx, off, mask=None):
     return flat.long(), flat_off.long(), weights
 
 
-def csr_case(tag, name, storage, d, id_sets):
+def csr_case(tag, name, storage, d, id_sets, scale=None, f32_weight=None):
     """K2/K3 against its plain version on set 0 (fused ids [T, C], offsets
     [T, B+1], and for a row shard its [T, C] ownership mask); kernel, plain
     and library times cycling through all sets; bound from set 0's data:
     valid entries only, padding is not read, nor the rows of masked
-    entries."""
+    entries.  int8 ``storage``: as in k1_case."""
     idx, off, *masked = id_sets[0]
     mask = masked[0] if masked else None
     t, b = off.shape[0], off.shape[1] - 1
-    got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=b, mask=mask)
-    want = embedding_bag_csr_packed_reference(storage, d, idx, off, batch_size=b, mask=mask)
+    kw = dict(batch_size=b, scale=scale)
+    got = embedding_bag_csr_packed(storage, d, idx, off, mask=mask, **kw)
+    want = embedding_bag_csr_packed_reference(storage, d, idx, off, mask=mask, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, **KERNEL_TOL)
 
-    weight = storage.view(-1, d)
+    int8 = storage.dtype == torch.int8
+    weight = (f32_weight if int8 else storage).view(-1, d)
     lib_sets = [compact(*s) for s in id_sets]  # before the timed region
     kernel = lambda i, o, *m: embedding_bag_csr_packed(  # noqa: E731
-        storage, d, i, o, batch_size=b, mask=m[0] if m else None)
+        storage, d, i, o, mask=m[0] if m else None, **kw)
     kernel_ms = device_ms(kernel, id_sets)
     kernel_call_ms = call_ms(kernel, id_sets)
     plain_ms = device_ms(lambda i, o, *m: embedding_bag_csr_packed_reference(
-        storage, d, i, o, batch_size=b, mask=m[0] if m else None), id_sets)
-    library_ms = device_ms(lambda i, o, *w: F.embedding_bag(
+        storage, d, i, o, mask=m[0] if m else None, **kw), id_sets)
+    embedding_bag_ms = device_ms(lambda i, o, *w: F.embedding_bag(
         i, weight, o, mode="sum", include_last_offset=True,
         per_sample_weights=w[0] if w else None), lib_sets)
 
@@ -489,15 +507,20 @@ def csr_case(tag, name, storage, d, id_sets):
     read = active if mask is None else int((valid & mask).sum().item())
     bound_ms, bound_by = bound(
         read * d * storage.element_size()  # rows read
+        + read * 4 * (scale is not None)  # their f32 scales
         + active * (4 + (mask is not None))  # ids, and mask bytes
         + t * (b + 1) * 4  # offsets
         + t * b * d * 4,  # f32 output
-        read * d)
+        read * d * (1 + (scale is not None)))
     row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
                tables=t, bags=b, capacity=idx.shape[1], d=d, active_entries=active,
                rows_read=read, max_abs_err=err, kernel_ms=kernel_ms,
-               kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, library_ms=library_ms,
+               kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
+               library_ms=None if int8 else embedding_bag_ms,
                bound_ms=bound_ms, bound_by=bound_by)
+    if int8:
+        row.update(scale_mode="row" if scale is not None else "table",
+                   f32_embedding_bag_ms=embedding_bag_ms)
     print(f"{tag} " + json.dumps(row), flush=True)
     return row
 
@@ -624,6 +647,276 @@ def k4_masked_case(name, storage, d, id_sets, gen):
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     print("K4 backward masked " + json.dumps(row), flush=True)
     return row
+
+
+# -- int8: the capacity mode --------------------------------------------------
+
+SCALE_MODES = ("table", "row")
+# int8 against f32 logits: the bound of tests/test_quantize_serving.py
+INT8_LOGIT_ATOL = 0.05
+INT8_EDGE = ((16, "packed"), (16, "unpacked"), (32, "unpacked"), (4, "unpacked"),
+             (20, "unpacked"), (16, "unaligned"))  # 16-byte vector rows, the scalar path
+
+
+def int8_edge_storage(gen, d, layout):
+    """[EDGE_ROWS, d] int8 codes with row 0 all zero, as edge_storage lays
+    them out, and per-row f32 scales with row 0's 1 (a zero row's scale)."""
+    q = torch.randint(-127, 128, (EDGE_ROWS, d), generator=gen, device=DEV, dtype=torch.int8)
+    q[0] = 0
+    scale = torch.rand(EDGE_ROWS, generator=gen, device=DEV) * 0.02 + 1e-4
+    scale[0] = 1.0
+    if layout == "packed":
+        return q.reshape(-1, 128), scale
+    if layout == "unaligned":
+        buf = torch.empty(EDGE_ROWS * d + 1, dtype=torch.int8, device=DEV)
+        buf[1:] = q.reshape(-1)
+        return buf[1:].view(EDGE_ROWS, d), scale
+    return q, scale
+
+
+def int8_edge_phase(gen):
+    """int8 K1 and K2 against their plain versions at toy sizes, in both
+    scale modes: 16-byte vector rows (d = 16 packed and unpacked, 32) and
+    the scalar path (d = 4, 20, and 16 one byte into its buffer); both id
+    walks; K2 unmasked and with a row shard's mask; K1 at L = 1, 3, 9 with
+    no mask, a random mask and an all-false one; row 0 all zero with scale
+    1.  Padding and masked entries hold ids that fault if read (a read of
+    their scales would too).  Repeated launches bitwise equal.  Returns the
+    number of cases."""
+    cases, paths = 0, set()
+    for (d, layout), mode in itertools.product(INT8_EDGE, SCALE_MODES):
+        storage, scale = int8_edge_storage(gen, d, layout)
+        scale = scale if mode == "row" else None
+        vector, group = row_path(storage, d)
+        for (tables, max_len, empty), masked in itertools.product(
+                ((1, 40, False), (10, 6, False), (3, 3, True), (2, 100, False)), (False, True)):
+            idx, off = edge_csr(gen, tables, max_len, empty)
+            clean = torch.where(idx == NEVER_READ, 0, idx)
+            mask = torch.rand(idx.shape, generator=gen, device=DEV) < 0.5 if masked else None
+            read = torch.where(mask, idx, NEVER_READ) if masked else idx
+            kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
+            got = embedding_bag_csr_packed(storage, d, read, off, **kw)
+            again = embedding_bag_csr_packed(storage, d, read, off, **kw)
+            want = embedding_bag_csr_packed_reference(storage, d, clean, off, **kw)
+            torch.testing.assert_close(got, want, **KERNEL_TOL)
+            if not torch.equal(got, again):
+                raise AssertionError(f"int8 K2 not deterministic: d={d} {layout} {mode}")
+            cases += 1
+            paths.add(("K2", vector, walks_by_group(group, idx.shape[1], EDGE_BAGS)))
+        for pooling, masking in itertools.product((1, 3, 9), ("none", "random", "false")):
+            n = EDGE_BAGS * pooling
+            ids = torch.randint(0, EDGE_ROWS, (n,), generator=gen, device=DEV, dtype=torch.int32)
+            mask = {"none": None,
+                    "random": torch.rand(n, generator=gen, device=DEV) < 0.6,
+                    "false": torch.zeros(n, dtype=torch.bool, device=DEV)}[masking]
+            read = ids if mask is None else torch.where(mask, ids, NEVER_READ)
+            kw = dict(pooling=pooling, batch_size=EDGE_BAGS, mask=mask, scale=scale)
+            got = embedding_bag_fixedl(storage, d, read, **kw)
+            again = embedding_bag_fixedl(storage, d, read, **kw)
+            want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
+            torch.testing.assert_close(got, want, **KERNEL_TOL)
+            if not torch.equal(got, again):
+                raise AssertionError(f"int8 K1 not deterministic: d={d} {layout} {mode}")
+            cases += 1
+            paths.add(("K1", vector, walks_by_group(group, n, EDGE_BAGS)))
+    torch.cuda.synchronize()
+    if len(paths) != 8:  # K1, K2 x vector, scalar x window, by group
+        raise AssertionError(f"int8 edge cases reached only the paths {sorted(paths)}")
+    return cases
+
+
+def int8_library_probe():
+    """Whether a PyTorch call on the card pools int8 rows with per-row
+    scales.  F.embedding_bag takes no int8 weight; PyTorch's one candidate
+    is torch.ops.quantized.embedding_bag_byte_rowwise_offsets (FBGEMM's
+    8-bit rowwise rows: uint8 codes, then an f32 scale and bias), called
+    here on CUDA tensors.  Returns None where it runs, else its error."""
+    w = torch.zeros(4, 16 + 8, dtype=torch.uint8, device=DEV)
+    idx = torch.zeros(2, dtype=torch.long, device=DEV)
+    off = torch.tensor([0, 1], dtype=torch.long, device=DEV)
+    try:
+        torch.ops.quantized.embedding_bag_byte_rowwise_offsets(
+            w, idx, off, False, 0, False, None, None, False)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 -- the error is the finding
+        return f"{type(e).__name__}: {str(e).strip().splitlines()[0][:200]}"
+    return None
+
+
+def rowwise_library_ms(q, d, scale, id_sets, fixed_l):
+    """Device ms of the 8-bit rowwise library bag on the same rows (codes +
+    128 with the row's scale and a bias of -128 * scale, so each row is
+    code * scale, converted before the timing), where int8_library_probe
+    finds that it runs.  Its output on set 0 is held against the plain
+    version first (1e-5): where they differ it does not compute the same
+    function, and the result is None with the difference.  Returns (ms or
+    None, what was found)."""
+    u8 = (q.view(-1, d).int() + 128).to(torch.uint8)
+    fused = torch.cat([u8, scale[:, None].contiguous().view(torch.uint8),
+                       (-128.0 * scale)[:, None].contiguous().view(torch.uint8)], dim=1)
+    del u8
+    op = torch.ops.quantized.embedding_bag_byte_rowwise_offsets
+    if fixed_l:
+        sets = [(i.long(), torch.arange(0, i.numel(), fixed_l, device=DEV), m.float())
+                for i, m in id_sets]
+        fn = lambda i, o, w: op(fused, i, o, False, 0, False, w, None, False)  # noqa: E731
+        ids, mask = id_sets[0]
+        want = embedding_bag_fixedl_reference(q, d, ids, pooling=fixed_l, mask=mask,
+                                              batch_size=ids.numel() // fixed_l, scale=scale)
+    else:
+        sets = [compact(*s) for s in id_sets]
+        fn = lambda i, o: op(fused, i, o, False, 0, False, None, None, True)  # noqa: E731
+        idx, off = id_sets[0]
+        want = embedding_bag_csr_packed_reference(q, d, idx, off, batch_size=off.shape[1] - 1,
+                                                  scale=scale)
+    try:
+        torch.testing.assert_close(fn(*sets[0]), want, **KERNEL_TOL)
+    except AssertionError as e:
+        return None, "output differs from the plain version's: " + str(e).splitlines()[0]
+    return device_ms(fn, sets), "output equal to the plain version's (1e-5)"
+
+
+def int8_phase(gen, card):
+    """The capacity mode at full Kaggle rows (the f32 hybrid DLRM of the
+    serving phases, from a seed): ``quantize_dlrm_embeddings`` in both
+    scale modes (bytes, time, small set unchanged); int8 K1 on dense-wire
+    sets and int8 K2 on CSR-wire sets against their plain versions, timed
+    with their bound; then 5 requests on each wire in each mode, served
+    through the int8 big set and ``apply_from_pooled`` beside the f32
+    model's, with only that mode's int8 set resident on the card (the f32
+    big set sits on the host meanwhile): int8 K1 / K2 once a request,
+    logits equal to the plain-pooled path (atol 1e-4) and within
+    INT8_LOGIT_ATOL of the f32 logits.  Returns the kernel rows and the
+    int8 launches of the served requests, keyed by (K, mode)."""
+    config = kaggle_config()
+    t0 = time.perf_counter()
+    model = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=DEV,
+                 generator=torch.Generator(device=DEV).manual_seed(SEED + 7))
+    torch.cuda.synchronize()
+    big = model.collection.big
+    f32_bytes = model.emb_big.numel() * 4
+    print(f"int8: full-row Kaggle hybrid, big set {tuple(model.emb_big.shape)} f32 "
+          f"({f32_bytes / 1e9:.3f} GB), built in {time.perf_counter() - t0:.2f} s", flush=True)
+    probe = int8_library_probe()
+    print("int8 library: F.embedding_bag takes no int8 weight; "
+          "torch.ops.quantized.embedding_bag_byte_rowwise_offsets on CUDA tensors: "
+          + ("runs (timed as library_ms)" if probe is None else f"refused ({probe})"),
+          flush=True)
+
+    reqs = {"dense": [request(config, gen, BATCH) for _ in range(REQUESTS + 1)],
+            "CSR": [csr_request(config, gen, BATCH) for _ in range(REQUESTS + 1)]}
+    f32_fns = {"dense": model, "CSR": lambda *r: serve_csr(model, *r)}
+    f32_ref, report = {}, {}
+    with torch.no_grad():
+        for wire, fn in f32_fns.items():
+            f32_ref[wire], report[("f32", wire)], _ = _int8_serve_stats(fn, reqs[wire])
+    main_sets = [kaggle_ids(big, gen, BATCH, 1, 1.0) for _ in range(ID_SETS)]
+    csr_sets = [(big.globalize(i).contiguous(), o)
+                for i, o in (csr_ids(big.layout.table_rows, gen, BATCH, 1)
+                             for _ in range(ID_SETS))]
+    rows, launches, f32_host = {}, {}, None
+    for mode in SCALE_MODES:
+        if f32_host is not None:
+            model.emb_big = f32_host.to(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coll, emb = quantize_dlrm_embeddings(model, scale_mode=mode)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        p = emb["big"]
+        scale = p.get("scale")
+        int8_bytes = p["q"].numel() + (0 if scale is None else scale.numel() * 4)
+        if emb["small"] is not model.emb_small:
+            raise AssertionError("int8: the small set was not kept as it is")
+        print(f"int8 {mode} mode: quantize_dlrm_embeddings in {q_s:.3f} s on the card; big "
+              f"set {p['q'].numel() / 1e9:.3f} GB of int8 codes"
+              + ("" if scale is None else f" + {scale.numel() * 4 / 1e9:.3f} GB of f32 "
+                 "row scales") + f" = {int8_bytes / 1e9:.3f} GB against "
+              f"{f32_bytes / 1e9:.3f} GB f32; the small set is the f32 model's tensor, "
+              "unchanged", flush=True)
+        rows[("K1", mode)] = k1_case(
+            f"int8 {mode} mode, main path (10 tables x B=8192, L=1, packed)", p["q"], 16, 1,
+            main_sets, scale=scale, f32_weight=model.emb_big)
+        rows[("K2", mode)] = csr_case(
+            "K2", f"int8 {mode} mode, CSR path (10 tables x B=8192, pooling-1 mixture, "
+            "packed)", p["q"], 16, csr_sets, scale=scale, f32_weight=model.emb_big)
+        if probe is None:
+            sc = scale
+            if sc is None:  # the table's scale on each of its rows (REPLICATE order)
+                sc = torch.ones(big.layout.total_rows, device=DEV)
+                for t, (o, r) in enumerate(zip(big.layout.row_offsets, big.layout.table_rows)):
+                    sc[o:o + r] = p["tscale"][t]
+            for kk, sets, fixed_l in (("K1", main_sets, 1), ("K2", csr_sets, 0)):
+                ms, found = rowwise_library_ms(p["q"], 16, sc, sets, fixed_l)
+                rows[(kk, mode)]["library_ms"] = ms
+                print(f"int8 {mode} mode {kk}: library_ms (8-bit rowwise bag) {ms}; "
+                      f"{found}; {card}", flush=True)
+            del sc
+        f32_host = model.emb_big.cpu()
+        model.emb_big = None  # only this mode's int8 big set stays on the card
+        fns = {"dense": lambda d_, i, m: model.apply_from_pooled(
+                   d_, coll.lookup(emb, i, m, batch_size=d_.shape[0])),
+               "CSR": lambda d_, i, o: model.apply_from_pooled(d_, coll.lookup_csr(emb, i, o))}
+        with torch.no_grad():
+            for wire, fn in fns.items():
+                outs, stats, got = _int8_serve_stats(fn, reqs[wire])
+                k = 0 if wire == "dense" else 1
+                want = [(0, 0, 0), (0, 0, 0)]
+                want[k] = (REQUESTS, REQUESTS, REQUESTS * (mode == "row"))
+                if got != want:
+                    raise AssertionError(f"int8 {mode} {wire}: K1, K2 (all, int8, row scale) "
+                                         f"launched {got}, expected {want}")
+                launches[("K1" if k == 0 else "K2", mode)] = REQUESTS
+                patched = "embedding_bag_fixedl" if k == 0 else "embedding_bag_csr_packed"
+                plain = (embedding_bag_fixedl_reference if k == 0
+                         else embedding_bag_csr_packed_reference)
+                with mock.patch.object(collection_mod, patched, plain):
+                    for req, out in zip(reqs[wire], outs):
+                        torch.testing.assert_close(out, fn(*req), rtol=0, atol=1e-4)
+                f32_err = max((o - r).abs().max().item() for o, r in zip(outs, f32_ref[wire]))
+                if f32_err > INT8_LOGIT_ATOL:
+                    raise AssertionError(f"int8 {mode} {wire}: logits {f32_err} from f32")
+                stats["max_abs_err_vs_f32"] = f32_err
+                report[(mode, wire)] = stats
+                print(f"int8 {mode} mode, {wire} wire, {REQUESTS} requests of B={BATCH}: "
+                      f"ms/request {stats['ms']}, median {stats['median_ms']:.4f} (f32 "
+                      f"{report[('f32', wire)]['median_ms']:.4f}); device ms/request "
+                      f"{stats['device_ms']:.4f} (f32 {report[('f32', wire)]['device_ms']:.4f}); "
+                      f"idle share {stats['idle_share']:.3f}; ATen operations "
+                      f"{stats['aten_ops']}; peak memory {stats['peak_gb']:.3f} GB (f32 "
+                      f"{report[('f32', wire)]['peak_gb']:.3f}); int8 "
+                      f"{'K1' if k == 0 else 'K2'} once a request; logits finite, equal to "
+                      "the plain-pooled path (atol 1e-4), max abs difference from the f32 "
+                      f"model's {f32_err:.4g} (bound {INT8_LOGIT_ATOL}); {card}", flush=True)
+        del coll, emb, p, scale
+    print("int8 serve: summary " + json.dumps({f"{m} {w}": r for (m, w), r in report.items()}),
+          flush=True)
+    del model, f32_host, main_sets, csr_sets, reqs
+    return rows, launches
+
+
+def _int8_serve_stats(fn, reqs):
+    """REQUESTS requests (after a warm-up on the spare last one): the
+    outputs; host ms per request, device ms per request, idle share, ATen
+    operations and peak memory allocated; and the launches of K1 and K2
+    (all, int8, int8 with a row scale) over the requests."""
+    fn(*reqs[-1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (embedding_bag_fixedl, embedding_bag_csr_packed)
+    for c in counters:
+        c.launches = c.int8_launches = c.int8_row_launches = 0
+    outs, times, _ = serve(fn, reqs[:REQUESTS])
+    launched = [(c.launches, c.int8_launches, c.int8_row_launches) for c in counters]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for out in outs:
+        if out.shape != (BATCH,) or not torch.isfinite(out).all():
+            raise AssertionError("int8 phase: bad logits")
+    dev = device_ms(fn, reqs[:REQUESTS], calls=REQUESTS)
+    med = statistics.median(times)
+    return outs, dict(ms=[round(t, 4) for t in times], median_ms=med, device_ms=dev,
+                      idle_share=1 - dev / med, aten_ops=aten_ops(lambda: fn(*reqs[0])),
+                      peak_gb=peak_gb), launched
 
 
 # -- training ------------------------------------------------------------------
@@ -1179,7 +1472,81 @@ def _mesh_1(gen, mesh):
     autodiff = _mesh_1_autodiff(gen, config, rep, rh, init)
     masked["K1"] += autodiff["K1"]
     masked["K4 bwd"] = autodiff["K4 bwd"]
+    masked["int8"] = _mesh_1_int8(gen, config, rep, rh, init)
     return masked
+
+
+def _mesh_1_int8(gen, config, rep, rh, init):
+    """The int8 big set under ROW_HASH on the mesh of one, beside REPLICATE
+    int8, both quantized by ``quantize_dlrm_embeddings`` from the same
+    initial state (the ROW_HASH storage on the card, shard by shard): in
+    each scale mode 5 requests on the dense wire broadcast (masked int8 K1)
+    and routed with a hot cache built against these params, and 5 on the
+    CSR wire broadcast (masked int8 K2), each equal to REPLICATE int8 (atol
+    1e-4).  Returns the int8 launches, keyed by (K, mode, "REPLICATE" or
+    "masked")."""
+    with torch.no_grad():
+        rep.load_state_dict(init)
+        rh.load_state_dict(init)
+    reqs = {"dense": [request(config, gen, BATCH) for _ in range(REQUESTS)],
+            "CSR": [csr_request(config, gen, BATCH) for _ in range(REQUESTS)]}
+    sel = list(rh.collection.big_ids)
+    sample = reqs["dense"][0][1][sel].cpu().numpy()
+    launched = {}
+    for mode in SCALE_MODES:
+        (rep_c, rep_e), (rh_c, rh_e) = (quantize_dlrm_embeddings(m, scale_mode=mode)
+                                        for m in (rep, rh))
+        ids, rows = build_hot_cache(rh_c.big, rh_e["big"],
+                                    hot_ids_from_sample(rh_c.big, sample, 4096))
+        paths = (  # (wire, name, pooled)
+            ("dense", "REPLICATE", lambda i, m: rep_c.lookup(rep_e, i, m, batch_size=BATCH)),
+            ("dense", "ROW_HASH broadcast",
+             lambda i, m: rh_c.lookup(rh_e, i, m, batch_size=BATCH)),
+            ("dense", "ROW_HASH routed, hot cache", lambda i, m: rh_c.lookup(
+                rh_e, i, m, batch_size=BATCH, routed=True, hot_cache=(ids, rows))),
+            ("CSR", "REPLICATE", lambda i, o: rep_c.lookup_csr(rep_e, i, o)),
+            ("CSR", "ROW_HASH broadcast", lambda i, o: rh_c.lookup_csr(rh_e, i, o)),
+        )
+        ref = {}
+        with torch.no_grad():
+            for wire, name, pooled in paths:
+                fn = lambda d_, a, b_, p=pooled: rep.apply_from_pooled(d_, p(a, b_))  # noqa: E731
+                fn(*reqs[wire][0])  # warm-up
+                torch.cuda.synchronize()
+                for c in (embedding_bag_fixedl, embedding_bag_csr_packed):
+                    c.int8_launches = 0
+                embedding_bag_csr_packed.masked_launches = 0
+                outs, times, _ = serve(fn, reqs[wire])
+                k = "K1" if wire == "dense" else "K2"
+                counter = embedding_bag_fixedl if k == "K1" else embedding_bag_csr_packed
+                n = counter.int8_launches
+                routed = "routed" in name
+                if n != (0 if routed else REQUESTS) or (
+                        k == "K2" and embedding_bag_csr_packed.masked_launches
+                        != (REQUESTS if "ROW_HASH" in name else 0)):
+                    raise AssertionError(f"mesh_1 int8 {mode} {wire} {name}: int8 {k} "
+                                         f"launched {n} times for {REQUESTS} requests")
+                if not routed:
+                    launched[(k, mode, "REPLICATE" if name == "REPLICATE" else "masked")] = n
+                for out in outs:
+                    if out.shape != (BATCH,) or not torch.isfinite(out).all():
+                        raise AssertionError(f"mesh_1 int8 {mode} {wire} {name}: bad logits")
+                if name == "REPLICATE":
+                    ref[wire] = outs
+                err = max((o - r).abs().max().item() for o, r in zip(outs, ref[wire]))
+                for o, r in zip(outs, ref[wire]):
+                    torch.testing.assert_close(o, r, rtol=0, atol=1e-4)
+                hits = ""
+                if routed:
+                    g = rh_c.big.globalize(torch.stack([r[1][sel] for r in reqs[wire]]))
+                    hits = (f"; hot cache of {ids.numel()} rows served "
+                            f"{int(torch.isin(g, ids).sum().item())} of {g.numel()} entries")
+                print(f"mesh_1 int8 {mode} mode, {wire} wire, {name}: ms/request "
+                      f"{[round(t, 4) for t in times]}, median {statistics.median(times):.4f}; "
+                      f"int8 {k} launches {n}{hits}; logits max abs err vs REPLICATE int8 "
+                      f"{err:.3g} (atol 1e-4)", flush=True)
+        del rep_c, rep_e, rh_c, rh_e, ids, rows
+    return launched
 
 
 def _mesh_1_autodiff(gen, config, rep, rh, init):
@@ -1757,6 +2124,12 @@ def main(argv) -> int:
           "(1e-5 abs + 1e-5 rel), "
           f"repeated launches bitwise equal, in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    t0 = time.perf_counter()
+    int8_cases = int8_edge_phase(torch.Generator(device=DEV).manual_seed(SEED + 1))
+    print(f"int8 kernel edge cases: {int8_cases} cases of int8 K1 and K2 in both scale "
+          "modes on the vector and scalar paths, by window and by group, masked or not, "
+          "equal to their plain versions (1e-5 abs + 1e-5 rel), repeated launches bitwise "
+          f"equal, in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 3. K1 against its plain version at the dense path's shapes -------------
     config = kaggle_config()
@@ -2000,6 +2373,11 @@ def main(argv) -> int:
             print(f"card vs CPU, {name} DLRM, {wire} wire (B=64, pooling {pooling}): "
                   f"logits max abs err {err:.3g} (tol 1e-4)", flush=True)
 
+    # -- 10b. int8: the capacity mode's serving path at full Kaggle rows -------
+    t0 = time.perf_counter()
+    int8_rows, int8_launches = int8_phase(gen, card)
+    print(f"int8 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 11. training at full Kaggle rows, then the toy checks ------------------
     t0 = time.perf_counter()
     train_launches = train_phase(gen)
@@ -2038,12 +2416,18 @@ def main(argv) -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
+    int8_mesh = masked_launches["int8"]
     print("kernels: K1, K2, K3, K4 forward, K4 backward; K1 and K2 launches over "
           "the served requests and the timed train steps; masked K1, K2 and K4 backward: "
           "the mean of ROW_HASH's 4 shard launches (shards_4), launches over mesh_1's "
           "broadcast requests, train steps (sparse and dense-autodiff) and CSR-wire "
           "gradient; multihost_1's masked K1 launches "
-          f"{multihost_1['k1_masked_launches']} are its subprocess's", flush=True)
+          f"{multihost_1['k1_masked_launches']} are its subprocess's; int8 K1 and K2 in "
+          "each scale mode: the int8 phase's times, launches over its served requests and "
+          "mesh_1's REPLICATE int8 requests; masked int8 launches over mesh_1's ROW_HASH "
+          "broadcast requests: " + json.dumps({f"{k} {m}": n for (k, m, kind), n in
+                                                int8_mesh.items() if kind == "masked"}),
+          flush=True)
     print(json.dumps({"kernels": [
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu",
               "272", k1_launches + train_launches["K1"], main_f32),
@@ -2061,6 +2445,15 @@ def main(argv) -> int:
               "csr_pool.cu", "92", masked_launches["K2"], mean_row(shard_rows["K2"])),
         entry("K4 backward masked embedding_bag_csr_grad (row shard, ownership mask)",
               "csr_pool.cu", "230", masked_launches["K4 bwd"], mean_row(shard_rows["K4 bwd"])),
+        *(entry(f"{k} int8 {mode} scale mode {fn} (int8 codes"
+                + (", per-row f32 scales)" if mode == "row" else "; table scale folded after)"),
+                source, line,
+                int8_launches[(k, mode)] + int8_mesh[(k, mode, "REPLICATE")],
+                int8_rows[(k, mode)])
+          for k, fn, source, line in (
+              ("K1", "embedding_bag_fixedl", "gather_pool.cu", "272"),
+              ("K2", "embedding_bag_csr_packed", "csr_pool.cu", "92"))
+          for mode in SCALE_MODES),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,16 +18,25 @@ from .config import (
     random_config,
     toy_config,
 )
-from .convert import params_from_jax, train_state_from_jax
+from .convert import params_from_jax, quantized_params_from_jax, train_state_from_jax
 from .device import resolve_device
 from .entry import entry
-from .models import DLRM, bce_loss, fit, interact_dot, make_optimizer, make_train_step
+from .models import (
+    DLRM,
+    bce_loss,
+    fit,
+    interact_dot,
+    make_optimizer,
+    make_train_step,
+    quantize_dlrm_embeddings,
+)
 from .models.sparse_train import make_sparse_train_state, make_sparse_train_step
 from .ops import embedding_bag_fixedl, embedding_bag_fixedl_reference
 from .parallel import (
     EmbeddingCollection,
     FusedLayout,
     HybridEmbeddingCollection,
+    QuantizedEmbeddingCollection,
     plan,
     resolve_pack,
 )
@@ -36,10 +45,12 @@ __all__ = [
     "KAGGLE_TABLE_ROWS", "Combiner", "DLRMConfig", "LookupImpl", "MeshConfig",
     "QueryConfig", "ShardingPolicy", "TableConfig", "kaggle_config",
     "loadgen_config", "random_config", "toy_config", "params_from_jax",
-    "train_state_from_jax", "resolve_device", "entry", "DLRM", "bce_loss",
+    "train_state_from_jax", "quantized_params_from_jax", "resolve_device", "entry",
+    "DLRM", "bce_loss",
     "interact_dot", "fit", "make_optimizer", "make_train_step",
-    "make_sparse_train_state", "make_sparse_train_step",
+    "make_sparse_train_state", "make_sparse_train_step", "quantize_dlrm_embeddings",
     "embedding_bag_fixedl", "embedding_bag_fixedl_reference",
-    "EmbeddingCollection", "FusedLayout", "HybridEmbeddingCollection", "plan",
+    "EmbeddingCollection", "FusedLayout", "HybridEmbeddingCollection",
+    "QuantizedEmbeddingCollection", "plan",
     "resolve_pack",
 ]

@@ -1,5 +1,5 @@
-"""Load the JAX package's DLRM parameters, and its sparse train step's
-accumulator, into the port.
+"""Load the JAX package's DLRM parameters, its sparse train step's
+accumulator, and its int8 collection's params, into the port.
 
 A JAX array is global: on a mesh each process takes its own shard of it
 (``storage_shard``, ``accumulator_shard``), so that a JAX state and the
@@ -13,6 +13,7 @@ import torch
 from .models.dlrm import DLRM
 from .models.sparse_train import _init_acc
 from .parallel.collection import EmbeddingCollection
+from .parallel.quantized_collection import QuantizedEmbeddingCollection
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -83,3 +84,12 @@ def train_state_from_jax(acc_np, model: DLRM):
         if dst is not None:
             _copy(dst, accumulator_shard(coll, src))
     return acc
+
+
+def quantized_params_from_jax(coll: QuantizedEmbeddingCollection, params_np: dict) -> dict:
+    """A JAX int8 params tree as numpy arrays (``{"q", "tscale"}`` or
+    ``{"q", "scale"}``, global and in storage order) -> this process's
+    params on ``coll``'s device: ``q`` cut like the storage, ``scale`` (1-D
+    per fused row, strided under ROW_HASH) like the row-AdaGrad
+    accumulator, ``tscale`` whole."""
+    return coll.shard_params({k: np.asarray(v) for k, v in params_np.items()})

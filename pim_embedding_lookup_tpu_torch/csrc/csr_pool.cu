@@ -28,9 +28,17 @@
 // as the reference's DPU kernel walks its bags (emb_dpu_lookup.c:106-116).
 //
 // Bound on the card: bytes.  Each valid entry moves one d-wide row (64 B at
-// d=16 f32) plus a 4-byte id; each bag 8 B of offsets and one d-wide f32
+// d=16 f32, 16 B at d=16 int8) plus a 4-byte id, and in the "row" scale mode
+// of int8 storage 4 B of scale; each bag 8 B of offsets and one d-wide f32
 // output row; there is one add per loaded value.  The backward also writes
 // the whole dense [N, D] f32 gradient, zeroed by the caller.
+//
+// int8 storage (the capacity mode, which the JAX package gathers with XLA)
+// has its own forward instances, as in gather_pool.cu: the codes are pooled
+// in f32, and with a scale array ("row" mode) each entry adds code *
+// scale[id], its scale loaded beside its row; with none ("table" mode) the
+// caller multiplies the pooled output by the table's scale.  int8 storage
+// has no backward: the capacity mode serves, it does not train.
 //
 // Design of csr_pool_kernel (the forward; pool_common.cuh has the walk).
 // The first kernel ran one thread per (bag, lane): 1.31 M threads, ~5 waves
@@ -92,9 +100,10 @@ __device__ __forceinline__ void bag_range(const int* off, int b,
 
 constexpr int kUnroll = 4;  // U: row loads of a bag issued before the adds
 
-template <typename T, bool VEC, bool BY_GROUP, bool MASKED>
+template <typename T, bool VEC, bool BY_GROUP, bool MASKED, bool SCALED>
 __global__ void __launch_bounds__(pel::kBlock)
-csr_pool_kernel(const T* __restrict__ storage, const int* __restrict__ indices,
+csr_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
+                const int* __restrict__ indices,
                 const int* __restrict__ offsets, const unsigned char* __restrict__ mask,
                 float* __restrict__ out, int tables, int batch, long long capacity,
                 int d, int group) {
@@ -127,7 +136,7 @@ csr_pool_kernel(const T* __restrict__ storage, const int* __restrict__ indices,
     tile.ids = indices + t * capacity;
     tile.mask = MASKED ? mask + t * capacity : nullptr;
     tile.dst = bag ? out + (t * batch + b0 + g) * (long long)d : nullptr;
-    pel::pool_tile<T, VEC, MASKED, kUnroll, BY_GROUP>(storage, d, group, tile);
+    pel::pool_tile<T, VEC, MASKED, kUnroll, BY_GROUP, SCALED>(storage, scale, d, group, tile);
   }
 }
 
@@ -162,45 +171,51 @@ unsigned int grid_of(long long bags, const dim3& block) {
   return (unsigned int)((bags + block.y - 1) / block.y);
 }
 
-template <typename T, bool VEC, bool BY_GROUP, bool MASKED>
-int launch_pool(const void* storage, const void* indices, const void* offsets,
-                const void* mask, void* out, int tables, int batch, long long capacity,
-                int d, int group, int device, void* stream) {
+template <typename T, bool SCALED, bool VEC, bool BY_GROUP, bool MASKED>
+int launch_pool(const void* storage, const void* scale, const void* indices,
+                const void* offsets, const void* mask, void* out, int tables, int batch,
+                long long capacity, int d, int group, int device, void* stream) {
   if (!pel::geometry_ok<T, VEC>(storage, d, group)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int bags_per_tile = 32 / group;
   const long long tiles = (long long)tables * ((batch + bags_per_tile - 1) / bags_per_tile);
   const int warps_per_block = pel::kBlock / 32;
-  const int grid = pel::wave_blocks<&csr_pool_kernel<T, VEC, BY_GROUP, MASKED>>(
+  const int grid = pel::wave_blocks<&csr_pool_kernel<T, VEC, BY_GROUP, MASKED, SCALED>>(
       device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  csr_pool_kernel<T, VEC, BY_GROUP, MASKED><<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
-      (const T*)storage, (const int*)indices, (const int*)offsets,
-      (const unsigned char*)mask, (float*)out, tables, batch, capacity, d, group);
+  csr_pool_kernel<T, VEC, BY_GROUP, MASKED, SCALED>
+      <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
+          (const T*)storage, (const float*)scale, (const int*)indices, (const int*)offsets,
+          (const unsigned char*)mask, (float*)out, tables, batch, capacity, d, group);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MASKED>
-int launch_pool(const void* storage, const void* indices, const void* offsets,
-                const void* mask, void* out, int tables, int batch, long long capacity,
-                int d, int vec, int group, int by_group, int device, void* stream) {
+template <typename T, bool SCALED, bool MASKED>
+int launch_pool(const void* storage, const void* scale, const void* indices,
+                const void* offsets, const void* mask, void* out, int tables, int batch,
+                long long capacity, int d, int vec, int group, int by_group, int device,
+                void* stream) {
   const auto launch =
-      vec ? (by_group ? launch_pool<T, true, true, MASKED> : launch_pool<T, true, false, MASKED>)
-          : (by_group ? launch_pool<T, false, true, MASKED> : launch_pool<T, false, false, MASKED>);
-  return launch(storage, indices, offsets, mask, out, tables, batch, capacity, d, group,
-                device, stream);
+      vec ? (by_group ? launch_pool<T, SCALED, true, true, MASKED>
+                      : launch_pool<T, SCALED, true, false, MASKED>)
+          : (by_group ? launch_pool<T, SCALED, false, true, MASKED>
+                      : launch_pool<T, SCALED, false, false, MASKED>);
+  return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
+                group, device, stream);
 }
 
 // The MASKED instances run where the caller gives a mask ([T, C] bytes, an
 // entry kept where its byte is set); the others take no per-entry load.
-template <typename T>
-int launch_pool(const void* storage, const void* indices, const void* offsets,
-                const void* mask, void* out, int tables, int batch, long long capacity,
-                int d, int vec, int group, int by_group, int device, void* stream) {
-  const auto launch = mask != nullptr ? launch_pool<T, true> : launch_pool<T, false>;
-  return launch(storage, indices, offsets, mask, out, tables, batch, capacity, d, vec, group,
-                by_group, device, stream);
+template <typename T, bool SCALED>
+int launch_pool(const void* storage, const void* scale, const void* indices,
+                const void* offsets, const void* mask, void* out, int tables, int batch,
+                long long capacity, int d, int vec, int group, int by_group, int device,
+                void* stream) {
+  const auto launch =
+      mask != nullptr ? launch_pool<T, SCALED, true> : launch_pool<T, SCALED, false>;
+  return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d, vec,
+                group, by_group, device, stream);
 }
 
 }  // namespace
@@ -211,17 +226,29 @@ int pel_csr_pool_f32(const void* storage, const void* indices,
                      const void* offsets, const void* mask, void* out, int tables,
                      int batch, long long capacity, int d, int vec, int group,
                      int by_group, int device, void* stream) {
-  return launch_pool<float>(storage, indices, offsets, mask, out, tables, batch,
-                            capacity, d, vec, group, by_group, device, stream);
+  return launch_pool<float, false>(storage, nullptr, indices, offsets, mask, out, tables,
+                                   batch, capacity, d, vec, group, by_group, device, stream);
 }
 
 int pel_csr_pool_bf16(const void* storage, const void* indices,
                       const void* offsets, const void* mask, void* out, int tables,
                       int batch, long long capacity, int d, int vec, int group,
                       int by_group, int device, void* stream) {
-  return launch_pool<__nv_bfloat16>(storage, indices, offsets, mask, out, tables,
-                                    batch, capacity, d, vec, group, by_group,
-                                    device, stream);
+  return launch_pool<__nv_bfloat16, false>(storage, nullptr, indices, offsets, mask, out,
+                                           tables, batch, capacity, d, vec, group, by_group,
+                                           device, stream);
+}
+
+// int8 codes; scale: one f32 a row ("row" mode), or NULL ("table" mode: the
+// codes are pooled as they are)
+int pel_csr_pool_i8(const void* storage, const void* scale, const void* indices,
+                    const void* offsets, const void* mask, void* out, int tables,
+                    int batch, long long capacity, int d, int vec, int group,
+                    int by_group, int device, void* stream) {
+  const auto launch =
+      scale != nullptr ? launch_pool<int8_t, true> : launch_pool<int8_t, false>;
+  return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
+                vec, group, by_group, device, stream);
 }
 
 // mask: [T, C] bytes, an entry kept where its byte is set; NULL: none (the

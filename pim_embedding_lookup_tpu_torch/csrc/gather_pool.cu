@@ -9,7 +9,16 @@
 // kernel's 128-lane row fetch plus lane-group select is not carried over.
 //
 // Bound on the card: bytes.  Each entry moves one d-wide row (64 B at d=16
-// f32) plus 4 B of id and 1 B of mask; there is one add per loaded value.
+// f32, 16 B at d=16 int8) plus 4 B of id and 1 B of mask, and in the "row"
+// scale mode of int8 storage 4 B of scale; there is one add per loaded value.
+//
+// int8 storage (the capacity mode: int8 codes, the JAX package's int8 dict
+// storage, which it gathers with XLA) has its own instances: the codes are
+// pooled in f32, one 16-byte load giving 16 of them at d=16 (a group of one
+// thread a bag, 32 bags a warp).  With a scale array ("row" mode) each entry
+// adds code * scale[id], its scale loaded in the same batch as its row; with
+// none ("table" mode) the caller multiplies the pooled output by the table's
+// scale.
 //
 // Design (pool_common.cuh has the walk, shared with csr_pool.cu).  The first
 // kernel ran one thread per (bag, lane), ~5 waves at the main shape, each
@@ -45,11 +54,11 @@
 
 namespace {
 
-template <typename T, bool VEC, int U, bool BY_GROUP>
+template <typename T, bool VEC, int U, bool BY_GROUP, bool SCALED>
 __global__ void __launch_bounds__(pel::kBlock)
-fixedl_pool_kernel(const T* __restrict__ storage, const int* __restrict__ indices,
-                   const unsigned char* __restrict__ mask, float* __restrict__ out,
-                   long long bags, int pooling, int d, int group) {
+fixedl_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
+                   const int* __restrict__ indices, const unsigned char* __restrict__ mask,
+                   float* __restrict__ out, long long bags, int pooling, int d, int group) {
   const int lane = threadIdx.x & 31;
   const int bags_per_tile = 32 / group;
   const int g = lane / group;  // this lane's bag in the tile
@@ -69,12 +78,12 @@ fixedl_pool_kernel(const T* __restrict__ storage, const int* __restrict__ indice
     tile.s = bag ? g * pooling : 0;
     tile.e = bag ? (g + 1) * pooling : 0;
     tile.dst = bag ? out + (b0 + g) * d : nullptr;
-    pel::pool_tile<T, VEC, true, U, BY_GROUP>(storage, d, group, tile);
+    pel::pool_tile<T, VEC, true, U, BY_GROUP, SCALED>(storage, scale, d, group, tile);
   }
 }
 
-template <typename T, bool VEC, int U, bool BY_GROUP>
-int launch(const void* storage, const void* indices, const void* mask,
+template <typename T, bool SCALED, bool VEC, int U, bool BY_GROUP>
+int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int device,
            void* stream) {
   if (!pel::geometry_ok<T, VEC>(storage, d, group)) return (int)cudaErrorInvalidValue;
@@ -83,42 +92,43 @@ int launch(const void* storage, const void* indices, const void* mask,
   const int bags_per_tile = 32 / group;
   const long long tiles = (bags + bags_per_tile - 1) / bags_per_tile;
   const int warps_per_block = pel::kBlock / 32;
-  const int grid = pel::wave_blocks<&fixedl_pool_kernel<T, VEC, U, BY_GROUP>>(
+  const int grid = pel::wave_blocks<&fixedl_pool_kernel<T, VEC, U, BY_GROUP, SCALED>>(
       device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  fixedl_pool_kernel<T, VEC, U, BY_GROUP>
+  fixedl_pool_kernel<T, VEC, U, BY_GROUP, SCALED>
       <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
-          (const T*)storage, (const int*)indices, (const unsigned char*)mask,
-          (float*)out, bags, pooling, d, group);
+          (const T*)storage, (const float*)scale, (const int*)indices,
+          (const unsigned char*)mask, (float*)out, bags, pooling, d, group);
   return (int)cudaGetLastError();
 }
 
 // U: the row loads of min(L, 8) entries of a bag (rounded up to a power of
 // two; at most 4 by group) go out before their adds.  A single-hot tile
 // (32 / G entries) is always one window.
-template <typename T, bool VEC>
-int launch(const void* storage, const void* indices, const void* mask,
+template <typename T, bool SCALED, bool VEC>
+int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int by_group,
            int device, void* stream) {
-  using Launch = int (*)(const void*, const void*, const void*, void*, long long, int, int,
-                         int, int, void*);
+  using Launch = int (*)(const void*, const void*, const void*, const void*, void*,
+                         long long, int, int, int, int, void*);
   const Launch chosen =
-      pooling == 1   ? launch<T, VEC, 1, false>
-      : pooling == 2 ? (by_group ? launch<T, VEC, 2, true> : launch<T, VEC, 2, false>)
-      : by_group     ? launch<T, VEC, 4, true>
-      : pooling <= 4 ? launch<T, VEC, 4, false>
-                     : launch<T, VEC, 8, false>;
-  return chosen(storage, indices, mask, out, bags, pooling, d, group, device, stream);
+      pooling == 1   ? launch<T, SCALED, VEC, 1, false>
+      : pooling == 2 ? (by_group ? launch<T, SCALED, VEC, 2, true>
+                                 : launch<T, SCALED, VEC, 2, false>)
+      : by_group     ? launch<T, SCALED, VEC, 4, true>
+      : pooling <= 4 ? launch<T, SCALED, VEC, 4, false>
+                     : launch<T, SCALED, VEC, 8, false>;
+  return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, device, stream);
 }
 
-template <typename T>
-int launch(const void* storage, const void* indices, const void* mask,
+template <typename T, bool SCALED>
+int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int vec, int group,
            int by_group, int device, void* stream) {
-  return vec ? launch<T, true>(storage, indices, mask, out, bags, pooling, d, group,
-                               by_group, device, stream)
-             : launch<T, false>(storage, indices, mask, out, bags, pooling, d, group,
-                                by_group, device, stream);
+  return vec ? launch<T, SCALED, true>(storage, scale, indices, mask, out, bags, pooling, d,
+                                       group, by_group, device, stream)
+             : launch<T, SCALED, false>(storage, scale, indices, mask, out, bags, pooling, d,
+                                        group, by_group, device, stream);
 }
 
 }  // namespace
@@ -129,16 +139,26 @@ int pel_gather_pool_f32(const void* storage, const void* indices,
                         const void* mask, void* out, long long bags,
                         int pooling, int d, int vec, int group, int by_group,
                         int device, void* stream) {
-  return launch<float>(storage, indices, mask, out, bags, pooling, d, vec, group,
-                       by_group, device, stream);
+  return launch<float, false>(storage, nullptr, indices, mask, out, bags, pooling, d, vec,
+                              group, by_group, device, stream);
 }
 
 int pel_gather_pool_bf16(const void* storage, const void* indices,
                          const void* mask, void* out, long long bags,
                          int pooling, int d, int vec, int group, int by_group,
                          int device, void* stream) {
-  return launch<__nv_bfloat16>(storage, indices, mask, out, bags, pooling, d, vec,
-                               group, by_group, device, stream);
+  return launch<__nv_bfloat16, false>(storage, nullptr, indices, mask, out, bags, pooling,
+                                      d, vec, group, by_group, device, stream);
+}
+
+// int8 codes; scale: one f32 a row ("row" mode), or NULL ("table" mode: the
+// codes are pooled as they are)
+int pel_gather_pool_i8(const void* storage, const void* scale, const void* indices,
+                       const void* mask, void* out, long long bags, int pooling, int d,
+                       int vec, int group, int by_group, int device, void* stream) {
+  const auto chosen = scale != nullptr ? launch<int8_t, true> : launch<int8_t, false>;
+  return chosen(storage, scale, indices, mask, out, bags, pooling, d, vec, group, by_group,
+                device, stream);
 }
 
 const char* pel_error_string(int code) {

@@ -7,8 +7,12 @@
 // consecutive, so their entries form one contiguous range [S, E) of the ids.
 // The caller gives each lane its bag's entry range [s, e) and output row.
 //
-// A row is read in chunks: 16 bytes (one vector load; 4 f32 or 8 bf16 lanes)
-// on the vector path, one element on the scalar path.  Thread g of a group
+// A row is read in chunks: 16 bytes (one vector load; 4 f32, 8 bf16 or 16
+// int8 lanes) on the vector path, one element on the scalar path.  int8 rows
+// (the capacity mode's codes) are converted to f32 as they are added; where a
+// 1-D f32 scale array is given (SCALED, the "row" scale mode), each entry
+// adds code * scale[id], its scale loaded beside its row, in the same batch
+// of U loads, so that it puts no second dependent load on the chain.  Thread g of a group
 // reads chunks g, g+G, g+2G, ... of each row; a row of more than 32 chunks
 // takes several rounds, each walking the bag's entries again.
 //
@@ -27,7 +31,7 @@
 // adds any of them, so up to U independent row loads per thread are in
 // flight.  Each bag is summed in entry order in f32 registers and written
 // once: deterministic, no atomics.  Entries outside a lane's [s, e)
-// (padding, other bags) and masked entries are never read.
+// (padding, other bags) and masked entries are never read, nor their scales.
 
 #pragma once
 
@@ -35,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace pel {
 
@@ -63,6 +68,16 @@ __device__ __forceinline__ float ld_elem(const __nv_bfloat16* p) {
   return __uint_as_float((unsigned)v << 16);  // bf16 -> f32 is exact
 }
 
+__device__ __forceinline__ float ld_elem(const int8_t* p) {
+  short v;  // sign-extended
+  asm("ld.global.nc.L1::no_allocate.s8 %0, [%1];" : "=h"(v) : "l"(p));
+  return (float)v;  // an int8 code is exact in f32
+}
+
+// code * scale, rounded once and never fused into the add, so that a
+// bag of one entry equals the plain version's product bitwise
+__device__ __forceinline__ float scaled(float code, float s) { return __fmul_rn(code, s); }
+
 // One chunk of a row: its lanes (P), how it is loaded and added.
 template <typename T, bool VEC>
 struct Chunk {  // scalar path: one element
@@ -70,6 +85,7 @@ struct Chunk {  // scalar path: one element
   using Raw = float;
   __device__ static Raw load(const T* p) { return ld_elem(p); }
   __device__ static void add(float (&acc)[P], Raw v) { acc[0] += v; }
+  __device__ static void add(float (&acc)[P], Raw v, float s) { acc[0] += scaled(v, s); }
 };
 
 template <>
@@ -102,6 +118,36 @@ struct Chunk<__nv_bfloat16, true> {
   }
 };
 
+template <>
+struct Chunk<int8_t, true> {
+  static constexpr int P = 16;
+  using Raw = uint4;
+  __device__ static Raw load(const int8_t* p) { return ld_row(p); }
+  __device__ static float code(unsigned w, int k) {  // byte k of w, signed
+    return (float)(signed char)(w >> (8 * k));
+  }
+  __device__ static void add(float (&acc)[P], const Raw& v) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] += code(w[i / 4], i % 4);
+  }
+  __device__ static void add(float (&acc)[P], const Raw& v, float s) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] += scaled(code(w[i / 4], i % 4), s);
+  }
+};
+
+// Adds one loaded chunk, times its entry's scale where SCALED.
+template <typename C, bool SCALED>
+__device__ __forceinline__ void add_chunk(float (&acc)[C::P], const typename C::Raw& raw,
+                                          float s) {
+  if constexpr (SCALED)
+    C::add(acc, raw, s);
+  else
+    C::add(acc, raw);
+}
+
 template <int P>
 __device__ __forceinline__ void store_chunk(float* p, const float (&acc)[P]) {
   if constexpr (P == 1) {
@@ -124,21 +170,29 @@ struct Tile {
   float* dst;                 // this lane's output row; nullptr: write nothing
 };
 
-// Issues the U row loads whose ``take`` is set, then adds them in order.
-template <typename C, int U, typename T>
-__device__ __forceinline__ void gather_add(float (&acc)[C::P], const T* column, int d,
-                                           const int (&id)[U], const bool (&take)[U]) {
+// Issues the U row loads (and where SCALED their scale loads) whose ``take``
+// is set, then adds them in order.
+template <typename C, int U, bool SCALED, typename T>
+__device__ __forceinline__ void gather_add(float (&acc)[C::P], const T* column,
+                                           const float* scale, int d, const int (&id)[U],
+                                           const bool (&take)[U]) {
   typename C::Raw raw[U];
+  float sc[U];
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (take[u]) raw[u] = C::load(column + (long long)id[u] * d);
+    if (take[u]) {
+      raw[u] = C::load(column + (long long)id[u] * d);
+      if constexpr (SCALED) sc[u] = ld_elem(scale + id[u]);
+    }
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (take[u]) C::add(acc, raw[u]);
+    if (take[u]) add_chunk<C, SCALED>(acc, raw[u], SCALED ? sc[u] : 1.0f);
 }
 
-template <typename T, bool VEC, bool MASKED, int U, bool BY_GROUP>
-__device__ __forceinline__ void pool_tile(const T* __restrict__ storage, int d,
+// SCALED: ``scale`` holds one f32 a row, indexed by the row's id.
+template <typename T, bool VEC, bool MASKED, int U, bool BY_GROUP, bool SCALED>
+__device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
+                                          const float* __restrict__ scale, int d,
                                           int group, const Tile& tile) {
   using C = Chunk<T, VEC>;
   constexpr int P = C::P;
@@ -168,6 +222,7 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage, int d,
         const int steps = (int)__reduce_max_sync(kFull, n > 0 ? (unsigned)n : 0u);
         for (int k = 0; k < steps; k += U) {
           typename C::Raw raw[U];
+          float sc[U];
           bool ok[U];
 #pragma unroll
           for (int u = 0; u < U; ++u) {  // every lane shuffles, whatever it takes
@@ -176,11 +231,14 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage, int d,
             bool take = on && k + u < n;
             if constexpr (MASKED) take = __shfl_sync(kFull, keep, src) != 0u && take;
             ok[u] = take;
-            if (take) raw[u] = C::load(column + (long long)id * d);
+            if (take) {
+              raw[u] = C::load(column + (long long)id * d);
+              if constexpr (SCALED) sc[u] = ld_elem(scale + id);
+            }
           }
 #pragma unroll
           for (int u = 0; u < U; ++u)
-            if (ok[u]) C::add(acc, raw[u]);
+            if (ok[u]) add_chunk<C, SCALED>(acc, raw[u], SCALED ? sc[u] : 1.0f);
         }
       }
     } else {
@@ -213,7 +271,7 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage, int d,
             if constexpr (MASKED)
               take[v] = __shfl_sync(kFull, keep[v], first + q) != 0u && take[v];
           }
-          gather_add<C, U>(acc, column, d, id, take);
+          gather_add<C, U, SCALED>(acc, column, scale, d, id, take);
         }
       }
     }

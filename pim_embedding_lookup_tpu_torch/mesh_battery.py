@@ -6,8 +6,8 @@ Inputs come from ``make_inputs(seed, data)`` (numpy only) through an
 from the same arrays.  Each rank runs every case (lookups under every
 policy on both wires, routed lookups and updates with their drop counts,
 the hot-row cache, the sparse updates, the hybrid collection, the sparse
-train step, the gradients of the lookups w.r.t. the storage, and the
-dense-autodiff train step) and writes what it computed, gathered to the
+train step, the gradients of the lookups w.r.t. the storage (and the hot
+cache's rows), and the dense-autodiff train step) and writes what it computed, gathered to the
 global batch and the global tables, to ``<out>/rank<r>.npz``.  A gradient
 is that of ``sum(lookup * w)`` for a fixed cotangent ``w``, each process
 taking its data row's part of ``w`` where its query is data-sharded.  A case that raises records
@@ -15,10 +15,15 @@ its error as ``<case>/error``, so that a failure names its case and no
 rank waits for a collective that another skipped.
 
     python -m pim_embedding_lookup_tpu_torch.mesh_battery \\
-        RANK WORLD DATA MODEL INIT_FILE IN_NPZ OUT_DIR [cpu|cuda]
+        RANK WORLD DATA MODEL INIT_FILE IN_NPZ OUT_DIR [cpu|cuda] [main|int8]
 
 The process group is joined through ``INIT_FILE`` (a file store): gloo on
-the CPU, NCCL on the card.
+the CPU, NCCL on the card.  The last argument picks the case group: the
+battery above ("main", the default) or the int8 capacity mode's cases
+(``Int8Battery``: ``QuantizedEmbeddingCollection`` lookups broadcast, data
+sharded and routed, with and without the hot-row cache, in both scale
+modes, and the ROW_HASH hybrid DLRM served from
+``quantize_dlrm_embeddings``).
 """
 
 from __future__ import annotations
@@ -33,12 +38,13 @@ import torch
 from . import config as tcfg
 from .config import ShardingPolicy
 from .convert import params_from_jax
-from .models import DLRM, fit, make_optimizer, make_train_step
+from .models import DLRM, fit, make_optimizer, make_train_step, quantize_dlrm_embeddings
 from .models.sparse_train import make_sparse_train_state, make_sparse_train_step
 from .parallel.collection import EmbeddingCollection
 from .parallel.hotcache import build_hot_cache, hot_ids_from_sample
 from .parallel.hybrid import HybridEmbeddingCollection
-from .parallel.mesh import DATA_AXIS, init_distributed, make_mesh
+from .parallel.mesh import DATA_AXIS, MODEL_AXIS, init_distributed, make_mesh
+from .parallel.quantized_collection import QuantizedEmbeddingCollection
 from .parallel.sparse_update import init_accumulator, sparse_update, sparse_update_csr
 
 ROWS = (100, 1000, 37, 4000)
@@ -344,6 +350,18 @@ class Battery:
             f, self.rows(self.inp["zidx"]), self.rows(self.inp["zmask"]),
             batch_size=BATCH // self.mesh.data), self.rows(self.inp["g"], 0))
 
+    def grad_hot(self, policy):
+        """The gradients of sum(lookup_routed * w) with a hot cache, w.r.t.
+        the storage and the cache's rows (each the same on every process)."""
+        c, fused = self.loaded(policy)
+        ids, rows = build_hot_cache(c, fused, hot_ids_from_sample(c, self.inp["zidx"], HOT_K))
+        hot = rows.clone().requires_grad_(True)
+        out = self._grad(c, fused, lambda f: c.lookup_routed(
+            f, self.rows(self.inp["zidx"]), self.rows(self.inp["zmask"]),
+            batch_size=BATCH // self.mesh.data, hot_cache=(ids, hot), capacity_factor=1.0),
+            self.rows(self.inp["g"], 0))
+        return {**out, "hot_grad": hot.grad}
+
     def grad_hybrid(self):
         h, params = self.hybrid("row")
         for v in params.values():
@@ -377,7 +395,6 @@ class Battery:
             "step_args": lambda: self._hot_step_without_cache(),
             "grad_rowshard_max": lambda: c.lookup(fused.clone().requires_grad_(True), *q,
                                                   batch_size=bd, combiner="max"),
-            "grad_hot": lambda: self._hot_lookup_under_grad(c, fused),
         }
         try:
             calls[which]()
@@ -391,11 +408,6 @@ class Battery:
         step = make_sparse_train_step(m, opt, lr=LR, routed=True, hot_cache=True)
         step(acc, *self.step_batch(0))
 
-    def _hot_lookup_under_grad(self, c, fused):
-        ids, rows = build_hot_cache(c, fused, hot_ids_from_sample(c, self.inp["zidx"], HOT_K))
-        c.lookup_routed(fused.clone().requires_grad_(True), self.rows(self.inp["zidx"]),
-                        self.rows(self.inp["zmask"]), batch_size=BATCH // self.mesh.data,
-                        hot_cache=(ids, rows))
 
     def cases(self):
         """(name, thunk) of every case, in the same order on every rank."""
@@ -444,13 +456,13 @@ class Battery:
             out.append((f"grad_routed-{p}", lambda p=p: self.grad_routed(p)))
         out.append(("grad_csr_routed_ds-row_hash", lambda: self.grad_csr(
             "row_hash", "sum", data_sharded=True, routed=True)))
+        out.append(("grad_hot-row_hash", lambda: self.grad_hot("row_hash")))
         out.append(("grad_hybrid", self.grad_hybrid))
         out.append(("train_autodiff_trace", lambda: self.train_autodiff(
             "row_hash", "adagrad", TRAIN_STEPS)))
         out.append(("fit-row_hash", lambda: self.fit("row_hash")))
         for g in ("routed_column", "routed_max", "stats_unrouted", "routed_update_replicate",
-                  "csr_update_column", "hot_unrouted", "step_args", "grad_rowshard_max",
-                  "grad_hot"):
+                  "csr_update_column", "hot_unrouted", "step_args", "grad_rowshard_max"):
             out.append((f"guard-{g}", lambda g=g: self.guard(g)))
         return out
 
@@ -469,24 +481,111 @@ class Battery:
         return results
 
 
-def case_names() -> list[str]:
-    """The battery's case names, in order (no process group needed)."""
+class Int8Battery(Battery):
+    """The int8 capacity mode's cases, in both scale modes: the int8
+    collection's broadcast, data-sharded and routed lookups (with and
+    without the hot-row cache, whose rows are compared too), and the
+    ROW_HASH hybrid DLRM quantized by ``quantize_dlrm_embeddings`` and
+    served broadcast and routed with a hot cache."""
+
+    def qloaded(self, policy, mode):
+        c = QuantizedEmbeddingCollection.create(tables(tcfg, ROWS), ShardingPolicy(policy),
+                                                scale_mode=mode, mesh=self.mesh)
+        return c, c.quantize_tables(host_tables(self.inp, "table", ROWS))
+
+    def q_lookup(self, policy, mode, combiner):
+        c, params = self.qloaded(policy, mode)
+        out = c.lookup(params, self.rows(self.inp["idx"]), self.rows(self.inp["mask"]),
+                       batch_size=BATCH // self.mesh.data, combiner=combiner)
+        return {"out": self.batch(out)}
+
+    def q_csr_ds(self, policy, mode):
+        c, params = self.qloaded(policy, mode)
+        out = c.lookup_csr(params, *self.csr_window(), combiner="mean", data_sharded=True)
+        return {"out": self.batch(out)}
+
+    def q_routed(self, policy, mode, hot=False):
+        c, params = self.qloaded(policy, mode)
+        res, cache, cf = {}, None, None
+        if hot:
+            cache = build_hot_cache(c, params, hot_ids_from_sample(c, self.inp["zidx"], HOT_K))
+            res["hot_rows"], cf = cache[1], 1.0
+        out, dropped = c.lookup_routed(
+            params, self.rows(self.inp["zidx"]), self.rows(self.inp["zmask"]),
+            batch_size=BATCH // self.mesh.data, capacity_factor=cf, hot_cache=cache,
+            return_stats=True)
+        return {**res, "out": self.batch(out), "dropped": dropped}
+
+    def q_csr_routed(self, policy, mode, data_sharded=False):
+        c, params = self.qloaded(policy, mode)
+        q = (self.csr_window() if data_sharded
+             else (self.t(self.inp["cidx"]), self.t(self.inp["coff"])))
+        out, dropped = c.lookup_csr(params, *q, data_sharded=data_sharded, routed=True,
+                                    capacity_factor=1.0 if data_sharded else None,
+                                    return_stats=True)
+        return {"out": self.batch(out) if data_sharded else out, "dropped": dropped}
+
+    def q_serve(self, mode):
+        m = self.model("row_hash")
+        coll, emb = quantize_dlrm_embeddings(m, scale_mode=mode)
+        dense, idx, mask, _ = self.step_batch(0)
+        bd = BATCH // self.mesh.data
+        sample = self.inp["midx0"][list(coll.big_ids)]
+        cache = build_hot_cache(coll.big, emb["big"], hot_ids_from_sample(coll.big, sample,
+                                                                          HOT_K))
+        with torch.no_grad():
+            broadcast = m.apply_from_pooled(dense, coll.lookup(emb, idx, mask, batch_size=bd))
+            routed = m.apply_from_pooled(dense, coll.lookup(
+                emb, idx, mask, batch_size=bd, routed=True, hot_cache=cache))
+        big = {k: v if k == "tscale" else self.mesh.all_gather(v, MODEL_AXIS, 0)
+               for k, v in emb["big"].items()}  # the global params, to compare bitwise
+        return {"broadcast": self.batch(broadcast), "routed_hot": self.batch(routed),
+                "hot_rows": cache[1], **{f"big_{k}": v for k, v in big.items()}}
+
+    def cases(self):
+        out = []
+        for mode in ("table", "row"):
+            out += [
+                (f"q_lookup-row_hash-{mode}-max",
+                 lambda m=mode: self.q_lookup("row_hash", m, "max")),
+                (f"q_lookup-table_wise-{mode}-mean",
+                 lambda m=mode: self.q_lookup("table_wise", m, "mean")),
+                (f"q_csr_ds-row-{mode}", lambda m=mode: self.q_csr_ds("row", m)),
+                (f"q_routed-row-{mode}", lambda m=mode: self.q_routed("row", m)),
+                (f"q_routed-row_hash-{mode}", lambda m=mode: self.q_routed("row_hash", m)),
+                (f"q_hot-row_hash-{mode}", lambda m=mode: self.q_routed("row_hash", m, True)),
+                (f"q_csr_routed-row_hash-{mode}",
+                 lambda m=mode: self.q_csr_routed("row_hash", m)),
+                (f"q_csr_routed_ds-table_wise-{mode}",
+                 lambda m=mode: self.q_csr_routed("table_wise", m, True)),
+                (f"q_serve-{mode}", lambda m=mode: self.q_serve(m)),
+            ]
+        return out
+
+
+BATTERIES = {"main": Battery, "int8": Int8Battery}
+
+
+def case_names(group: str = "main") -> list[str]:
+    """The case names of a battery group, in order (no process group
+    needed)."""
     class _Stub:  # the cases are listed without running them
         data = 1
         device = torch.device("cpu")
-    return [name for name, _ in Battery(_Stub(), {}).cases()]
+    return [name for name, _ in BATTERIES[group](_Stub(), {}).cases()]
 
 
 def main(argv) -> int:
     rank, world, data, model = map(int, argv[:4])
     init_file, in_npz, out_dir = argv[4:7]
     device = argv[7] if len(argv) > 7 else "cpu"
+    group = argv[8] if len(argv) > 8 else "main"
     torch.set_num_threads(1)
     dev = init_distributed(rank, world, f"file://{init_file}",
                            device if device == "cpu" else None)
     mesh = make_mesh(data=data, model=model, device=dev)
     inp = dict(np.load(in_npz))
-    results = Battery(mesh, inp).run()
+    results = BATTERIES[group](mesh, inp).run()
     np.savez(Path(out_dir) / f"rank{rank}.npz", **results)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()

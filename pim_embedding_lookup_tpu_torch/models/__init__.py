@@ -1,6 +1,7 @@
 """Models over the embedding collections, and their training."""
 
 from .dlrm import DLRM, bce_loss, interact_dot
+from .quantize import quantize_dlrm_embeddings
 from .train import (
     OptaxAdagrad,
     TrainReport,
@@ -13,6 +14,7 @@ from .train import (
 )
 
 __all__ = [
+    "quantize_dlrm_embeddings",
     "DLRM",
     "bce_loss",
     "interact_dot",

@@ -14,6 +14,7 @@ from .csr_pool import (
     embedding_bag_csr_packed_reference,
     embedding_bag_csr_sum,
 )
+from .fixedpoint import SCALE, decode, embedding_bag_fixed_point, encode
 from .gather_pool import embedding_bag_fixedl, embedding_bag_fixedl_reference
 from .lookup import embedding_bag_csr, embedding_bag_dense, embedding_bag_onehot
 from .ragged import (
@@ -84,6 +85,10 @@ __all__ = [
     "embedding_bag_csr_grad_reference",
     "embedding_bag_fixedl",
     "embedding_bag_fixedl_reference",
+    "embedding_bag_fixed_point",
+    "encode",
+    "decode",
+    "SCALE",
     "pack_bags",
     "dense_to_csr",
     "csr_to_dense",

@@ -21,6 +21,12 @@ second kernel scatters K4's gradient with f32 ``atomicAdd``, one thread
 per (bag, lane).  The wrappers take T tables at once (indices [T, C],
 offsets [T, B+1]), one launch for all of them.
 
+K2 also pools int8 storage (the capacity mode): its int8 instances convert
+the codes to f32, and with a per-row ``scale`` (the "row" scale mode) add
+code * scale[id] for each entry, as ``gather_pool``'s K1 does;
+``int8_launches`` and ``int8_row_launches`` count them.
+``embedding_bag_quantized`` (``ops.quantized``) is this kernel at T = 1.
+
 The plain versions run only for CPU tensors; a CUDA tensor launches the
 kernel or raises.  K2 and K4's backward also take an optional per-entry
 mask (a row shard's ownership), whose dropped entries they never read;
@@ -37,7 +43,15 @@ import ctypes
 import torch
 
 from . import _build
-from .gather_pool import _MAX_DIM, _STORAGE_DTYPES, _check_storage, row_path, walks_by_group
+from .gather_pool import (
+    _MAX_DIM,
+    _STORAGE_DTYPES,
+    _check_storage,
+    _ptr,
+    gather_rows,
+    row_path,
+    walks_by_group,
+)
 from .ragged import segment_ids_from_offsets
 
 # (source, indices, offsets, mask or NULL, out, tables, batch, capacity, d,
@@ -51,6 +65,8 @@ _POOL_ARGS = _LAUNCH_ARGS[:9] + [ctypes.c_int] * 3 + _LAUNCH_ARGS[9:]
 _SIGNATURES = {
     "pel_csr_pool_f32": (_POOL_ARGS, ctypes.c_int),
     "pel_csr_pool_bf16": (_POOL_ARGS, ctypes.c_int),
+    # int8: the scale pointer (or NULL) after the storage's
+    "pel_csr_pool_i8": ([ctypes.c_void_p] + _POOL_ARGS, ctypes.c_int),
     "pel_csr_grad_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "pel_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -80,18 +96,19 @@ def _as_2d(indices, offsets):
     return indices.reshape(-1, indices.shape[-1]), offsets.reshape(-1, offsets.shape[-1])
 
 
-def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path, mask=None):
+def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path, mask=None,
+            lead=()):
     """One launch of a csr_pool.cu kernel over [T, C] ids and [T, B+1]
     offsets (and the [T, C] mask, if any) on ``src``'s device and current
-    stream; ``path`` is the pool kernels' (vector, group, by_group)."""
+    stream; ``path`` is the pool kernels' (vector, group, by_group), ``lead``
+    the pointers the int8 entry takes after the source's (its scale)."""
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
     idx2, off2 = _as_2d(indices, offsets)
     lib = _build.load("csr_pool", _SIGNATURES)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = getattr(lib, fn_name)(
-        src.data_ptr(), idx2.data_ptr(), off2.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        src.data_ptr(), *lead, idx2.data_ptr(), off2.data_ptr(), _ptr(mask), out.data_ptr(),
         idx2.shape[0], batch_size, idx2.shape[1], d, *path, src.device.index, stream,
     )
     if err != 0:
@@ -115,16 +132,18 @@ def _segments(indices, offsets, batch_size):
 def embedding_bag_csr_packed_reference(
     storage: torch.Tensor, d: int, indices: torch.Tensor, offsets: torch.Tensor,
     *, batch_size: int, mask: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K2/K3: ``index_select`` plus ``index_add_``
     over the segment ids.  [B, d] f32, or [T*B, d] for [T, C] indices.
-    Entries whose ``mask`` is unset are dropped like padding."""
+    Entries whose ``mask`` is unset are dropped like padding.  ``scale``:
+    int8 storage's per-row scale."""
     t = 1 if indices.dim() == 1 else indices.shape[0]
     fseg, valid = _segments(indices, offsets, batch_size)
     if mask is not None:
         valid = valid & mask.reshape(-1).bool()
     ids = torch.where(valid, indices.reshape(-1).long(), 0)  # dropped: not read
-    rows = storage.reshape(-1, d).index_select(0, ids).float()
+    rows = gather_rows(storage, d, ids, scale)
     rows = torch.where(valid[:, None], rows, 0.0)
     out = torch.zeros(t * (batch_size + 1), d, dtype=torch.float32,
                       device=storage.device)
@@ -132,22 +151,24 @@ def embedding_bag_csr_packed_reference(
     return out.reshape(t, batch_size + 1, d)[:, :batch_size].reshape(-1, d)
 
 
-def _pool(storage, d, indices, offsets, batch_size, mask=None):
+def _pool(storage, d, indices, offsets, batch_size, mask=None, scale=None):
     """Checked K2/K3 body: the plain version for CPU tensors, else one
     launch.  Returns (out, whether a kernel was launched)."""
-    _check_storage(storage, d)
+    _check_storage(storage, d, scale)
     _check_csr(indices, offsets, batch_size, storage.device, mask)
     if storage.device.type == "cpu":
         return embedding_bag_csr_packed_reference(
-            storage, d, indices, offsets, batch_size=batch_size, mask=mask), False
+            storage, d, indices, offsets, batch_size=batch_size, mask=mask,
+            scale=scale), False
     t = 1 if indices.dim() == 1 else indices.shape[0]
     out = torch.empty(t * batch_size, d, dtype=torch.float32, device=storage.device)
     if out.numel() == 0:
         return out, False
     vector, group = row_path(storage, d)
     by_group = walks_by_group(group, indices.shape[-1], batch_size)
+    lead = (_ptr(scale),) if storage.dtype == torch.int8 else ()
     _launch(f"pel_csr_pool_{_STORAGE_DTYPES[storage.dtype]}", storage, indices,
-            offsets, out, batch_size, d, vector, group, by_group, mask=mask)
+            offsets, out, batch_size, d, vector, group, by_group, mask=mask, lead=lead)
     return out, True
 
 
@@ -159,24 +180,30 @@ def embedding_bag_csr_packed(
     *,
     batch_size: int,
     mask: torch.Tensor | None = None,  # [C] or [T, C] bool/uint8
+    scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
 ) -> torch.Tensor:  # [B, d] or [T*B, d] f32
     """SUM-pooled CSR embedding bag over fused storage (K2; K3 at d=128).
     Row t*B + b of the result pools bag b of table t.  ``mask`` keeps the
     entries where it is set (a row shard's ownership): the others are never
     read, so their ids may hold anything.  Kept ids must lie in [0, rows).
-    Differentiable w.r.t. the storage where it requires grad; the gradient
-    takes the same mask."""
+    ``scale``: int8 storage's per-row scale.  Differentiable w.r.t. float
+    storage where it requires grad; the gradient takes the same mask."""
     if storage.requires_grad and torch.is_grad_enabled():
         return _CSRBagSum.apply(storage, d, indices, offsets, batch_size, mask,
                                 embedding_bag_csr_packed)
-    out, launched = _pool(storage, d, indices, offsets, batch_size, mask)
-    embedding_bag_csr_packed.launches += launched
-    embedding_bag_csr_packed.masked_launches += launched and mask is not None
+    out, launched = _pool(storage, d, indices, offsets, batch_size, mask, scale)
+    fn = embedding_bag_csr_packed
+    fn.launches += launched
+    fn.masked_launches += launched and mask is not None
+    fn.int8_launches += launched and storage.dtype == torch.int8
+    fn.int8_row_launches += launched and scale is not None
     return out
 
 
 embedding_bag_csr_packed.launches = 0
 embedding_bag_csr_packed.masked_launches = 0
+embedding_bag_csr_packed.int8_launches = 0  # int8 storage, either scale mode
+embedding_bag_csr_packed.int8_row_launches = 0  # int8 storage with a per-row scale
 
 
 # -- K4: the differentiable CSR bag ---------------------------------------------

@@ -15,12 +15,20 @@ warp several bags: :func:`row_path` picks 16-byte vector row loads or one
 element a thread, and the group size, from the storage pointer and d;
 :func:`walks_by_group` picks how ids reach the groups from L.
 
+int8 storage (the capacity mode's codes) has its own instances: the codes
+are pooled in f32, and with a 1-D f32 ``scale`` of one value a row (the
+"row" scale mode) each entry adds code * scale[id]; without one ("table"
+mode) the caller folds the table's scale into the pooled output.  The JAX
+package gathers int8 dict storage with XLA (its ``_gather_f32``);
+``int8_launches`` and ``int8_row_launches`` count these launches.
+
 The plain version runs only for CPU tensors; a CUDA tensor launches the
 kernel or raises.  Where the storage requires grad (and grad mode is on),
 the wrapper is differentiable w.r.t. the storage: the forward is the same
 call, the backward the transpose of the gather, an ``index_add_`` of each
 kept entry's bag gradient at its row (XLA's work in the JAX package, not a
-Pallas kernel).  Without grad no autograd node is made.
+Pallas kernel).  Without grad no autograd node is made; int8 storage
+cannot require grad, and its scale gets no gradient.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch
 
 from . import _build
 
-_STORAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_STORAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}
 _MAX_DIM = 1024
 _LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -42,13 +50,17 @@ _WARP = 32
 _SIGNATURES = {
     "pel_gather_pool_f32": (_LAUNCH_ARGS, ctypes.c_int),
     "pel_gather_pool_bf16": (_LAUNCH_ARGS, ctypes.c_int),
+    # int8: the scale pointer (or NULL) after the storage's
+    "pel_gather_pool_i8": ([ctypes.c_void_p] + _LAUNCH_ARGS, ctypes.c_int),
     "pel_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
-def _check_storage(storage, d):
+def _check_storage(storage, d, scale=None):
     """Fused storage the kernels read: contiguous [S, 128] lane-packed or
-    [N, d], f32 or bf16, with d-wide rows of at most _MAX_DIM lanes."""
+    [N, d], f32, bf16 or int8, with d-wide rows of at most _MAX_DIM lanes;
+    and the optional per-row scale of int8 storage, contiguous 1-D f32 of
+    one value a d-wide row."""
     if storage.dim() != 2 or not storage.is_contiguous():
         raise ValueError(f"storage must be a contiguous 2-D tensor, got {tuple(storage.shape)}")
     if d < 1 or d > _MAX_DIM:
@@ -58,6 +70,15 @@ def _check_storage(storage, d):
         raise ValueError(f"storage width {width} must be d={d}, or 128 with d | 128")
     if storage.dtype not in _STORAGE_DTYPES:
         raise TypeError(f"storage dtype {storage.dtype} not in {list(_STORAGE_DTYPES)}")
+    if scale is None:
+        return
+    if storage.dtype != torch.int8:
+        raise TypeError(f"a per-row scale goes with int8 storage, not {storage.dtype}")
+    if scale.dtype != torch.float32 or scale.dim() != 1 or not scale.is_contiguous():
+        raise TypeError("scale must be a contiguous 1-D f32 tensor")
+    if scale.numel() != storage.numel() // d or scale.device != storage.device:
+        raise ValueError(f"scale of {scale.numel()} rows on {scale.device} for "
+                         f"{storage.numel() // d} rows on {storage.device}")
 
 
 def row_path(storage: torch.Tensor, d: int) -> tuple[bool, int]:
@@ -82,8 +103,8 @@ def walks_by_group(group: int, entries: int, bags: int) -> bool:
     return entries * (_WARP // group) > _WARP * bags
 
 
-def _check(storage, d, indices, pooling, batch_size, mask):
-    _check_storage(storage, d)
+def _check(storage, d, indices, pooling, batch_size, mask, scale):
+    _check_storage(storage, d, scale)
     if indices.dtype != torch.int32 or indices.dim() != 1 or not indices.is_contiguous():
         raise TypeError("indices must be a contiguous 1-D int32 tensor")
     if pooling < 1 or batch_size < 0:
@@ -104,17 +125,32 @@ def _check(storage, d, indices, pooling, batch_size, mask):
             raise ValueError(f"tensor on {t.device}, storage on {storage.device}")
 
 
+def _ptr(t):
+    """A tensor's device pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def gather_rows(storage: torch.Tensor, d: int, ids: torch.Tensor,
+                scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Rows ``ids`` (int64) of d-wide storage in f32; int8 codes times
+    their rows' ``scale`` where one is given."""
+    rows = storage.reshape(-1, d).index_select(0, ids).float()
+    if scale is not None:
+        rows = rows * scale.index_select(0, ids)[:, None]
+    return rows
+
+
 def embedding_bag_fixedl_reference(
     storage: torch.Tensor, d: int, indices: torch.Tensor, *,
     pooling: int, batch_size: int, mask: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: [batch_size, d] f32."""
-    rows_all = storage.reshape(-1, d)
     ids = indices.long()
     if mask is not None:
         keep = mask.bool()
         ids = torch.where(keep, ids, 0)  # masked entries are not read
-    rows = rows_all[ids].float()
+    rows = gather_rows(storage, d, ids, scale)
     if mask is not None:
         rows = torch.where(keep[:, None], rows, 0.0)
     return rows.reshape(batch_size, pooling, d).sum(dim=1)
@@ -128,21 +164,22 @@ def embedding_bag_fixedl(
     pooling: int,
     batch_size: int,
     mask: torch.Tensor | None = None,  # [B*L] bool/uint8
+    scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
 ) -> torch.Tensor:  # [B, d] f32
     """SUM-pooled fixed-L embedding bag over fused storage.  Unmasked ids
-    must lie in [0, rows)."""
-    _check(storage, d, indices, pooling, batch_size, mask)
+    must lie in [0, rows).  ``scale``: int8 storage's per-row scale."""
+    _check(storage, d, indices, pooling, batch_size, mask, scale)
     if storage.requires_grad and torch.is_grad_enabled():
         return _FixedLBagSum.apply(storage, d, indices, pooling, batch_size, mask)
-    return _pool(storage, d, indices, pooling, batch_size, mask)
+    return _pool(storage, d, indices, pooling, batch_size, mask, scale)
 
 
-def _pool(storage, d, indices, pooling, batch_size, mask):
+def _pool(storage, d, indices, pooling, batch_size, mask, scale=None):
     """Checked K1 body: the plain version for CPU tensors, else one launch."""
     if storage.device.type == "cpu":
         return embedding_bag_fixedl_reference(
             storage, d, indices, pooling=pooling, batch_size=batch_size,
-            mask=mask,
+            mask=mask, scale=scale,
         )
     if storage.device.type != "cuda":
         raise ValueError(f"no kernel for device {storage.device}")
@@ -154,19 +191,24 @@ def _pool(storage, d, indices, pooling, batch_size, mask):
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     vector, group = row_path(storage, d)
     by_group = walks_by_group(group, indices.numel(), batch_size)
+    int8 = storage.dtype == torch.int8
+    lead = (storage.data_ptr(),) + ((_ptr(scale),) if int8 else ())
     err = fn(
-        storage.data_ptr(), indices.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        *lead, indices.data_ptr(), _ptr(mask), out.data_ptr(),
         batch_size, pooling, d, vector, group, by_group, storage.device.index, stream,
     )
     if err != 0:
         msg = lib.pel_error_string(err).decode()
         raise RuntimeError(f"gather_pool launch failed: {msg} ({err})")
     embedding_bag_fixedl.launches += 1
+    embedding_bag_fixedl.int8_launches += int8
+    embedding_bag_fixedl.int8_row_launches += scale is not None
     return out
 
 
 embedding_bag_fixedl.launches = 0
+embedding_bag_fixedl.int8_launches = 0  # int8 storage, either scale mode
+embedding_bag_fixedl.int8_row_launches = 0  # int8 storage with a per-row scale
 
 
 def embedding_bag_fixedl_grad(

@@ -29,8 +29,11 @@ def lookup_csr_bucketed(
     combiner: str = "sum",
 ) -> torch.Tensor:  # [B, T, D] f32
     """Dispatch a host-packed BucketedCSR through ``coll`` (an
-    EmbeddingCollection or HybridEmbeddingCollection) and merge.  The
-    packed arrays are numpy, or tensors of the same shapes."""
+    EmbeddingCollection, a QuantizedEmbeddingCollection, or a
+    HybridEmbeddingCollection with either big set) and merge.  An int8
+    collection folds its per-table scale inside its lookups, so the merge
+    sees rows in final units.  The packed arrays are numpy, or tensors of
+    the same shapes."""
     plan = packed.plan
     b = plan.batch
 

@@ -27,6 +27,16 @@ process's own window (``ops.ragged.shard_csr``).  ``lookup_routed`` and
 ``lookup_csr(routed=True)`` send each entry to its owner through
 capacity-bucketed all-to-alls instead (``_route_rows``).
 
+Every dispatch also reads int8 dict storage, the JAX package's form for
+``QuantizedEmbeddingCollection`` (``parallel.quantized_collection``):
+``{"q": int8 [S, W], "scale": f32 [rows]}`` ("row" scale mode: each entry
+is its codes times its row's scale) or ``{"q": int8 [S, W]}`` ("table"
+mode: rows in quantized units, the caller folds the per-table scale into
+the pooled output).  SUM and MEAN go through the int8 instances of K1 and
+K2; MAX and the routed gather dequantize per entry (in "row" mode the
+scale differs per entry, so it does not commute with MAX).  int8 storage
+is inference-only: it cannot require grad.
+
 Every lookup is differentiable w.r.t. the storage where the storage
 requires grad (and grad mode is on), on a mesh too, through the
 collectives' transposes (``parallel.mesh``).  The gradient a process holds
@@ -38,8 +48,10 @@ gradient over the data axis at its input (``PortMesh.pvary``), so that the
 caller sums nothing; where every data row passes the whole CSR batch
 (``data_sharded=False``) each computes the whole loss, counted once, and
 nothing is summed.  Model peers compute the same loss, which counts once.
-A row shard's MAX under grad raises as JAX's pmax does; the routed
-lookup's hot-row cache under grad is not ported.
+A row shard's MAX under grad raises as JAX's pmax does.  The routed
+lookup's hot-row cache entries are not routed, so they add nothing to the
+storage's gradient; where ``hot_rows`` requires grad, theirs goes there,
+summed over the whole mesh.
 """
 
 from __future__ import annotations
@@ -53,12 +65,20 @@ import torch
 from ..config import ShardingPolicy, TableConfig
 from ..device import resolve_device
 from ..ops.csr_pool import embedding_bag_csr_packed
-from ..ops.gather_pool import embedding_bag_fixedl
+from ..ops.gather_pool import embedding_bag_fixedl, gather_rows
 from ..ops.ragged import segment_ids_from_offsets
 from .mesh import DATA_AXIS, MODEL_AXIS, PortMesh
 from .planner import FusedLayout, plan
 
 _NEG_INF = -3.0e38  # max-combiner identity
+
+
+def _parts(storage):
+    """(rows, per-row scale or None) of float storage or int8 dict
+    storage (the module docstring)."""
+    if isinstance(storage, dict):
+        return storage["q"], storage.get("scale")
+    return storage, None
 
 
 def _rowish(policy) -> bool:
@@ -164,8 +184,8 @@ class EmbeddingCollection:
         data-sharded query under grad, passed through ``pvary`` over the
         data axis (the module docstring)."""
         self._require_mesh(name)
-        if self.mesh is None or not data_sharded:
-            return storage
+        if self.mesh is None or not data_sharded or isinstance(storage, dict):
+            return storage  # int8 dict storage never requires grad
         return self.mesh.pvary(storage, DATA_AXIS)
 
     # -- storage ------------------------------------------------------------
@@ -423,7 +443,7 @@ class EmbeddingCollection:
         count over the whole mesh.  MEAN divides by the full masked bag
         size.  ``hot_cache``: ``(hot_ids [K] sorted, hot_rows [K, D])`` from
         ``hotcache.build_hot_cache``; entries it holds are served from it
-        and not routed."""
+        and not routed (under grad: the module docstring)."""
         if not _rowish(self.layout.policy):
             raise ValueError("lookup_routed requires ROW/ROW_HASH/TABLE_WISE sharding")
         if combiner not in ("sum", "mean"):
@@ -432,10 +452,13 @@ class EmbeddingCollection:
         b = batch_size if batch_size is not None else c
         if c % b:
             raise ValueError(f"capacity {c} not divisible by batch {b}")
-        if hot_cache is not None and fused_table.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError("lookup_routed: the hot-row cache under autodiff is "
-                                      "not ported (ROADMAP.md)")
         fused_table = self._lookup_input("lookup_routed", fused_table)
+        if hot_cache is not None:
+            # every process reads the replicated rows for its own slice of
+            # entries, so under grad their cotangent is summed over the mesh
+            hot_ids, hot_rows = hot_cache
+            hot_cache = hot_ids, self.mesh.pvary(self.mesh.pvary(hot_rows, MODEL_AXIS),
+                                                 DATA_AXIS)
         mask = mask.to(torch.bool)
         g_idx = self.globalize(indices.to(torch.int32))
         lay = self.layout
@@ -461,8 +484,9 @@ def _local_pooled_lookup(storage, d, g_idx, keep, pooling, combiner):
     b = c // pooling
     if combiner == "max":
         return _max_pool_raw(storage, d, g_idx, keep, pooling)
-    out = embedding_bag_fixedl(storage, d, g_idx.reshape(-1), pooling=pooling,
-                               batch_size=t * b, mask=keep.reshape(-1))
+    rows, scale = _parts(storage)
+    out = embedding_bag_fixedl(rows, d, g_idx.reshape(-1), pooling=pooling,
+                               batch_size=t * b, mask=keep.reshape(-1), scale=scale)
     return out.reshape(t, b, d).transpose(0, 1)
 
 
@@ -481,10 +505,9 @@ def _rowshard_pooled_lookup(storage, d, g_idx, mask, pooling, combiner, *, shard
 def _max_pool_raw(storage, d, g_idx, keep, pooling):
     """Masked MAX over each bag, one table at a time so that the gathered
     rows never exceed [B*L, d]; bags with nothing kept hold -3e38."""
-    rows_all = storage.reshape(-1, d)
     per_table = []
     for ids, kp in zip(g_idx, keep):
-        rows = rows_all[torch.where(kp, ids, 0).long()].float()
+        rows = _gather_rows(storage, d, torch.where(kp, ids, 0).long())
         rows = torch.where(kp[:, None], rows, _NEG_INF)
         per_table.append(rows.reshape(-1, pooling, d).amax(dim=1))
     return torch.stack(per_table, dim=1)  # [B, T, d]
@@ -523,7 +546,9 @@ def _csr_local_pool(storage, d, g_idx, offsets, batch, combiner, mask=None):
     t = g_idx.shape[0]
     if combiner == "max":
         return _csr_max_raw(storage, d, g_idx, offsets, mask)
-    out = embedding_bag_csr_packed(storage, d, g_idx, offsets, batch_size=batch, mask=mask)
+    rows, scale = _parts(storage)
+    out = embedding_bag_csr_packed(rows, d, g_idx, offsets, batch_size=batch, mask=mask,
+                                   scale=scale)
     return out.reshape(t, batch, d).transpose(0, 1)
 
 
@@ -548,8 +573,8 @@ def _csr_max_raw(storage, d, g_idx, offsets, mask=None):
     valid = seg < b
     if mask is not None:
         valid = valid & mask
-    rows = storage.reshape(-1, d)[torch.where(valid, g_idx, 0).long()].float()
-    rows = torch.where(valid[..., None], rows, _NEG_INF).reshape(-1, d)
+    rows = _gather_rows(storage, d, torch.where(valid, g_idx, 0).long().reshape(-1))
+    rows = torch.where(valid.reshape(-1, 1), rows, _NEG_INF)
     fseg = torch.arange(t, device=seg.device)[:, None] * (b + 1) + seg
     pooled = torch.full((t * (b + 1), d), _NEG_INF, dtype=torch.float32,
                         device=rows.device)
@@ -589,8 +614,10 @@ def _bucket_slots(owner, valid, m, k):
 
 
 def _gather_rows(storage, d, ids):
-    """Rows ``ids`` of d-wide storage, in f32."""
-    return storage.reshape(-1, d).index_select(0, ids).float()
+    """Rows ``ids`` (int64, 1-D) of d-wide storage, in f32 (int8 dict
+    storage: the codes, times their scales in "row" mode)."""
+    rows, scale = _parts(storage)
+    return gather_rows(rows, d, ids, scale)
 
 
 def _route_rows(storage, d, gs, vs, *, mesh, rows_per_shard, cf, strided, hot_cache=None):
@@ -622,9 +649,12 @@ def _route_rows(storage, d, gs, vs, *, mesh, rows_per_shard, cf, strided, hot_ca
     have = (recv >= 0) & (recv < rows_per_shard)
     rows = _gather_rows(storage, d, torch.where(have, recv, 0).long())
     rows = torch.where(have[:, None], rows, 0.0)
-    # bf16-stored rows are exact in bf16 (a gather never adds), so they
-    # ride back at storage precision, half the bytes
-    wire = torch.bfloat16 if storage.dtype == torch.bfloat16 else torch.float32
+    # bf16-stored rows are exact in bf16 (a gather never adds), and so are
+    # int8 codes ("table" mode), so they ride back in bf16, half the bytes;
+    # f32 rows and codes times their scales ("row" mode) in f32
+    rows_t, scale = _parts(storage)
+    exact = rows_t.dtype == torch.bfloat16 or (rows_t.dtype == torch.int8 and scale is None)
+    wire = torch.bfloat16 if exact else torch.float32
     back = mesh.all_to_all(rows.to(wire))  # row my slot (o, kk) asked owner o for
     back = torch.cat([back, back.new_zeros(1, d)])
     rows_e = back[slot].float()  # dropped and invalid entries -> the zero row

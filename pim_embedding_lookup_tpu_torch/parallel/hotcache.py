@@ -8,7 +8,10 @@ the hot traffic to a few owners.  The cache replicates the top-k rows:
   numpy);
 * ``build_hot_cache``: those rows gathered out of the sharded storage into
   a replicated [K, D] f32 tensor (each owner gathers its rows, the others
-  add zeros, summed over the model axis);
+  add zeros, summed over the model axis).  Over int8 params of a
+  ``QuantizedEmbeddingCollection`` the rows are in the units the routed
+  gather returns: f32 rows in "row" scale mode, quantized units in
+  "table" mode (the per-table scale folds into the pooled output);
 * ``EmbeddingCollection.lookup_routed(..., hot_cache=...)``: entries the
   cache holds are served from it (``hot_cache_select``, a binary search)
   and are not routed.
@@ -24,6 +27,7 @@ import torch
 from ..config import ShardingPolicy
 from .collection import EmbeddingCollection, _gather_rows, _owner_local, _rowish
 from .mesh import MODEL_AXIS
+from .quantized_collection import QuantizedEmbeddingCollection
 
 
 def hot_ids_from_sample(coll: EmbeddingCollection, indices_sample: np.ndarray,
@@ -37,10 +41,13 @@ def hot_ids_from_sample(coll: EmbeddingCollection, indices_sample: np.ndarray,
     return np.sort(top).astype(np.int32)
 
 
-def build_hot_cache(coll: EmbeddingCollection, fused: torch.Tensor,
+def build_hot_cache(coll: EmbeddingCollection | QuantizedEmbeddingCollection, fused,
                     hot_ids: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
     """(hot_ids [K] int32 sorted, hot_rows [K, D] f32), the same on every
-    process.  ``fused`` is this process's storage."""
+    process.  ``fused`` is this process's storage (int8 params for a
+    QuantizedEmbeddingCollection)."""
+    if isinstance(coll, QuantizedEmbeddingCollection):
+        coll, fused = coll._delegate, coll._storage(fused)
     coll._require_mesh("build_hot_cache")
     lay = coll.layout
     ids = torch.from_numpy(np.sort(np.asarray(hot_ids)).astype(np.int32)).to(coll.device)

@@ -16,12 +16,17 @@ differentiable w.r.t. their storage, with the big set's contract
 (``collection``'s module docstring): the small set, replicated, has its
 gradient summed over the data axis only, where the query is data-sharded.
 
-Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}``,
-and so is the row-AdaGrad accumulator.  The sparse step updates the small
-set by densifying each bucket's gradient and stepping it row by row, the
-big set by the entry-wise scatter of ``sparse_update``.  On a mesh the small
-set's entry stream is first gathered over the data axis, so that every
-replica applies the whole batch.
+With ``quantized_big`` the big set is a ``QuantizedEmbeddingCollection``
+(int8 rows with per-table or per-row scales, the capacity mode) while the
+small set keeps its float weights; such a hybrid serves and does not train.
+
+Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}`` (an
+int8 big set's params are its dict), and so is the row-AdaGrad accumulator.
+The sparse step updates the small set by densifying each bucket's gradient
+and stepping it row by row, the big set by the entry-wise scatter of
+``sparse_update``.  On a mesh the small set's entry stream is first
+gathered over the data axis, so that every replica applies the whole
+batch.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..ops.ragged import segment_ids_from_offsets
 from .collection import _NEG_INF, EmbeddingCollection, _csr_counts, _finish_combiner
 from .mesh import DATA_AXIS, PortMesh
 from .planner import FusedLayout
+from .quantized_collection import QuantizedEmbeddingCollection
 from .sparse_update import (
     _check_supported,
     _entry_updates,
@@ -97,7 +103,7 @@ class HybridEmbeddingCollection:
 
     tables: tuple[TableConfig, ...]
     small: EmbeddingCollection | None
-    big: EmbeddingCollection | None
+    big: EmbeddingCollection | QuantizedEmbeddingCollection | None
     small_ids: tuple[int, ...]  # original table indices, in small-set order
     big_ids: tuple[int, ...]
     perm: tuple[int, ...]  # position of original table t in concat(small, big)
@@ -122,10 +128,14 @@ class HybridEmbeddingCollection:
         *,
         device=None,
         mesh: PortMesh | None = None,
+        quantized_big: bool = False,
+        int8_scale_mode: str = "table",
     ) -> "HybridEmbeddingCollection":
         """Tables of at most MXU_THRESHOLD rows go to the small set
         (replicated); the big set, lane-packed where its dim allows, is
-        placed by ``policy`` over the mesh's model axis."""
+        placed by ``policy`` over the mesh's model axis.  ``quantized_big``:
+        the big set stores int8 rows (inference only), with one scale per
+        table (``int8_scale_mode="table"``) or per row ("row")."""
         device = mesh.device if mesh is not None else resolve_device(device)
         small_raw = [i for i, t in enumerate(tables) if t.num_rows <= MXU_THRESHOLD]
         big_ids = tuple(i for i, t in enumerate(tables) if t.num_rows > MXU_THRESHOLD)
@@ -136,14 +146,15 @@ class HybridEmbeddingCollection:
             small_ids, lay, buckets = _plan_small_bucketed(
                 tables, small_raw, 1 if mesh is None else mesh.model)
             small = EmbeddingCollection(layout=lay, device=device, mesh=mesh)
-        big = (
-            EmbeddingCollection.create(
-                [tables[i] for i in big_ids], policy, packed="auto",
-                device=device, mesh=mesh,
-            )
-            if big_ids
-            else None
-        )
+        big = None
+        if big_ids:
+            big_tables = [tables[i] for i in big_ids]
+            big = (QuantizedEmbeddingCollection.create(
+                       big_tables, policy, scale_mode=int8_scale_mode, device=device,
+                       mesh=mesh)
+                   if quantized_big else
+                   EmbeddingCollection.create(big_tables, policy, packed="auto",
+                                              device=device, mesh=mesh))
         order = list(small_ids) + list(big_ids)
         perm = tuple(order.index(t) for t in range(len(tables)))
         return HybridEmbeddingCollection(
@@ -160,19 +171,35 @@ class HybridEmbeddingCollection:
 
     # -- params -------------------------------------------------------------
 
+    @property
+    def _big_quantized(self) -> bool:
+        return isinstance(self.big, QuantizedEmbeddingCollection)
+
     def init(self, generator: torch.Generator,
              dtype: torch.dtype = torch.float32) -> dict:
+        """``dtype`` applies to float storage; an int8 big set is drawn
+        in int8."""
+        big = None
+        if self.big is not None:
+            big = (self.big.init(generator) if self._big_quantized
+                   else self.big.init(generator, dtype))
         return {
             "small": None if self.small is None else self.small.init(generator, dtype),
-            "big": None if self.big is None else self.big.init(generator, dtype),
+            "big": big,
         }
 
     def device_put_tables(self, host_tables) -> dict:
+        """Per-table host weights -> params; an int8 big set quantizes
+        its tables."""
+        big = None
+        if self.big is not None:
+            big_tables = [host_tables[i] for i in self.big_ids]
+            big = (self.big.quantize_tables(big_tables) if self._big_quantized
+                   else self.big.device_put_tables(big_tables))
         return {
             "small": None if self.small is None else self.small.device_put_tables(
                 [host_tables[i] for i in self.small_ids]),
-            "big": None if self.big is None else self.big.device_put_tables(
-                [host_tables[i] for i in self.big_ids]),
+            "big": big,
         }
 
     # -- lookup -------------------------------------------------------------
@@ -387,7 +414,13 @@ def sparse_update_hybrid(
     the bucketed densified step, the big set by ``sparse_update``
     (``routed``: through the all-to-all routing).  Returns (params, accs),
     or with ``return_stats`` also the big set's count of dropped entries
-    (0 off the routed path)."""
+    (0 off the routed path).  An int8 big set is refused."""
+    if coll.big is not None and coll._big_quantized:
+        raise ValueError(
+            "sparse_update_hybrid: int8 big set is inference-only (gradient "
+            "scatters cannot land in quantized rows) — train in f32/bf16 and "
+            "quantize_tables for serving"
+        )
     _check_sets(coll, optimizer, routed, "sparse_update_hybrid")
     params, accs = dict(params), dict(accs)
     mask = mask.to(torch.bool)
@@ -427,7 +460,10 @@ def sparse_update_hybrid_csr(
     return_stats: bool = False,
 ):
     """CSR (ragged-bag) form of ``sparse_update_hybrid``: the backward of
-    ``lookup_csr``, with its ``data_sharded`` contract."""
+    ``lookup_csr``, with its ``data_sharded`` contract.  An int8 big set
+    is refused."""
+    if coll.big is not None and coll._big_quantized:
+        raise ValueError("sparse_update_hybrid_csr: int8 big set is inference-only")
     _check_sets(coll, optimizer, routed, "sparse_update_hybrid_csr")
     params, accs = dict(params), dict(accs)
     dropped = torch.zeros((), dtype=torch.int32, device=coll.device)

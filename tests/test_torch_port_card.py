@@ -665,3 +665,183 @@ def test_mesh_of_one_gradients_match_replicate(nccl_mesh, policy):
     np.testing.assert_allclose(np.concatenate(es), np.concatenate(er), rtol=1e-5, atol=1e-6)
     for a, r in zip(ps, pr):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+
+
+# -- int8 storage: the capacity mode's instances of K1 and K2 --------------------
+
+# (d, layout): 16-byte vector rows (d a multiple of 16, aligned) and the
+# scalar path (d = 4, 20, or an [N, d] view one byte into its buffer)
+INT8_STORAGE = [(d, layout) for d in (4, 16, 20, 32, 128)
+                for layout in ("packed", "unpacked", "unaligned")
+                if layout != "packed" or 128 % d == 0]
+
+
+def _int8_storage(device, d, layout):
+    """Codes in [-127, 127] with row 0 all zero, and per-row scales with
+    row 0's 1 (a zero row's scale)."""
+    gen = torch.Generator(device=device).manual_seed(100 + d)
+    q = torch.randint(-127, 128, (EDGE_ROWS, d), generator=gen, device=device,
+                      dtype=torch.int8)
+    q[0] = 0
+    scale = torch.rand(EDGE_ROWS, generator=gen, device=device) * 0.02 + 1e-4
+    scale[0] = 1.0
+    if layout == "packed":
+        return q.reshape(-1, 128), scale
+    if layout == "unaligned":
+        buf = torch.empty(EDGE_ROWS * d + 1, dtype=torch.int8, device=device)
+        buf[1:] = q.reshape(-1)
+        return buf[1:].view(EDGE_ROWS, d), scale
+    return q, scale
+
+
+@pytest.mark.parametrize("masking", ["none", "random", "all false"])
+@pytest.mark.parametrize("pooling", [1, 3, 9])
+@pytest.mark.parametrize("mode", ["table", "row"])
+@pytest.mark.parametrize("d,layout", INT8_STORAGE)
+def test_int8_fixedl_kernel_edge_cases(cuda, d, layout, mode, pooling, masking):
+    """int8 K1 ("table": codes; "row": codes times per-row scales) against
+    its plain version on both row paths and both id walks; masked entries
+    hold ids that fault if read, and so would their scales."""
+    storage, scale = _int8_storage(cuda, d, layout)
+    scale = scale if mode == "row" else None
+    vector = layout != "unaligned" and d % 16 == 0
+    assert row_path(storage, d)[0] == vector
+    rng = np.random.default_rng(pooling + d)
+    n = EDGE_BAGS * pooling
+    ids = torch.from_numpy(rng.integers(0, EDGE_ROWS, size=n).astype(np.int32)).to(cuda)
+    mask = {"none": None, "random": torch.from_numpy(rng.random(n) < 0.6).to(cuda),
+            "all false": torch.zeros(n, dtype=torch.bool, device=cuda)}[masking]
+    read = ids if mask is None else torch.where(mask, ids, NEVER_READ)
+    kw = dict(pooling=pooling, batch_size=EDGE_BAGS, mask=mask, scale=scale)
+    before = (embedding_bag_fixedl.int8_launches, embedding_bag_fixedl.int8_row_launches)
+    got = embedding_bag_fixedl(storage, d, read, **kw)
+    again = embedding_bag_fixedl(storage, d, read, **kw)
+    want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
+    torch.cuda.synchronize()
+    assert (embedding_bag_fixedl.int8_launches, embedding_bag_fixedl.int8_row_launches) == (
+        before[0] + 2, before[1] + 2 * (mode == "row"))
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("tables,max_len,empty", [(1, 40, False), (10, 6, False),
+                                                  (3, 3, True), (2, 100, False)])
+@pytest.mark.parametrize("mode", ["table", "row"])
+@pytest.mark.parametrize("d,layout", INT8_STORAGE)
+def test_int8_csr_kernel_edge_cases(cuda, d, layout, mode, tables, max_len, empty, masked):
+    """int8 K2, unmasked and with a row shard's mask, against its plain
+    version: empty bags, long bags (the by-group walk), padding and masked
+    entries holding ids that fault if read."""
+    storage, scale = _int8_storage(cuda, d, layout)
+    scale = scale if mode == "row" else None
+    idx, off = _edge_csr(cuda, d + tables, tables, max_len, empty)
+    clean = torch.where(idx == NEVER_READ, 0, idx)
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.random.default_rng(d).random(tuple(idx.shape)) < 0.5).to(cuda)
+        idx = torch.where(mask, idx, NEVER_READ)
+    kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
+    before = embedding_bag_csr_packed.int8_launches
+    got = embedding_bag_csr_packed(storage, d, idx, off, **kw)
+    again = embedding_bag_csr_packed(storage, d, idx, off, **kw)
+    want = embedding_bag_csr_packed_reference(storage, d, clean, off, **kw)
+    torch.cuda.synchronize()
+    assert embedding_bag_csr_packed.int8_launches == before + 2
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    storage, scale = _int8_storage(cuda, 16, "unpacked")
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        embedding_bag_fixedl(storage.float(), 16, ids, pooling=1, batch_size=4, scale=scale)
+    with pytest.raises(ValueError, match="scale"):
+        embedding_bag_fixedl(storage, 16, ids, pooling=1, batch_size=4, scale=scale[:-1])
+    with pytest.raises(TypeError, match="scale"):
+        embedding_bag_fixedl(storage, 16, ids, pooling=1, batch_size=4, scale=scale.double())
+
+
+@pytest.mark.parametrize("mode", ["table", "row"])
+@pytest.mark.parametrize("wire", ["dense", "csr"])
+def test_int8_hybrid_request_matches_cpu(cuda, wire, mode):
+    """``quantize_dlrm_embeddings`` of the same model on the card and on the
+    CPU: the same int8 params, and one request served through the int8 K1
+    (dense wire) or K2 (CSR wire), launched once, to the same logits."""
+    from pim_embedding_lookup_tpu_torch import quantize_dlrm_embeddings
+
+    cpu = _mixed_model("cpu", 5)
+    gpu = _mixed_model(cuda, 5)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(13)
+    b = 64
+    rows = [t.num_rows for t in cpu.config.tables]
+    dense = torch.from_numpy(rng.random((b, 13), dtype=np.float32))
+    if wire == "dense":
+        idx = torch.from_numpy(np.stack([rng.integers(0, n, size=b * 2) for n in rows])
+                               .astype(np.int32))
+        second = torch.from_numpy(rng.random(idx.shape) < 0.8)
+    else:
+        idx, second = _csr(14, min(rows), len(rows), b, 4)
+        idx[torch.arange(idx.shape[1])[None, :] >= second[:, -1:]] = NEVER_READ
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        coll, emb = quantize_dlrm_embeddings(model, scale_mode=mode)
+        q = (idx.to(dev), second.to(dev))
+        before = (embedding_bag_fixedl.int8_launches, embedding_bag_csr_packed.int8_launches)
+        with torch.no_grad():
+            pooled = (coll.lookup(emb, *q, batch_size=b) if wire == "dense"
+                      else coll.lookup_csr(emb, *q))
+            outs.append((model.apply_from_pooled(dense.to(dev), pooled).cpu(),
+                         {k: v.cpu() for k, v in emb["big"].items()}))
+        launched = (embedding_bag_fixedl.int8_launches - before[0],
+                    embedding_bag_csr_packed.int8_launches - before[1])
+        if dev == cuda:
+            assert launched == ((1, 0) if wire == "dense" else (0, 1))
+    torch.cuda.synchronize()
+    (lc, pc), (lg, pg) = outs
+    for key in pc:
+        assert torch.equal(pg[key], pc[key]), key
+    assert torch.isfinite(lg).all()
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["table", "row"])
+def test_int8_mesh_of_one_matches_replicate(nccl_mesh, mode):
+    """int8 under ROW_HASH on an NCCL mesh of one: the broadcast lookups
+    (masked int8 K1 and K2) and the routed lookup with a hot cache built
+    against the int8 params equal REPLICATE int8 on the card."""
+    from pim_embedding_lookup_tpu_torch import QuantizedEmbeddingCollection
+    from pim_embedding_lookup_tpu_torch.parallel.hotcache import (
+        build_hot_cache,
+        hot_ids_from_sample,
+    )
+
+    cuda = nccl_mesh.device
+    rng = np.random.default_rng(1)
+    tables = tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
+                   for i, n in enumerate(MESH_ROWS))
+    host = [rng.standard_normal((n, 16)).astype(np.float32) for n in MESH_ROWS]
+    sharded = QuantizedEmbeddingCollection.create(tables, ShardingPolicy.ROW_HASH,
+                                                  scale_mode=mode, mesh=nccl_mesh)
+    rep = QuantizedEmbeddingCollection.create(tables, ShardingPolicy.REPLICATE,
+                                              scale_mode=mode, device=cuda)
+    ps, pr = sharded.quantize_tables(host), rep.quantize_tables(host)
+    b, pooling = 64, 3
+    zipf = np.stack([(rng.zipf(1.3, b * pooling) - 1) % n for n in MESH_ROWS])
+    idx = torch.from_numpy(zipf.astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random(idx.shape) < 0.8).to(cuda)
+    cidx, coff = (x.to(cuda) for x in _csr(31, min(MESH_ROWS), len(MESH_ROWS), b, 5))
+    want = rep.lookup(pr, idx, mask, batch_size=b)
+    before = embedding_bag_csr_packed.masked_launches
+    torch.testing.assert_close(sharded.lookup(ps, idx, mask, batch_size=b), want, **TOL)
+    torch.testing.assert_close(sharded.lookup_csr(ps, cidx, coff), rep.lookup_csr(pr, cidx, coff),
+                               **TOL)
+    assert embedding_bag_csr_packed.masked_launches == before + 1
+    cache = build_hot_cache(sharded, ps, hot_ids_from_sample(sharded, zipf, 16))
+    assert cache[1].dtype == torch.float32
+    out, dropped = sharded.lookup_routed(ps, idx, mask, batch_size=b, hot_cache=cache,
+                                         return_stats=True)
+    assert int(dropped.item()) == 0
+    torch.testing.assert_close(out, want, **TOL)

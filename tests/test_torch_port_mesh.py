@@ -50,9 +50,9 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 TRACE_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
-def _run_cluster(tmp, data, model, timeout=300):
-    """The battery on ``data * model`` gloo processes; returns the inputs
-    and each rank's results."""
+def _run_cluster(tmp, data, model, timeout=300, group="main"):
+    """The battery's case ``group`` on ``data * model`` gloo processes;
+    returns the inputs and each rank's results."""
     world = data * model
     inp = mb.make_inputs(SEED, data)
     np.savez(tmp / "inputs.npz", **inp)
@@ -61,7 +61,7 @@ def _run_cluster(tmp, data, model, timeout=300):
         subprocess.Popen(
             [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.mesh_battery", str(r),
              str(world), str(data), str(model), str(tmp / "store"), str(tmp / "inputs.npz"),
-             str(tmp), "cpu"],
+             str(tmp), "cpu", group],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
         for r in range(world)
     ]
@@ -85,10 +85,11 @@ def _run_cluster(tmp, data, model, timeout=300):
     return inp, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 
-def start_cluster(tmp_path_factory, data, model):
+def start_cluster(tmp_path_factory, data, model, group="main"):
     """The battery's results on a (data, model) gloo cluster, and the JAX
     mesh of the same shape."""
-    inp, ranks = _run_cluster(tmp_path_factory.mktemp(f"mesh{data}x{model}"), data, model)
+    inp, ranks = _run_cluster(tmp_path_factory.mktemp(f"mesh{data}x{model}"), data, model,
+                              group=group)
     return make_mesh(jcfg.MeshConfig(data=data, model=model)), inp, ranks
 
 
@@ -239,6 +240,19 @@ def _grad_routed(jm, inp, policy):
                           f, _j(inp["g"]))}
 
 
+def _grad_hot(jm, inp, policy):
+    jc, f = _coll(jm, inp, policy)
+    ids, rows = jhot.build_hot_cache(jc, f, jhot.hot_ids_from_sample(jc, inp["zidx"], mb.HOT_K))
+
+    def loss(f, hot):
+        out = jc.lookup_routed(f, _j(inp["zidx"]), _j(inp["zmask"]), batch_size=mb.BATCH,
+                               hot_cache=(ids, hot), capacity_factor=1.0)
+        return jnp.sum(out * _j(inp["g"]))
+
+    grad, hot_grad = jax.grad(loss, argnums=(0, 1))(f, rows)
+    return {"grad": grad, "hot_grad": hot_grad}
+
+
 def _grad_hybrid(jm, inp):
     jh = JHybrid.create(mb.tables(jcfg, mb.MIXED_ROWS), jm, jcfg.ShardingPolicy.ROW)
     params = jh.device_put_tables(mb.host_tables(inp, "mtable", mb.MIXED_ROWS))
@@ -360,6 +374,8 @@ def _expected(name, jm, inp):
         return _grad_csr(jm, inp, *rest, ds=True)
     if kind == "grad_routed":
         return _grad_routed(jm, inp, rest[0])
+    if kind == "grad_hot":
+        return _grad_hot(jm, inp, rest[0])
     if kind == "grad_csr_routed_ds":
         return _grad_csr(jm, inp, rest[0], "sum", ds=True, routed=True)
     if kind == "grad_hybrid":
@@ -373,9 +389,10 @@ def _expected(name, jm, inp):
     raise KeyError(name)
 
 
-def check_case(cluster, case):
+def check_case(cluster, case, expected=None):
     """One battery case: every rank agrees bitwise, and rank 0 matches the
-    JAX package (or raises its error)."""
+    JAX package (or raises its error); ``expected(case, jm, inp)`` computes
+    the JAX side (default: this file's)."""
     jm, inp, ranks = cluster
     got = {k[len(case) + 1:]: v for k, v in ranks[0].items() if k.startswith(case + "/")}
     assert "error" not in got, bytes(got["error"]).decode()
@@ -384,13 +401,9 @@ def check_case(cluster, case):
             np.testing.assert_array_equal(other[f"{case}/{key}"], val, err_msg=f"rank {r} {key}")
     if case.startswith("guard-"):
         text = bytes(got["error_text"]).decode()
-        which = case.split("-", 1)[1]
-        if which == "grad_hot":  # the one refusal the JAX package has no twin of
-            assert text.startswith("NotImplementedError") and "ROADMAP" in text
-        else:
-            assert text == _error_text(_guard(jm, inp, which))
+        assert text == _error_text(_guard(jm, inp, case.split("-", 1)[1]))
         return
-    want = {k: np.asarray(v) for k, v in _expected(case, jm, inp).items()}
+    want = {k: np.asarray(v) for k, v in (expected or _expected)(case, jm, inp).items()}
     assert set(got) == set(want)
     tol = TRACE_TOL if case in mb.TRACE_CASES else TOL
     for key, val in want.items():
