@@ -35,22 +35,33 @@ and K2) and routed with a hot cache, each equal to REPLICATE), ``multihost_1`` (
 multi-host entry in a subprocess that has a launcher's environment for a
 job of one), ``shards_4`` (the four shards of each policy in one process:
 the masked K1, K2 and K4-backward launches against their plain versions,
-timed) and, with two cards or more, ``multi_gpu``.
+timed), ``cli`` (the training entry point ``python -m
+pim_embedding_lookup_tpu_torch.cli train`` at full Kaggle width in
+subprocesses: sparse row-AdaGrad training with reports and a full-state
+save, its resume, inference from it, and dense-autodiff ``fit``; in this
+process the resume against a straight run, bitwise, ``device_prefetch``
+against its host arrays, and ``profiling.trace`` around three CLI steps,
+each launching K1) and, with two cards or more, ``multi_gpu``.  The native
+feeder library (``native/libpelfeeder.so``) is built beside the kernels
+where it is absent, and its bucket packer feeds the bucketed CSR dispatch,
+byte-identical to the numpy packer.
 
     python3 chip_smoke.py
 
-Needs one CUDA device and nvcc; exits non-zero, printing no result, without
-them.  Any failed check raises.  The line before the last is a JSON object
+Needs one CUDA device, nvcc and a C++ toolchain (``make``); exits non-zero,
+printing no result, without them.  Any failed check raises.  The line before the last is a JSON object
 of per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import itertools
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -78,6 +89,7 @@ from pim_embedding_lookup_tpu_torch import (
     toy_config,
 )
 from pim_embedding_lookup_tpu_torch import (
+    cli,
     make_optimizer,
     make_train_step,
     mesh_battery,
@@ -85,6 +97,7 @@ from pim_embedding_lookup_tpu_torch import (
     ops,
     quantize_dlrm_embeddings,
 )
+from pim_embedding_lookup_tpu_torch.data import SyntheticDLRMBatches, device_prefetch
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.models.train import emb_tensors
 from pim_embedding_lookup_tpu_torch.models.sparse_train import (
@@ -136,6 +149,7 @@ from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
     sparse_update,
     sparse_update_csr,
 )
+from pim_embedding_lookup_tpu_torch.utils import checkpoint, native, profiling
 
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -2022,6 +2036,257 @@ def compare_battery(got, want, label):
     return cases
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+NATIVE_SO = os.path.join(REPO, "native", "libpelfeeder.so")
+
+
+def start_native_build():
+    """``make -C native`` where the feeder library is absent (its output
+    path is git-ignored), started beside the kernels' build; None where it
+    is there already."""
+    if os.path.exists(NATIVE_SO):
+        return None
+    return subprocess.Popen(["make", "-C", os.path.join(REPO, "native")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_native_build(proc):
+    if proc is not None:
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"make -C native failed:\n{out[-3000:]}")
+    if not native.available():  # no quiet numpy run on the card
+        raise RuntimeError(f"the native feeder did not load from {NATIVE_SO}")
+
+
+def same_pack(a, b) -> None:
+    """Two BucketedCSR packs hold the same bytes."""
+    if a.identity != b.identity or a.plan != b.plan:
+        raise AssertionError("packs differ in identity or plan")
+    pairs = list(zip(a.idx + a.mask + a.pos, b.idx + b.mask + b.pos))
+    pairs += [(a.tail_idx, b.tail_idx), (a.tail_off, b.tail_off), (a.tail_pos, b.tail_pos)]
+    for x, y in pairs:
+        if (x is None) != (y is None) or (x is not None and (
+                x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes())):
+            raise AssertionError("the native and numpy packs differ")
+
+
+def native_phase(coll, emb, idx, off, pooled):
+    """The native length-bucket packer on one full-row Kaggle CSR request:
+    byte-identical to the numpy packer, each timed on the host; the
+    bucketed dispatch over the native pack (K1 per bucket, K2 on the tail)
+    against ``lookup_csr``.  Returns (K1, K2) launches."""
+    off_np, idx_np = off.cpu().numpy(), idx.cpu().numpy()
+    plan = plan_length_buckets(off_np, bucket_ls=(1, 2), slack=1.0)
+    packs, pack_ms = {}, {}
+    for impl in ("numpy", "native"):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            packs[impl] = pack_length_buckets(idx_np, off_np, plan, impl=impl)
+            times.append((time.perf_counter() - t0) * 1e3)
+        pack_ms[impl] = statistics.median(times)
+    same_pack(packs["native"], packs["numpy"])
+    embedding_bag_fixedl.launches = embedding_bag_csr_packed.launches = 0
+    with torch.no_grad():
+        got = lookup_csr_bucketed(coll, emb, packs["native"])
+    torch.cuda.synchronize()
+    launched = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches)
+    if launched[0] < 1 or (plan.tail_bags and launched[1] < 1):
+        raise AssertionError(f"bucketed dispatch launched K1, K2 {launched}")
+    err = (got - pooled).abs().max().item()
+    torch.testing.assert_close(got, pooled, rtol=1e-5, atol=1e-5)
+    print(f"native: feeder library {NATIVE_SO}; bucket pack of the full-row request (plan "
+          f"buckets {plan.bucket_ls} capacities {plan.capacities} tail {plan.tail_bags} bags "
+          f"/ {plan.tail_entries} entries): native and numpy packs byte-identical, host ms "
+          f"(median of 5) native {pack_ms['native']:.3f}, numpy {pack_ms['numpy']:.3f}; "
+          f"bucketed dispatch on the native pack: K1, K2 launches {launched}, max abs err "
+          f"vs lookup_csr {err:.3g} (tol 1e-5)", flush=True)
+    return launched
+
+
+CLI = [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.cli", "train", "--data-set=kaggle",
+       "--data-generation=random", "--hybrid", f"--mini-batch-size={BATCH}", "--device=cuda"]
+CLI_REPORT = re.compile(r"step (\d+): loss=(\S+) acc=(\S+) auc=(\S+)")
+CLI_PHASE = re.compile(r"^(\w+): ([\d.]+) us \(n=(\d+)\)$", re.M)
+CLI_EVAL = re.compile(r"accuracy=(\S+) auc=(\S+)")
+
+
+def run_cli(*args, expect=()):
+    """One run of the CLI's train at full Kaggle width in a subprocess:
+    its stdout and wall seconds; fails unless it exits 0 and prints every
+    string of ``expect``."""
+    t0 = time.perf_counter()
+    r = subprocess.run(CLI + list(args), capture_output=True, text=True, timeout=900, cwd=REPO)
+    secs = time.perf_counter() - t0
+    missing = [s for s in expect if s not in r.stdout]
+    if r.returncode != 0 or missing:
+        raise AssertionError(f"cli {' '.join(args)}: rc {r.returncode}, missing {missing}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, secs
+
+
+def cli_reports(out, steps):
+    reports = [(int(s), float(loss), float(acc), float(auc))
+               for s, loss, acc, auc in CLI_REPORT.findall(out)]
+    if [r[0] for r in reports] != list(steps) or not all(
+            math.isfinite(x) for r in reports for x in r[1:3]):
+        raise AssertionError(f"cli reports {reports}, expected finite losses at steps {steps}")
+    return reports
+
+
+def cli_phases(out):
+    return {name: (float(us) / 1e3, int(n)) for name, us, n in CLI_PHASE.findall(out)}
+
+
+def cli_phase():
+    """``cli``: the port's entry point at full Kaggle width, B=8192, on the
+    card.  In subprocesses: (a) 8 sparse row-AdaGrad steps with reports at
+    steps 4 and 8 and a full-state save, (b) its resume, (c) inference from
+    it, (d) 3 dense-autodiff steps through ``fit``.  In this process: 8
+    steps straight against 4, save, restore into a fresh model, 4 more
+    (bitwise, deterministic algorithms), ``device_prefetch`` over 16 batches
+    against their host arrays, and ``profiling.trace`` around 3 CLI steps,
+    whose K1 launches it returns."""
+    tmp = tempfile.mkdtemp(prefix="pel_cli_")
+    full = os.path.join(tmp, "full")
+    try:
+        out_a, secs_a = run_cli("--optimizer=adagrad", "--num-batches=8", "--test-freq=4",
+                                "--print-time", f"--save-model={full}",
+                                expect=["saved full train state", "train_step:"])
+        rep_a = cli_reports(out_a, (4, 8))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(full, f)) for f in os.listdir(full))
+        out_b, secs_b = run_cli("--optimizer=adagrad", "--num-batches=4", "--test-freq=4",
+                                f"--load-model={full}",
+                                expect=[f"resumed full train state from {full} at step 8"])
+        rep_b = cli_reports(out_b, (12,))
+        out_c, secs_c = run_cli("--inference-only", "--num-batches=4", "--print-time",
+                                f"--load-model={full}",
+                                expect=["loaded model (params of full state)", "inference:"])
+        acc_c, auc_c = (float(v) for v in CLI_EVAL.search(out_c).groups())
+        out_d, secs_d = run_cli("--embedding-update=dense", "--num-batches=3", "--test-freq=3")
+        rep_d = cli_reports(out_d, (3,))
+        phases = {**cli_phases(out_a), **cli_phases(out_c)}
+        print(f"cli: (a) 8 sparse row-AdaGrad steps {secs_a:.1f} s wall, reports {rep_a}, "
+              f"train_step {phases['train_step'][0]:.4f} ms mean (n={phases['train_step'][1]}), "
+              f"full-state checkpoint {ckpt_bytes} bytes; (b) resumed at step 8, {secs_b:.1f} s, "
+              f"reports {rep_b}; (c) inference {secs_c:.1f} s, accuracy {acc_c} auc {auc_c}, "
+              f"inference {phases['inference'][0]:.4f} ms mean (n={phases['inference'][1]}); "
+              f"(d) dense-autodiff fit {secs_d:.1f} s, reports {rep_d}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    config = kaggle_config()
+    host = list(SyntheticDLRMBatches(config, BATCH, 1, 16, seed=SEED))
+    seen = 0
+    for got, want in zip(device_prefetch(iter(host), device=DEV), host, strict=True):
+        for g, w in zip(got, want, strict=True):
+            if g.device.type != DEV.type or not torch.equal(g, torch.from_numpy(w).to(DEV)):
+                raise AssertionError(f"prefetched batch {seen} differs from its host arrays")
+        seen += 1
+    print(f"cli prefetch: device_prefetch over {seen} Kaggle batches of B={BATCH}: every "
+          "tensor on the card equal to its host array", flush=True)
+
+    batches = [tuple(torch.from_numpy(x).to(DEV) for x in b) for b in host[:8]]
+    tmp = tempfile.mkdtemp(prefix="pel_ckpt_")
+    try:
+        with deterministic():
+            straight = resume_run(config, batches)
+            snap = [t.clone() for t in straight]
+            del straight
+            resumed, save_s, restore_s, nbytes = resume_run(config, batches, tmp, save_at=4)
+        for a, b in zip(snap, resumed, strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError("resumed training differs from the straight run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli resume: 8 sparse row-AdaGrad steps straight equal, bitwise, 4 steps + "
+          f"checkpoint.save ({save_s:.3f} s, {nbytes} bytes) + restore into a fresh model "
+          f"({restore_s:.3f} s) + 4 steps", flush=True)
+    del snap, resumed, batches
+
+    # the same CLI in this process, where the card is warm: 3 steps traced
+    # (K1 counted), then 1 step, so that the 2 steps' difference in kernel
+    # time is the device time of a CLI step
+    tmp = tempfile.mkdtemp(prefix="pel_trace_")
+    args = CLI[3:] + ["--optimizer=adagrad", "--print-time"]
+    try:
+        out = io.StringIO()
+        embedding_bag_fixedl.launches = 0
+        t0 = time.perf_counter()
+        with profiling.trace(tmp) as prof, contextlib.redirect_stdout(out):
+            cli.main(args + ["--num-batches=3"])
+        secs = time.perf_counter() - t0
+        k1 = embedding_bag_fixedl.launches
+        with open(os.path.join(tmp, "trace.json")) as f:
+            names_k1 = "fixedl_pool_kernel" in f.read()
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if k1 != 3 or not names_k1:
+        raise AssertionError(f"traced CLI: K1 launches {k1} for 3 steps, "
+                             f"trace names fixedl_pool_kernel: {names_k1}")
+    step3 = cli_phases(out.getvalue())["train_step"]
+    one = io.StringIO()
+    with contextlib.redirect_stdout(one):
+        device_1, _ = top_kernels(lambda: cli.main(args + ["--num-batches=1"]))
+    device_3 = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e3
+    print(f"cli trace: profiling.trace around cli.main (3 steps, warm card) in {secs:.2f} s: "
+          f"K1 launches {k1}, one a step; the Chrome trace ({trace_bytes} bytes) names "
+          f"fixedl_pool_kernel; train_step {step3[0]:.4f} ms mean (n={step3[1]}); device time "
+          f"of the run {device_3:.4f} ms, of a 1-step run {device_1:.4f} ms: "
+          f"{(device_3 - device_1) / 2:.4f} device ms a CLI step", flush=True)
+    return k1
+
+
+def resume_run(config, batches, tmp=None, save_at=None):
+    """Sparse row-AdaGrad steps over ``batches`` on the CLI's model; with
+    ``save_at``, the full state is saved after that step and restored into
+    a fresh model, optimizer and accumulator.  Returns the tables, MLPs and
+    accumulator (and the save and restore seconds and bytes)."""
+    def fresh(seed):
+        model = DLRM(config, ShardingPolicy.AUTO, hybrid=True, device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(seed))
+        opt, acc = make_sparse_train_state(model, optimizer="row_adagrad", lr=TRAIN_LR)
+        step = make_sparse_train_step(model, opt, lr=TRAIN_LR, optimizer="row_adagrad")
+        return model, opt, acc, step
+
+    def full(model, opt, acc, stepno):
+        params = checkpoint.model_params(model)
+        return {"emb": params["emb"], "acc": acc,
+                "dense": {k: params[k] for k in ("bot", "top")},
+                "opt_state": opt.state_dict(), "step": stepno}
+
+    model, opt, acc, step = fresh(SEED)
+    meta = {"collection": checkpoint.collection_meta(model.collection), "state": "full"}
+    for i, batch in enumerate(batches):
+        acc, _ = step(acc, *batch)
+        if i + 1 == save_at:
+            path = os.path.join(tmp, "full")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(path, full(model, opt, acc, i + 1), meta=meta)
+            save_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            del model, opt, acc, step
+            model, opt, acc, step = fresh(SEED + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = checkpoint.restore(path, full(model, opt, acc, 0), expect_meta=meta)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            acc = st["acc"]
+            opt.load_state_dict(st["opt_state"])
+            if st["step"] != save_at:
+                raise AssertionError(f"restored step {st['step']} != {save_at}")
+    tensors = [*model.buffers(), *model.parameters(), *(a for a in acc.values() if a is not None)]
+    if save_at is None:
+        return tensors
+    return tensors, save_s, restore_s, nbytes
+
+
 def multi_gpu_phase():
     """Across min(4, count) cards (only where the machine shows more than
     one): the toy battery of the sharded engine over NCCL equal to the same
@@ -2102,8 +2367,11 @@ def main(argv) -> int:
 
     # -- 2. build: every csrc/*.cu, one nvcc each, all started together --------
     t0 = time.perf_counter()
+    native_build = start_native_build()  # the feeder library beside the kernels
     built = _build.build()
-    print(f"build: compiled {built or 'nothing (cached)'} in "
+    finish_native_build(native_build)
+    print(f"build: compiled {built or 'nothing (cached)'}"
+          f"{' and native/libpelfeeder.so' if native_build else ''} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _build.logs.items():  # ptxas: registers and spills
         for line in log.splitlines():
@@ -2307,22 +2575,10 @@ def main(argv) -> int:
           f"{whole['call_ms']:.4f} ms per call, idle share "
           f"{1 - whole['device_ms'] / whole['call_ms']:.3f}", flush=True)
 
-    # -- 7. length-bucketed CSR on one request, against lookup_csr --------------
-    off_np, idx_np = off.cpu().numpy(), idx.cpu().numpy()
-    plan = plan_length_buckets(off_np, bucket_ls=(1, 2), slack=1.0)
-    packed = pack_length_buckets(idx_np, off_np, plan)
-    embedding_bag_fixedl.launches = embedding_bag_csr_packed.launches = 0
-    with torch.no_grad():
-        got = lookup_csr_bucketed(coll, emb, packed)
-    torch.cuda.synchronize()
-    launched = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches)
-    err = (got - pooled).abs().max().item()
-    torch.testing.assert_close(got, pooled, rtol=1e-5, atol=1e-5)
-    print(f"bucketed CSR: plan buckets {plan.bucket_ls} capacities {plan.capacities} "
-          f"tail {plan.tail_bags} bags / {plan.tail_entries} entries; K1, K2 "
-          f"launches {launched}; max abs err vs lookup_csr {err:.3g} (tol 1e-5)",
-          flush=True)
-    del model, coll, emb, big, fns, requests, logits, pooled, got
+    # -- 7. length-bucketed CSR on one request, against lookup_csr, packed by
+    # the native packer (byte-identical to the numpy one) ----------------------
+    native_launches = native_phase(coll, emb, idx, off, pooled)
+    del model, coll, emb, big, fns, requests, logits, pooled
 
     # -- 8. K3: the CSR walk over full-width rows, through lookup_csr -----------
     wide_coll = EmbeddingCollection.create(
@@ -2399,6 +2655,11 @@ def main(argv) -> int:
     shard_rows = shards_4_phase(gen)
     print(f"shards_4 phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 13b. cli: the training entry point at full Kaggle width ----------------
+    t0 = time.perf_counter()
+    cli_k1 = cli_phase()
+    print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. multi_gpu: the sharded engine over several cards, where there are --
     t0 = time.perf_counter()
     multi_gpu_phase()
@@ -2418,7 +2679,9 @@ def main(argv) -> int:
 
     int8_mesh = masked_launches["int8"]
     print("kernels: K1, K2, K3, K4 forward, K4 backward; K1 and K2 launches over "
-          "the served requests and the timed train steps; masked K1, K2 and K4 backward: "
+          "the served requests, the timed train steps, the bucketed dispatch on the native "
+          f"pack {list(native_launches)} and (K1) the traced CLI's {cli_k1} steps; "
+          "masked K1, K2 and K4 backward: "
           "the mean of ROW_HASH's 4 shard launches (shards_4), launches over mesh_1's "
           "broadcast requests, train steps (sparse and dense-autodiff) and CSR-wire "
           "gradient; multihost_1's masked K1 launches "
@@ -2429,10 +2692,10 @@ def main(argv) -> int:
                                                 int8_mesh.items() if kind == "masked"}),
           flush=True)
     print(json.dumps({"kernels": [
-        entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu",
-              "272", k1_launches + train_launches["K1"], main_f32),
-        entry("K2 embedding_bag_csr_packed (CSR gather+pool, d=16 packed)",
-              "csr_pool.cu", "92", k2_launches + train_launches["K2"], k2_f32),
+        entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu", "272",
+              k1_launches + train_launches["K1"] + native_launches[0] + cli_k1, main_f32),
+        entry("K2 embedding_bag_csr_packed (CSR gather+pool, d=16 packed)", "csr_pool.cu",
+              "92", k2_launches + train_launches["K2"] + native_launches[1], k2_f32),
         entry("K3 embedding_bag_csr_packed (CSR gather+pool, d=128 rows)",
               "csr_pool.cu", "48", k3_launches, k3),
         entry("K4 forward embedding_bag_csr_sum (differentiable CSR bag)",

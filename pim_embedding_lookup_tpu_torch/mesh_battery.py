@@ -15,10 +15,11 @@ its error as ``<case>/error``, so that a failure names its case and no
 rank waits for a collective that another skipped.
 
     python -m pim_embedding_lookup_tpu_torch.mesh_battery \\
-        RANK WORLD DATA MODEL INIT_FILE IN_NPZ OUT_DIR [cpu|cuda] [main|int8]
+        RANK WORLD DATA MODEL INIT_FILE IN_NPZ OUT_DIR cpu|cuda [main|int8]
 
 The process group is joined through ``INIT_FILE`` (a file store): gloo on
-the CPU, NCCL on the card.  The last argument picks the case group: the
+the CPU, NCCL on the card; the device has no default.  The last argument
+picks the case group: the
 battery above ("main", the default) or the int8 capacity mode's cases
 (``Int8Battery``: ``QuantizedEmbeddingCollection`` lookups broadcast, data
 sharded and routed, with and without the hot-row cache, in both scale
@@ -576,9 +577,12 @@ def case_names(group: str = "main") -> list[str]:
 
 
 def main(argv) -> int:
+    if len(argv) not in (8, 9) or argv[7] not in ("cpu", "cuda"):
+        print("usage: python -m pim_embedding_lookup_tpu_torch.mesh_battery RANK WORLD DATA "
+              "MODEL INIT_FILE IN_NPZ OUT_DIR cpu|cuda [main|int8]", file=sys.stderr)
+        return 2
     rank, world, data, model = map(int, argv[:4])
-    init_file, in_npz, out_dir = argv[4:7]
-    device = argv[7] if len(argv) > 7 else "cpu"
+    init_file, in_npz, out_dir, device = argv[4:8]
     group = argv[8] if len(argv) > 8 else "main"
     torch.set_num_threads(1)
     dev = init_distributed(rank, world, f"file://{init_file}",

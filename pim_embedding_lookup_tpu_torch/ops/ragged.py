@@ -21,6 +21,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import native
+
 
 def segment_ids_from_offsets(offsets: torch.Tensor, capacity: int) -> torch.Tensor:
     """Map flat entry position -> owning bag id, int32.
@@ -194,28 +196,43 @@ def pack_length_buckets(
     offsets: np.ndarray,  # [T, B+1]
     plan: LengthBucketPlan,
     pad_index: int = 0,
-    impl: str = "numpy",  # numpy | native
+    impl: str = "auto",  # auto | native | numpy
 ) -> BucketedCSR:
-    """Pack one batch's CSR bags into the plan's fixed shapes (numpy).
+    """Pack one batch's CSR bags into the plan's fixed shapes.
 
     A batch element goes to the first bucket with L >= its longest bag that
     has a free slot; full buckets spill to the next larger bucket, then to
     the tail, which also takes elements longer than bucket_ls[-1].  Raises
     ValueError when the tail overflows (re-plan with more slack, or use
-    lookup_csr for that batch).  ``impl="native"``, the threaded C++ packer
-    of ``native/``, has no binding in the port yet (ROADMAP.md)."""
-    if impl == "native":
-        raise NotImplementedError(
-            "the native bucket packer has no binding in the port yet "
-            "(ROADMAP.md, Queue 1 item 8); use impl='numpy'"
-        )
-    if impl != "numpy":
+    lookup_csr for that batch).  ``impl``: "native" is the threaded C++
+    packer of ``native/`` (``utils.native.pack_buckets``) and raises
+    RuntimeError where its library is not built; "numpy" the packer below;
+    "auto" the native one where the library loads, else numpy.  Both give
+    the same bytes."""
+    if impl not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown packer {impl!r}")
-    indices = np.asarray(indices)
-    offsets = np.asarray(offsets).astype(np.int64)
-    t, b = offsets.shape[0], offsets.shape[1] - 1
-    if b != plan.batch:
+    offsets = np.asarray(offsets)
+    b = offsets.shape[1] - 1
+    if b != plan.batch:  # before either packer: the native one would mis-pack
         raise ValueError(f"batch {b} != plan batch {plan.batch}")
+    if impl != "numpy":
+        packed = native.pack_buckets(
+            indices, offsets, bucket_ls=plan.bucket_ls, capacities=plan.capacities,
+            tail_bags=plan.tail_bags, tail_entries=plan.tail_entries,
+            pad_index=pad_index)
+        if packed is not None:
+            idx_t, mask_t, pos_t, tail_idx, tail_off, tail_pos = packed
+            tail_used = int((tail_pos < b).sum()) if tail_pos is not None else 0
+            return BucketedCSR(
+                plan=plan, idx=idx_t, mask=mask_t, pos=pos_t, tail_idx=tail_idx,
+                tail_off=tail_off, tail_pos=tail_pos,
+                identity=_is_identity(plan, pos_t, tail_used))
+        if impl == "native":
+            raise RuntimeError("native packer requested but libpelfeeder.so not built "
+                               "(make -C native)")
+    indices = np.asarray(indices)
+    offsets = offsets.astype(np.int64)
+    t = offsets.shape[0]
     lens = offsets[:, 1:] - offsets[:, :-1]  # [T, B]
     blen = lens.max(axis=0)
     ls, caps = plan.bucket_ls, plan.capacities
@@ -292,13 +309,6 @@ def pack_length_buckets(
             tail_off[ti, 1 : len(tail_list) + 1] = toff[1:]
             tail_off[ti, len(tail_list) + 1 :] = toff[-1]
 
-    nonzero = [k for k in range(nk) if caps[k]]
-    identity = (
-        not len(tail_list)
-        and len(nonzero) == 1
-        and caps[nonzero[0]] >= b
-        and np.array_equal(pos_out[nonzero[0]][:b], np.arange(b))
-    )
     return BucketedCSR(
         plan=plan,
         idx=tuple(idx_out),
@@ -307,5 +317,18 @@ def pack_length_buckets(
         tail_idx=tail_idx,
         tail_off=tail_off,
         tail_pos=tail_pos,
-        identity=bool(identity),
+        identity=_is_identity(plan, pos_out, len(tail_list)),
+    )
+
+
+def _is_identity(plan: LengthBucketPlan, pos, tail_used: int) -> bool:
+    """One bucket with room for the batch, no tail, slot j holding batch
+    element j."""
+    b, caps = plan.batch, plan.capacities
+    nonzero = [k for k in range(len(caps)) if caps[k]]
+    return bool(
+        not tail_used
+        and len(nonzero) == 1
+        and caps[nonzero[0]] >= b
+        and np.array_equal(pos[nonzero[0]][:b], np.arange(b))
     )

@@ -8,7 +8,9 @@ against the same step on the CPU, and dropped entries with ids far out of
 range.  Last the sharded engine: K2 and K4's backward with a row shard's
 ownership mask, and every sharded lookup, its gradient, the sparse update
 and the dense-autodiff step on an NCCL mesh of one card against the same
-call under REPLICATE.
+call under REPLICATE.  Then the int8 kernels and serving, and the training
+entry point's layers on the card: ``device_prefetch`` against its host
+arrays, a full-state checkpoint round trip, and a toy CLI run.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor the repo's conftest, so on a machine with a card
@@ -845,3 +847,88 @@ def test_int8_mesh_of_one_matches_replicate(nccl_mesh, mode):
                                          return_stats=True)
     assert int(dropped.item()) == 0
     torch.testing.assert_close(out, want, **TOL)
+
+
+# -- the data layer, checkpoints and the CLI on the card -----------------------
+
+
+def test_prefetch_on_card_matches_host(cuda):
+    """``device_prefetch`` stages each batch on a side stream; the consumer
+    reads it only after the copy, and a batch dropped while a kernel still
+    reads it keeps its memory until that kernel ends (``record_stream``):
+    a sum launched behind a sleep kernel, with the batch deleted at once,
+    equals the host array's sum."""
+    from pim_embedding_lookup_tpu_torch.data import device_prefetch
+
+    rng = np.random.default_rng(4)
+    host = [(rng.random((2048, 13), dtype=np.float32),
+             rng.integers(0, 1 << 20, size=(26, 2048)).astype(np.int32),
+             rng.random((26, 2048)) < 0.9) for _ in range(16)]
+    sums, seen = [], 0
+    for batch in device_prefetch(iter(host), buffer_size=2, device=cuda):
+        assert all(t.device.type == "cuda" for t in batch)
+        torch.cuda._sleep(2_000_000)
+        sums.append([t.double().sum() for t in batch])
+        for got, want in zip(batch, host[seen]):
+            assert torch.equal(got, torch.from_numpy(want).to(cuda))
+        seen += 1
+        del batch
+    torch.cuda.synchronize()
+    assert seen == 16
+    for got, want in zip(sums, host):
+        for s, w in zip(got, want):
+            assert float(s) == float(np.asarray(w, np.float64).sum())
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A full sparse train state saved from the card restores into a fresh
+    model's tensors in place, on the card, bitwise."""
+    from pim_embedding_lookup_tpu_torch.utils import checkpoint
+
+    model = _mixed_model(cuda, 3)
+    opt, acc = make_sparse_train_state(model, optimizer="row_adagrad", lr=0.1)
+    with torch.no_grad():
+        for a in acc.values():
+            a.uniform_(0, 1)
+    params = checkpoint.model_params(model)
+    state = {"emb": params["emb"], "acc": acc, "dense": {k: params[k] for k in ("bot", "top")},
+             "opt_state": opt.state_dict(), "step": 5}
+    meta = {"collection": checkpoint.collection_meta(model.collection), "state": "full"}
+    checkpoint.save(str(tmp_path / "ck"), state, meta=meta)
+    fresh = _mixed_model(cuda, 4)
+    opt2, acc2 = make_sparse_train_state(fresh, optimizer="row_adagrad", lr=0.1)
+    p2 = checkpoint.model_params(fresh)
+    st = checkpoint.restore(str(tmp_path / "ck"),
+                            {"emb": p2["emb"], "acc": acc2,
+                             "dense": {k: p2[k] for k in ("bot", "top")},
+                             "opt_state": opt2.state_dict(), "step": 0}, expect_meta=meta)
+    assert st["step"] == 5 and st["acc"]["big"] is acc2["big"]
+    for key, want in model.state_dict().items():
+        got = fresh.state_dict()[key]
+        assert got.device.type == "cuda" and torch.equal(got, want), key
+    for key in acc:
+        assert torch.equal(acc2[key], acc[key])
+
+
+def test_cli_toy_run_on_card(cuda, tmp_path):
+    """The CLI with ``--device=cuda``: sparse training with reports and a
+    full-state save, then inference from it."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ck = str(tmp_path / "ck")
+    common = [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.cli", "train",
+              "--device=cuda", "--arch-embedding-size=200-9000-20000",
+              "--arch-sparse-feature-size=16", "--arch-mlp-bot=4-16-16", "--arch-mlp-top=8-1",
+              "--mini-batch-size=64", "--num-indices-per-lookup=2", "--hybrid",
+              "--num-batches=4"]
+    r = subprocess.run(common + ["--test-freq=2", "--optimizer=adagrad", f"--save-model={ck}"],
+                       capture_output=True, text=True, cwd=repo, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "step 2:" in r.stdout and "step 4:" in r.stdout and "saved full train state" in r.stdout
+    r = subprocess.run(common + ["--inference-only", "--print-time", f"--load-model={ck}"],
+                       capture_output=True, text=True, cwd=repo, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "accuracy=" in r.stdout and "inference:" in r.stdout

@@ -2,6 +2,7 @@
 lookup ops and the ``embedding_bag`` facade against the JAX package's, on
 the same numpy inputs."""
 
+import ctypes
 import dataclasses
 
 import jax
@@ -15,10 +16,17 @@ import pim_embedding_lookup_tpu.ops as jops
 import pim_embedding_lookup_tpu.ops.ragged as jragged
 import pim_embedding_lookup_tpu_torch.ops as tops
 import pim_embedding_lookup_tpu_torch.ops.ragged as tragged
+import pim_embedding_lookup_tpu_torch.utils.native as tnative
 from pim_embedding_lookup_tpu.config import Combiner as JCombiner
 from pim_embedding_lookup_tpu.config import LookupImpl as JImpl
 from pim_embedding_lookup_tpu_torch.config import Combiner as TCombiner
 from pim_embedding_lookup_tpu_torch.config import LookupImpl as TImpl
+from torch_port_native_lib import (  # noqa: F401
+    force_native,
+    native_build,
+    native_lib,
+    native_so,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -167,14 +175,22 @@ def test_bucket_pack_identity_and_spill_match_jax():
             **dataclasses.asdict(light)), impl="numpy"))
 
 
-def test_bucket_pack_errors():
+def test_bucket_pack_errors(monkeypatch, native_build):
     off = np.zeros((2, 9), np.int64)
     off[:, 1:] = np.cumsum(np.ones((2, 8)), axis=1)
     idx = np.zeros((2, 8), np.int32)
     plan = tragged.plan_length_buckets(off, bucket_ls=(1,), slack=1.0)
-    with pytest.raises(ValueError, match="plan batch"):
-        tragged.pack_length_buckets(idx[:, :4], off[:, :5], plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for impl in ("numpy", "native", "auto"):
+        with pytest.raises(ValueError, match="plan batch"):
+            tragged.pack_length_buckets(idx[:, :4], off[:, :5], plan, impl=impl)
+    # the native packer where its library is built, byte-identical to numpy;
+    # forced absent, asking for it raises
+    if native_build is not None:
+        monkeypatch.setattr(tnative, "_LIB", tnative._declare(ctypes.CDLL(native_build)))
+        _assert_packed_equal(tragged.pack_length_buckets(idx, off, plan, impl="native"),
+                             tragged.pack_length_buckets(idx, off, plan, impl="numpy"))
+    monkeypatch.setattr(tnative, "_LIB", False)
+    with pytest.raises(RuntimeError, match="make -C native"):
         tragged.pack_length_buckets(idx, off, plan, impl="native")
     heavy = np.zeros((2, 9), np.int64)
     heavy[:, 1:] = np.cumsum(np.full((2, 8), 3), axis=1)
@@ -182,6 +198,36 @@ def test_bucket_pack_errors():
         tragged.pack_length_buckets(np.zeros((2, 24), np.int32), heavy, plan)
     with pytest.raises(ValueError, match="positive"):
         tragged.plan_length_buckets(off, bucket_ls=(0, 2))
+
+
+def test_native_bucket_pack_matches_jax_native(force_native):
+    """The port's native packer against the JAX package's ``impl="native"``
+    (tests/test_bucketed_csr.py's parity): random ragged batches with
+    empty bags, spill into larger buckets and the tail, then the identity
+    case; and the same bytes as the numpy packer."""
+    rng = np.random.default_rng(7)
+    cases = []
+    for _ in range(12):
+        b = int(rng.integers(4, 120))
+        idx, off = jragged.shard_csr(_ragged_tables(rng, (100, 3000, 37), b), 1, 16 * b)
+        plan = tragged.plan_length_buckets(off, bucket_ls=(1, 2, 4),
+                                           slack=float(rng.uniform(1.0, 1.6)))
+        cases.append((idx, off, plan))
+    idx, off = jragged.shard_csr(_ragged_tables(rng, (50, 60, 70), 32), 1, 512)
+    cases.append((idx, off, dataclasses.replace(  # a lighter batch's plan: spills
+        tragged.plan_length_buckets(off, bucket_ls=(1, 2, 4), slack=1.5),
+        capacities=(8, 16, 24))))
+    single = np.ones((3, 64), np.int64)
+    off = np.zeros((3, 65), np.int64)
+    np.cumsum(single, axis=1, out=off[:, 1:])
+    idx = rng.integers(0, 50, size=(3, 64)).astype(np.int32)
+    cases.append((idx, off, tragged.plan_length_buckets(off, bucket_ls=(1, 2), slack=1.0)))
+    for idx, off, plan in cases:
+        got = tragged.pack_length_buckets(idx, off, plan, impl="native")
+        _assert_packed_equal(got, jragged.pack_length_buckets(
+            idx, off, jragged.LengthBucketPlan(**dataclasses.asdict(plan)), impl="native"))
+        _assert_packed_equal(got, tragged.pack_length_buckets(idx, off, plan, impl="numpy"))
+    assert got.identity
 
 
 # -- plain lookup ops -------------------------------------------------------
