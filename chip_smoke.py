@@ -41,12 +41,20 @@ subprocesses: sparse row-AdaGrad training with reports and a full-state
 save, its resume, inference from it, and dense-autodiff ``fit``; in this
 process the resume against a straight run, bitwise, ``device_prefetch``
 against its host arrays, and ``profiling.trace`` around three CLI steps,
-each launching K1) and, with two cards or more, ``multi_gpu``.  The native
+each launching K1), ``tools`` (each of the port's measurement tools,
+``pim_embedding_lookup_tpu_torch/tools``, through its ``main`` at full
+Kaggle width: sparse training on both wires, serving under load, the phase
+split, the int8 capacity bench at a size whose f32 form does not fit on the
+card, a trace naming K1's kernel, the kernel lab's probes with every kernel
+path it sweeps held against the plain version, and one shard of the
+scaling bench) and, with two cards or more, ``multi_gpu`` (which also runs
+the scaling bench over all the cards).  The native
 feeder library (``native/libpelfeeder.so``) is built beside the kernels
 where it is absent, and its bucket packer feeds the bucketed CSR dispatch,
 byte-identical to the numpy packer.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only tools       # one phase alone (or multi_gpu)
 
 Needs one CUDA device, nvcc and a C++ toolchain (``make``); exits non-zero,
 printing no result, without them.  Any failed check raises.  The line before the last is a JSON object
@@ -56,6 +64,8 @@ of per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import gc
+import gzip
 import io
 import itertools
 import json
@@ -101,7 +111,6 @@ from pim_embedding_lookup_tpu_torch.data import SyntheticDLRMBatches, device_pre
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.models.train import emb_tensors
 from pim_embedding_lookup_tpu_torch.models.sparse_train import (
-    _apply_sparse_csr,
     dense_params,
     make_sparse_train_state,
     make_sparse_train_step,
@@ -149,6 +158,16 @@ from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
     sparse_update,
     sparse_update_csr,
 )
+from pim_embedding_lookup_tpu_torch.tools import (
+    capacity_bench,
+    kernel_lab,
+    phase_bench,
+    scaling_bench,
+    serving_bench,
+    trace_capture,
+    train_bench,
+)
+from pim_embedding_lookup_tpu_torch.tools.common import call_ms, device_ms
 from pim_embedding_lookup_tpu_torch.utils import checkpoint, native, profiling
 
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit.
@@ -159,62 +178,10 @@ SEED = 0
 BATCH = 8192
 REQUESTS = 5
 ID_SETS = 16  # distinct id sets cycled while timing: > 50 MB of rows, past L2
-TIMED_RUNS = 20
-CALLS_PER_RUN = 10
 # Kernel checks: f32 sums in another order; bf16 storage adds the same bf16
 # values in f32 on both sides, so the same tolerance holds.
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 DEV = torch.device("cuda")
-
-
-def _cycles_per_ms() -> float:
-    """Clock cycles of the card's sleep kernel per millisecond."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(20_000_000)
-    end.record()
-    end.synchronize()
-    return 20_000_000 / start.elapsed_time(end)
-
-
-def call_ms(fn, inputs, calls=CALLS_PER_RUN) -> float:
-    """Median over TIMED_RUNS of host-clock time per call, each run ``calls``
-    calls cycling through ``inputs`` and ending in a synchronize: what a
-    caller in a loop sees, host launch cost included."""
-    for args in inputs[:3]:
-        fn(*args)
-    torch.cuda.synchronize()
-    runs, k = [], 0
-    for _ in range(TIMED_RUNS):
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn(*inputs[k % len(inputs)])
-            k += 1
-        torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0) * 1e3 / calls)
-    return statistics.median(runs)
-
-
-def device_ms(fn, inputs, calls=CALLS_PER_RUN) -> float:
-    """Median over TIMED_RUNS of device time per call: CUDA events around
-    ``calls`` calls cycling through ``inputs``.  A sleep kernel ahead of each
-    run holds the stream for twice the host's enqueue time, so the calls run
-    back to back and the host's launch cost stays out of the number."""
-    hold = 2 * call_ms(fn, inputs, calls) * calls * _cycles_per_ms()
-    runs, k = [], 0
-    for _ in range(TIMED_RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(hold))
-        start.record()
-        for _ in range(calls):
-            fn(*inputs[k % len(inputs)])
-            k += 1
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) / calls)
-    return statistics.median(runs)
 
 
 class _OpCount(TorchDispatchMode):
@@ -969,27 +936,6 @@ def train_batches(config, gen, b, wire, steps):
     return out
 
 
-def csr_sparse_step(model, dense_opt, *, lr, optimizer):
-    """The sparse step over the CSR wire, composed as tools/train_bench.py
-    composes it: lookup_csr, the dense tower's backward, the CSR scatter."""
-    coll = model.collection
-
-    def step(acc, dense, idx, off, labels):
-        with torch.no_grad():
-            pooled = coll.lookup_csr(model.emb_params(), idx, off)
-        pooled.requires_grad_(True)
-        dense_opt.zero_grad(set_to_none=True)
-        loss = bce_loss(model.apply_from_pooled(dense, pooled), labels)
-        loss.backward()
-        dense_opt.step()
-        with torch.no_grad():
-            _, acc = _apply_sparse_csr(coll, model.emb_params(), acc, idx, off,
-                                       pooled.grad, lr=lr, optimizer=optimizer, eps=1e-8)
-        return acc, loss.detach()
-
-    return step
-
-
 def train_runner(model, kind, wire, optimizer):
     """``run(batch) -> loss`` of one path; the row-AdaGrad accumulator (if
     any) lives in the returned state dict."""
@@ -997,8 +943,7 @@ def train_runner(model, kind, wire, optimizer):
         step = make_train_step(model, make_optimizer(TRAIN_LR, optimizer))
         return lambda batch: step(*batch)[0], {"acc": None}
     opt, acc = make_sparse_train_state(model, optimizer=optimizer, lr=TRAIN_LR)
-    make = make_sparse_train_step if wire == "dense" else csr_sparse_step
-    step = make(model, opt, lr=TRAIN_LR, optimizer=optimizer)
+    step = make_sparse_train_step(model, opt, lr=TRAIN_LR, optimizer=optimizer, wire=wire)
     state = {"acc": acc, "opt": opt}
 
     def run(batch):
@@ -2287,6 +2232,143 @@ def resume_run(config, batches, tmp=None, save_at=None):
     return tensors, save_s, restore_s, nbytes
 
 
+# -- tools: the port's measurement entry points at full Kaggle width -------------
+
+TOOLS_LAB_PROBES = "take,pallas,pallaschain,onehot,scatter,drophot,hotcost"
+
+
+def zero_counts():
+    for fn in (embedding_bag_fixedl, embedding_bag_csr_packed):
+        fn.launches = fn.int8_launches = fn.int8_row_launches = 0
+    embedding_bag_csr_packed.masked_launches = 0
+    embedding_bag_csr_sum.launches = 0
+    embedding_bag_csr_grad.launches = embedding_bag_csr_grad.masked_launches = 0
+
+
+def read_counts() -> dict:
+    """The launches since ``zero_counts``, by kernel-table row (K2's are
+    K3's where the caller ran at d=128)."""
+    k1, k2 = embedding_bag_fixedl, embedding_bag_csr_packed
+    return {
+        "K1": k1.launches - k1.int8_launches,
+        ("K1", "table"): k1.int8_launches - k1.int8_row_launches,
+        ("K1", "row"): k1.int8_row_launches,
+        "K2": k2.launches - k2.int8_launches - k2.masked_launches,
+        ("K2", "table"): k2.int8_launches - k2.int8_row_launches,
+        ("K2", "row"): k2.int8_row_launches,
+        "K4 fwd": embedding_bag_csr_sum.launches,
+        "K4 bwd": embedding_bag_csr_grad.launches - embedding_bag_csr_grad.masked_launches,
+        "K4 bwd masked": embedding_bag_csr_grad.masked_launches,
+    }
+
+
+def tools_phase():
+    """Each measurement tool (``pim_embedding_lookup_tpu_torch/tools``) on
+    the card through its ``main``, as a user runs it (no ``--device``: the
+    card), at the full Criteo-Kaggle width: sparse training on both wires;
+    serving at 100 qps, and at 1000 qps in microbatches of 8 with 2 in
+    flight; the phase split; the int8 capacity bench at 4 x 100M rows x 64
+    (102.4 GB in f32) in both scale modes, its f32 form checked not to fit
+    on the card and its three lookups held against their plain versions on
+    ids that read storage past element 2^31; a trace, which must name K1's kernel; the kernel lab's
+    probes at the main shapes and K3's, each checked by the lab against its
+    plain version on every path it sweeps; one shard of the data-axis
+    scaling bench.  Each tool prints its own JSON line; a failing tool, or a
+    check here, raises.  Returns the kernel launches of the phase by
+    kernel-table row, counted from 0 before each tool."""
+    total_gb = torch.cuda.get_device_properties(DEV).total_memory / 1e9
+    kaggle = ["--config", "kaggle"]
+    runs = [
+        ("train_bench dense", train_bench, kaggle + ["--batch", "8192", "--hybrid",
+                                                     "--iters", "20", "--wire", "dense"]),
+        ("train_bench csr", train_bench, kaggle + ["--batch", "8192", "--hybrid",
+                                                   "--iters", "20", "--wire", "csr"]),
+        ("serving_bench 100 qps", serving_bench,
+         kaggle + ["--hybrid", "--qps", "100", "--duration", "5"]),
+        ("serving_bench 1000 qps microbatch 8", serving_bench,
+         kaggle + ["--hybrid", "--qps", "1000", "--microbatch", "8", "--inflight", "2",
+                   "--duration", "5"]),
+        ("phase_bench", phase_bench, kaggle + ["--batch", "8192"]),
+        *((f"capacity_bench {mode}", capacity_bench,
+           ["--tables", "4", "--rows", "100000000", "--dim", "64", "--scale-mode", mode])
+          for mode in SCALE_MODES),
+        ("trace_capture", trace_capture, kaggle + ["--batch", "1024", "--iters", "3"]),
+        ("kernel_lab", kernel_lab, ["--only", TOOLS_LAB_PROBES]),
+        ("kernel_lab d=128 (K3)", kernel_lab,
+         ["--rows", "1000000", "--dim", "128", "--tables", "1", "--pooling", "4",
+          "--only", "pallas,pallaschain"]),
+        ("scaling_bench data", scaling_bench, ["--axis", "data"]),
+    ]
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="pel_tools_")
+    try:
+        for name, tool, argv in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            if tool is trace_capture:
+                argv = argv + ["--out", os.path.join(tmp, "trace")]
+            t0 = time.perf_counter()
+            zero_counts()
+            result = tool.main(argv)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if "d=128" in name:  # the CSR kernel at d=128 is K3
+                counts["K3"] = counts.pop("K2")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            check_tool(name, tool, result, total_gb)
+            print(f"tools {name}: {time.perf_counter() - t0:.1f} s, launches "
+                  + json.dumps({(k if isinstance(k, str) else " ".join(k)): v
+                                for k, v in counts.items() if v}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def check_tool(name, tool, result, total_gb):
+    """What a tool's result must show on the card."""
+    if tool in (train_bench, serving_bench, phase_bench, capacity_bench, scaling_bench):
+        if result.get("device_name") != torch.cuda.get_device_name(DEV):
+            raise AssertionError(f"{name} ran on {result.get('device_name')}")
+    if tool is train_bench:
+        if not math.isfinite(result["loss_mean"]) or result["device_us_per_step"] is None:
+            raise AssertionError(f"{name}: {result}")
+    elif tool is serving_bench:
+        if not result["requests"] or not (result["p50_ms"] <= result["p95_ms"]
+                                          <= result["p99_ms"]):
+            raise AssertionError(f"{name}: {result}")
+        if result["microbatch"] > 1 and result["dispatches"] >= result["requests"]:
+            raise AssertionError(f"{name}: the microbatches did not aggregate")
+    elif tool is capacity_bench:
+        if result["tables_gb_f32_equiv"] <= total_gb:
+            raise AssertionError(f"{name}: the f32 tables ({result['tables_gb_f32_equiv']} "
+                                 f"GB) fit on the card ({total_gb:.1f} GB)")
+        # the bench held its three lookups against their plain versions
+        # (rtol 1e-5, atol 1e-5 of the largest value) on its first ids
+        if result["device_storage_elements_read"] <= 2 ** 31:
+            raise AssertionError(f"{name}: the checked ids read no storage element past "
+                                 f"2^31 ({result['device_storage_elements_read']})")
+        print(f"tools {name}: fixed-L, CSR and MEAN equal to the plain version, max abs "
+              f"err {json.dumps(result['device_plain_max_abs_err'])}, storage elements read "
+              f"up to {result['device_storage_elements_read']} (past 2^31)", flush=True)
+    elif tool is trace_capture:
+        with gzip.open(result["trace"], "rt") as f:
+            if "fixedl_pool_kernel" not in f.read():
+                raise AssertionError(f"{name}: the trace names no fixedl_pool_kernel")
+        if result["rows"] != 3:
+            raise AssertionError(f"{name}: {result['rows']} intervals for 3 lookups")
+    elif tool is kernel_lab:
+        paths = [k for k in result if "path=" in k and not k.endswith("path=auto")]
+        unchecked = [k for k in paths if result[k]["max_abs_err"] is None]
+        if not paths or unchecked:
+            raise AssertionError(f"{name}: swept paths {paths}, unchecked {unchecked}")
+        print(f"tools {name}: {len(paths)} pinned kernel paths, each equal to the plain "
+              "version (1e-5 abs + 1e-5 rel)", flush=True)
+    elif tool is scaling_bench:
+        if result["scaling_efficiency"] != {"1": 1.0}:
+            raise AssertionError(f"{name}: {result}")
+
+
 def multi_gpu_phase():
     """Across min(4, count) cards (only where the machine shows more than
     one): the toy battery of the sharded engine over NCCL equal to the same
@@ -2294,7 +2376,9 @@ def multi_gpu_phase():
     package), on a (1, W) mesh and, with 4 cards, a (2, 2) one; the
     multihost battery on 2 simulated hosts over NCCL and over gloo, every
     case passing on every rank of both; then the full-row ROW_HASH routed
-    serve over the W cards."""
+    serve over the W cards; then ``tools/scaling_bench.py`` on the data and
+    the routed axis over all the cards, one process a card under torchrun's
+    environment."""
     n = torch.cuda.device_count()
     if n < 2:
         print(f"multi_gpu: skipped: the machine shows {n} CUDA device "
@@ -2334,6 +2418,19 @@ def multi_gpu_phase():
                 print(f"multi_gpu serve, full-row Kaggle hybrid, big set ROW_HASH over {w} "
                       f"cards, B={BATCH}: " + f.read(), flush=True)
         print(f"multi_gpu serve: {time.perf_counter() - t0:.1f} s", flush=True)
+        for axis in ("data", "routed"):  # the scaling bench under torchrun's environment
+            t0 = time.perf_counter()
+            port = _free_port()
+            outs = _spawn([[sys.executable, "-m",
+                            "pim_embedding_lookup_tpu_torch.tools.scaling_bench",
+                            "--axis", axis]] * n, timeout=600,
+                          env=[launcher_env(r, n, n, port) for r in range(n)])
+            rep = json.loads(outs[0].strip().splitlines()[-1])
+            counts = [str(c) for c in (1, 2, 4, 8, 16, 32) if c <= n]
+            if list(rep["lookups_per_s"]) != counts or any(rep["routed_drops"].values()):
+                raise AssertionError(f"scaling_bench --axis {axis}: {rep}")
+            print(f"multi_gpu scaling_bench --axis {axis} over {n} cards (NCCL, "
+                  f"{time.perf_counter() - t0:.1f} s): " + json.dumps(rep), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2348,8 +2445,8 @@ def main(argv) -> int:
         return mesh_worker(rank, world, *argv[3:5])
     if argv[:1] == ["--multihost-worker"]:  # the process of multihost_1
         return multihost_worker(argv[1])
-    only_multi_gpu = argv == ["--only", "multi_gpu"]
-    if argv and not only_multi_gpu:
+    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only not in ("multi_gpu", "tools"):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2378,9 +2475,9 @@ def main(argv) -> int:
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    if only_multi_gpu:  # the phase that needs several cards, alone
-        multi_gpu_phase()
-        print(f"chip_smoke: multi_gpu phase passed in {time.perf_counter() - t_start:.1f} s",
+    if only is not None:  # one phase alone (multi_gpu: e.g. on a 4-chip call)
+        {"multi_gpu": multi_gpu_phase, "tools": tools_phase}[only]()
+        print(f"chip_smoke: {only} phase passed in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0
 
@@ -2660,6 +2757,11 @@ def main(argv) -> int:
     cli_k1 = cli_phase()
     print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 13c. tools: the measurement entry points at full Kaggle width ----------
+    t0 = time.perf_counter()
+    tools = tools_phase()
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. multi_gpu: the sharded engine over several cards, where there are --
     t0 = time.perf_counter()
     multi_gpu_phase()
@@ -2689,29 +2791,36 @@ def main(argv) -> int:
           "each scale mode: the int8 phase's times, launches over its served requests and "
           "mesh_1's REPLICATE int8 requests; masked int8 launches over mesh_1's ROW_HASH "
           "broadcast requests: " + json.dumps({f"{k} {m}": n for (k, m, kind), n in
-                                                int8_mesh.items() if kind == "masked"}),
+                                                int8_mesh.items() if kind == "masked"})
+          + "; every row adds the tools phase's launches (its per-tool lines; K3: the "
+          "kernel lab at d=128; K4: the lab's pallas and scatter probes; masked K4 "
+          "backward: the lab's drophot probe; int8: the capacity bench)",
           flush=True)
     print(json.dumps({"kernels": [
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu", "272",
-              k1_launches + train_launches["K1"] + native_launches[0] + cli_k1, main_f32),
+              k1_launches + train_launches["K1"] + native_launches[0] + cli_k1 + tools["K1"],
+              main_f32),
         entry("K2 embedding_bag_csr_packed (CSR gather+pool, d=16 packed)", "csr_pool.cu",
-              "92", k2_launches + train_launches["K2"] + native_launches[1], k2_f32),
+              "92", k2_launches + train_launches["K2"] + native_launches[1] + tools["K2"],
+              k2_f32),
         entry("K3 embedding_bag_csr_packed (CSR gather+pool, d=128 rows)",
-              "csr_pool.cu", "48", k3_launches, k3),
+              "csr_pool.cu", "48", k3_launches + tools["K3"], k3),
         entry("K4 forward embedding_bag_csr_sum (differentiable CSR bag)",
-              "csr_pool.cu", "204", k4_launches[0], k4_fwd),
+              "csr_pool.cu", "204", k4_launches[0] + tools["K4 fwd"], k4_fwd),
         entry("K4 backward embedding_bag_csr_grad (CSR bag gradient)",
-              "csr_pool.cu", "230", k4_launches[1], k4_bwd),
+              "csr_pool.cu", "230", k4_launches[1] + tools["K4 bwd"], k4_bwd),
         entry("K1 masked embedding_bag_fixedl (row shard, ownership mask)",
               "gather_pool.cu", "272", masked_launches["K1"], mean_row(shard_rows["K1"])),
         entry("K2 masked embedding_bag_csr_packed (row shard, ownership mask)",
               "csr_pool.cu", "92", masked_launches["K2"], mean_row(shard_rows["K2"])),
         entry("K4 backward masked embedding_bag_csr_grad (row shard, ownership mask)",
-              "csr_pool.cu", "230", masked_launches["K4 bwd"], mean_row(shard_rows["K4 bwd"])),
+              "csr_pool.cu", "230", masked_launches["K4 bwd"] + tools["K4 bwd masked"],
+              mean_row(shard_rows["K4 bwd"])),
         *(entry(f"{k} int8 {mode} scale mode {fn} (int8 codes"
                 + (", per-row f32 scales)" if mode == "row" else "; table scale folded after)"),
                 source, line,
-                int8_launches[(k, mode)] + int8_mesh[(k, mode, "REPLICATE")],
+                int8_launches[(k, mode)] + int8_mesh[(k, mode, "REPLICATE")]
+                + tools[(k, mode)],
                 int8_rows[(k, mode)])
           for k, fn, source, line in (
               ("K1", "embedding_bag_fixedl", "gather_pool.cu", "272"),

@@ -72,6 +72,8 @@ class DLRM(nn.Module):
     (``parallel.mesh.PortMesh``) the device is the mesh's, the embedding
     buffers are this process's shards, and a query is this process's data
     row's slice of the batch; one seed gives the same model on every mesh.
+    ``packed``: the collection's lane packing (its ``create``'s ``packed``;
+    None keeps that default).
     """
 
     def __init__(
@@ -83,6 +85,7 @@ class DLRM(nn.Module):
         device=None,
         generator: torch.Generator,
         mesh=None,
+        packed: bool | str | None = None,
     ):
         super().__init__()
         if torch.backends.cuda.matmul.allow_tf32:
@@ -94,7 +97,8 @@ class DLRM(nn.Module):
         self.config = config
         self.hybrid = hybrid
         coll = HybridEmbeddingCollection if hybrid else EmbeddingCollection
-        self.collection = coll.create(config.tables, policy, device=device, mesh=mesh)
+        kw = {} if packed is None else dict(packed=packed)
+        self.collection = coll.create(config.tables, policy, device=device, mesh=mesh, **kw)
         d = config.sparse_dim
         if config.mlp_bot[-1] != d:
             raise ValueError(

@@ -16,9 +16,11 @@ the mean over the global batch (each process divides by the global B), the
 dense gradients are summed over the data axis, and the step returns the
 global loss; model peers see the same pooled tensor, so their dense steps
 agree with no further collective.  The embedding storage, the accumulator and the MLP params are updated in
-place, which stands in for the JAX step's buffer donation.  The CSR wire
-has no step factory here, as in the JAX package: a caller composes
-``lookup_csr``, ``DLRM.apply_from_pooled`` and ``_apply_sparse_csr``.
+place, which stands in for the JAX step's buffer donation.  The step
+takes either wire (``wire=``): the dense one's ``(indices, mask)`` or the
+CSR one's ``(indices, offsets)``, whose step is ``lookup_csr``, the dense
+tower, then the CSR scatter update (the JAX package composes that step by
+hand in its ``tools/train_bench.py``).
 """
 
 from __future__ import annotations
@@ -91,10 +93,14 @@ def make_sparse_train_step(
     routed: bool = False,
     capacity_factor: float | None = None,
     hot_cache: bool = False,
+    wire: str = "dense",  # "dense" | "csr"
 ) -> Callable:
     """The step ``(acc, dense, indices, mask, labels[, hot_ids, hot_rows])
-    -> (acc, loss)`` over the dense wire.  It updates the model's embedding
-    storage, ``acc`` and the MLP params in place; the loss is detached.
+    -> (acc, loss)`` over the dense wire, or ``(acc, dense, indices,
+    offsets, labels) -> (acc, loss)`` over the CSR wire (``wire="csr"``:
+    [T, C] ids and [T, B+1] offsets of this process's slice of the batch).
+    It updates the model's embedding storage, ``acc`` and the MLP params in
+    place; the loss is detached.
 
     ``routed=True`` (a model on a mesh) sends the big-set lookup and the
     scatter update through the all-to-all routing; drop-safe at the default
@@ -102,8 +108,12 @@ def make_sparse_train_step(
     two trailing args, a hot-row snapshot from ``hotcache.build_hot_cache``
     that serves hot entries locally; it goes stale as updates land and the
     caller rebuilds it."""
+    if wire not in ("dense", "csr"):
+        raise ValueError(f"wire must be 'dense' or 'csr', got {wire!r}")
     if hot_cache and not routed:
         raise ValueError("hot_cache is a routed-lookup feature")
+    if hot_cache and wire == "csr":
+        raise ValueError("hot_cache serves the dense wire's routed lookup only")
     coll = model.collection
     mesh = coll.mesh
     if routed and mesh is None:
@@ -114,6 +124,9 @@ def make_sparse_train_step(
 
     def lookup(indices, mask, b, hc):
         emb = model.emb_params()
+        if wire == "csr":  # mask: the offsets
+            kw = dict(routed=True, capacity_factor=capacity_factor) if routed else {}
+            return coll.lookup_csr(emb, indices, mask, **kw)
         if not routed:
             return coll.lookup(emb, indices, mask, batch_size=b)
         kw = dict(batch_size=b, capacity_factor=capacity_factor, hot_cache=hc)
@@ -137,10 +150,11 @@ def make_sparse_train_step(
             sum_grads_over_data(mesh, params)
             loss = mesh.psum(loss.detach().clone(), DATA_AXIS)
         dense_opt.step()
+        apply = _apply_sparse_csr if wire == "csr" else _apply_sparse
         with torch.no_grad():
-            _, acc = _apply_sparse(coll, model.emb_params(), acc, indices, mask,
-                                   pooled.grad, lr=lr, optimizer=optimizer, eps=eps,
-                                   routed=routed, capacity_factor=capacity_factor)
+            _, acc = apply(coll, model.emb_params(), acc, indices, mask, pooled.grad,
+                           lr=lr, optimizer=optimizer, eps=eps, routed=routed,
+                           capacity_factor=capacity_factor)
         return acc, loss.detach()
 
     return train_step

@@ -16,7 +16,8 @@ atomics.  A group of threads pools each bag (16-byte row loads or one
 element a thread, as ``gather_pool.row_path`` picks from the storage
 pointer and d), and a warp several consecutive bags whose offsets it loads
 together; their ids come in windows shared by the warp, or along each bag
-where bags are long (``gather_pool.walks_by_group``, from C / B).  A
+where bags are long (``gather_pool.walks_by_group``, from C / B), unless
+the caller pins a path (``path=``, ``gather_pool.kernel_path``).  A
 second kernel scatters K4's gradient with f32 ``atomicAdd``, one thread
 per (bag, lane).  The wrappers take T tables at once (indices [T, C],
 offsets [T, B+1]), one launch for all of them.
@@ -49,8 +50,7 @@ from .gather_pool import (
     _check_storage,
     _ptr,
     gather_rows,
-    row_path,
-    walks_by_group,
+    kernel_path,
 )
 from .ragged import segment_ids_from_offsets
 
@@ -151,11 +151,13 @@ def embedding_bag_csr_packed_reference(
     return out.reshape(t, batch_size + 1, d)[:, :batch_size].reshape(-1, d)
 
 
-def _pool(storage, d, indices, offsets, batch_size, mask=None, scale=None):
+def _pool(storage, d, indices, offsets, batch_size, mask=None, scale=None, path=None):
     """Checked K2/K3 body: the plain version for CPU tensors, else one
-    launch.  Returns (out, whether a kernel was launched)."""
+    launch on ``path`` (``gather_pool.kernel_path``).  Returns (out,
+    whether a kernel was launched)."""
     _check_storage(storage, d, scale)
     _check_csr(indices, offsets, batch_size, storage.device, mask)
+    path = kernel_path(storage, d, indices.shape[-1], batch_size, path)
     if storage.device.type == "cpu":
         return embedding_bag_csr_packed_reference(
             storage, d, indices, offsets, batch_size=batch_size, mask=mask,
@@ -164,11 +166,9 @@ def _pool(storage, d, indices, offsets, batch_size, mask=None, scale=None):
     out = torch.empty(t * batch_size, d, dtype=torch.float32, device=storage.device)
     if out.numel() == 0:
         return out, False
-    vector, group = row_path(storage, d)
-    by_group = walks_by_group(group, indices.shape[-1], batch_size)
     lead = (_ptr(scale),) if storage.dtype == torch.int8 else ()
     _launch(f"pel_csr_pool_{_STORAGE_DTYPES[storage.dtype]}", storage, indices,
-            offsets, out, batch_size, d, vector, group, by_group, mask=mask, lead=lead)
+            offsets, out, batch_size, d, *path, mask=mask, lead=lead)
     return out, True
 
 
@@ -181,17 +181,20 @@ def embedding_bag_csr_packed(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [C] or [T, C] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
+    path: tuple[bool, int, bool] | None = None,  # pinned (vector, group, by_group)
 ) -> torch.Tensor:  # [B, d] or [T*B, d] f32
     """SUM-pooled CSR embedding bag over fused storage (K2; K3 at d=128).
     Row t*B + b of the result pools bag b of table t.  ``mask`` keeps the
     entries where it is set (a row shard's ownership): the others are never
     read, so their ids may hold anything.  Kept ids must lie in [0, rows).
-    ``scale``: int8 storage's per-row scale.  Differentiable w.r.t. float
-    storage where it requires grad; the gradient takes the same mask."""
+    ``scale``: int8 storage's per-row scale.  ``path``: the kernel path to
+    launch (``gather_pool.kernel_path``), CUDA only.  Differentiable w.r.t.
+    float storage where it requires grad; the gradient takes the same
+    mask."""
     if storage.requires_grad and torch.is_grad_enabled():
         return _CSRBagSum.apply(storage, d, indices, offsets, batch_size, mask,
-                                embedding_bag_csr_packed)
-    out, launched = _pool(storage, d, indices, offsets, batch_size, mask, scale)
+                                embedding_bag_csr_packed, path)
+    out, launched = _pool(storage, d, indices, offsets, batch_size, mask, scale, path)
     fn = embedding_bag_csr_packed
     fn.launches += launched
     fn.masked_launches += launched and mask is not None
@@ -269,8 +272,8 @@ class _CSRBagSum(torch.autograd.Function):
     ``masked_launches``) count the forward's kernel."""
 
     @staticmethod
-    def forward(ctx, storage, d, indices, offsets, batch_size, mask, counted):
-        out, launched = _pool(storage, d, indices, offsets, batch_size, mask)
+    def forward(ctx, storage, d, indices, offsets, batch_size, mask, counted, path=None):
+        out, launched = _pool(storage, d, indices, offsets, batch_size, mask, path=path)
         counted.launches += launched
         if mask is not None:
             counted.masked_launches += launched
@@ -283,7 +286,7 @@ class _CSRBagSum(torch.autograd.Function):
         indices, offsets, mask = ctx.saved_tensors
         rows = ctx.shape.numel() // g.shape[1]
         dtable = embedding_bag_csr_grad(g.float().contiguous(), indices, offsets, rows, mask)
-        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None, None
+        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None, None, None
 
 
 def embedding_bag_csr_sum(

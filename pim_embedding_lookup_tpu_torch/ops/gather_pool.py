@@ -13,7 +13,11 @@ d-wide f32 output row.  It reads rows straight from the fused storage
 entries without reading them.  A group of threads pools each bag and a
 warp several bags: :func:`row_path` picks 16-byte vector row loads or one
 element a thread, and the group size, from the storage pointer and d;
-:func:`walks_by_group` picks how ids reach the groups from L.
+:func:`walks_by_group` picks how ids reach the groups from L.  A caller may
+pin all three with ``path=(vector, group, by_group)`` (the counterpart of
+the Pallas kernels' ``tile_b``/``nbuf``; ``tools/kernel_lab.py`` sweeps
+them): :func:`kernel_path` refuses a path the kernel cannot serve, and a
+pinned path on a CPU tensor, which has no kernel.
 
 int8 storage (the capacity mode's codes) has its own instances: the codes
 are pooled in f32, and with a 1-D f32 ``scale`` of one value a row (the
@@ -90,8 +94,15 @@ def row_path(storage: torch.Tensor, d: int) -> tuple[bool, int]:
     32 / group bags."""
     row_bytes = d * storage.element_size()
     vector = row_bytes % _VECTOR_BYTES == 0 and storage.data_ptr() % _VECTOR_BYTES == 0
-    chunks = row_bytes // _VECTOR_BYTES if vector else d
-    return vector, min(_WARP, 1 << (chunks - 1).bit_length())
+    return vector, group_size(storage, d, vector)
+
+
+def group_size(storage: torch.Tensor, d: int, vector: bool) -> int:
+    """The group :func:`row_path` gives a row path: one thread per chunk of
+    the row (a 16-byte vector, or an element), rounded up to a power of
+    two, at most a warp."""
+    chunks = d * storage.element_size() // _VECTOR_BYTES if vector else d
+    return min(_WARP, 1 << (chunks - 1).bit_length())
 
 
 def walks_by_group(group: int, entries: int, bags: int) -> bool:
@@ -101,6 +112,30 @@ def walks_by_group(group: int, entries: int, bags: int) -> bool:
     average (``entries`` over ``bags``, padding included), since a shared
     window over long bags leaves most groups idle."""
     return entries * (_WARP // group) > _WARP * bags
+
+
+def kernel_path(storage: torch.Tensor, d: int, entries: int, bags: int,
+                path: tuple[bool, int, bool] | None = None) -> tuple[bool, int, bool]:
+    """(vector, group, by_group) of a pool kernel's launch over ``entries``
+    ids in ``bags`` bags: what :func:`row_path` and :func:`walks_by_group`
+    pick, or ``path`` where the caller pins one.  Raises ``ValueError`` for
+    a pinned path the kernels cannot serve: a group that is not a power of
+    two in [1, 32], vector loads where the rows or the storage pointer are
+    not 16-byte aligned, or any path on a tensor that is not on a CUDA
+    device (the plain version has no path)."""
+    if path is None:
+        vector, group = row_path(storage, d)
+        return vector, group, walks_by_group(group, entries, bags)
+    vector, group, by_group = path
+    if not 1 <= group <= _WARP or group & (group - 1):
+        raise ValueError(f"group {group} is not a power of two in [1, {_WARP}]")
+    if storage.device.type != "cuda":
+        raise ValueError(f"a kernel path was pinned for a tensor on {storage.device}: "
+                         "only the card's kernels have paths")
+    if vector and not row_path(storage, d)[0]:
+        raise ValueError(f"vector row loads need 16-byte aligned rows and storage: "
+                         f"d={d} of {storage.dtype} at {storage.data_ptr():#x}")
+    return bool(vector), int(group), bool(by_group)
 
 
 def _check(storage, d, indices, pooling, batch_size, mask, scale):
@@ -165,17 +200,23 @@ def embedding_bag_fixedl(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [B*L] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
+    path: tuple[bool, int, bool] | None = None,  # pinned (vector, group, by_group)
 ) -> torch.Tensor:  # [B, d] f32
     """SUM-pooled fixed-L embedding bag over fused storage.  Unmasked ids
-    must lie in [0, rows).  ``scale``: int8 storage's per-row scale."""
+    must lie in [0, rows).  ``scale``: int8 storage's per-row scale.
+    ``path``: the kernel path to launch (:func:`kernel_path`), CUDA only."""
     _check(storage, d, indices, pooling, batch_size, mask, scale)
     if storage.requires_grad and torch.is_grad_enabled():
-        return _FixedLBagSum.apply(storage, d, indices, pooling, batch_size, mask)
-    return _pool(storage, d, indices, pooling, batch_size, mask, scale)
+        return _FixedLBagSum.apply(storage, d, indices, pooling, batch_size, mask, path)
+    return _pool(storage, d, indices, pooling, batch_size, mask, scale, path)
 
 
-def _pool(storage, d, indices, pooling, batch_size, mask, scale=None):
-    """Checked K1 body: the plain version for CPU tensors, else one launch."""
+def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None):
+    """Checked K1 body: the plain version for CPU tensors, else one launch
+    on ``path`` (:func:`kernel_path`)."""
+    if path is not None and path[2] and pooling == 1:
+        raise ValueError("a single-hot tile is one window: K1 has no by-group walk at L=1")
+    vector, group, by_group = kernel_path(storage, d, indices.numel(), batch_size, path)
     if storage.device.type == "cpu":
         return embedding_bag_fixedl_reference(
             storage, d, indices, pooling=pooling, batch_size=batch_size,
@@ -189,8 +230,6 @@ def _pool(storage, d, indices, pooling, batch_size, mask, scale=None):
     lib = _build.load("gather_pool", _SIGNATURES)
     fn = getattr(lib, f"pel_gather_pool_{_STORAGE_DTYPES[storage.dtype]}")
     stream = torch.cuda.current_stream(storage.device).cuda_stream
-    vector, group = row_path(storage, d)
-    by_group = walks_by_group(group, indices.numel(), batch_size)
     int8 = storage.dtype == torch.int8
     lead = (storage.data_ptr(),) + ((_ptr(scale),) if int8 else ())
     err = fn(
@@ -236,14 +275,14 @@ class _FixedLBagSum(torch.autograd.Function):
     """K1 with its gradient w.r.t. the storage only."""
 
     @staticmethod
-    def forward(ctx, storage, d, indices, pooling, batch_size, mask):
+    def forward(ctx, storage, d, indices, pooling, batch_size, mask, path):
         ctx.save_for_backward(indices, mask)
         ctx.shape, ctx.dtype = storage.shape, storage.dtype
-        return _pool(storage, d, indices, pooling, batch_size, mask)
+        return _pool(storage, d, indices, pooling, batch_size, mask, path=path)
 
     @staticmethod
     def backward(ctx, g):
         indices, mask = ctx.saved_tensors
         rows = ctx.shape.numel() // g.shape[1]
         dtable = embedding_bag_fixedl_grad(g, indices, mask, rows)
-        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None
+        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None, None

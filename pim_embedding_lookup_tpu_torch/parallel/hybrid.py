@@ -128,11 +128,13 @@ class HybridEmbeddingCollection:
         *,
         device=None,
         mesh: PortMesh | None = None,
+        packed: bool | str = "auto",
         quantized_big: bool = False,
         int8_scale_mode: str = "table",
     ) -> "HybridEmbeddingCollection":
         """Tables of at most MXU_THRESHOLD rows go to the small set
-        (replicated); the big set, lane-packed where its dim allows, is
+        (replicated); the big set, lane-packed where its dim allows
+        (``packed``, as ``EmbeddingCollection.create`` takes it), is
         placed by ``policy`` over the mesh's model axis.  ``quantized_big``:
         the big set stores int8 rows (inference only), with one scale per
         table (``int8_scale_mode="table"``) or per row ("row")."""
@@ -150,10 +152,10 @@ class HybridEmbeddingCollection:
         if big_ids:
             big_tables = [tables[i] for i in big_ids]
             big = (QuantizedEmbeddingCollection.create(
-                       big_tables, policy, scale_mode=int8_scale_mode, device=device,
-                       mesh=mesh)
+                       big_tables, policy, packed=packed, scale_mode=int8_scale_mode,
+                       device=device, mesh=mesh)
                    if quantized_big else
-                   EmbeddingCollection.create(big_tables, policy, packed="auto",
+                   EmbeddingCollection.create(big_tables, policy, packed=packed,
                                               device=device, mesh=mesh))
         order = list(small_ids) + list(big_ids)
         perm = tuple(order.index(t) for t in range(len(tables)))

@@ -265,6 +265,40 @@ def test_repeated_launches_are_bitwise_equal(cuda):
                                                 mask=mask), first_k1)
 
 
+# -- pinned kernel paths (the kernel lab's sweep) ----------------------------------
+
+PINNED = [(vector, group, by_group) for vector in (True, False)
+          for group in (1, 2, 4, 8, 16, 32) for by_group in (False, True)]
+
+
+@pytest.mark.parametrize("path", PINNED, ids=lambda p: "{}-G{}-{}".format(
+    "vector" if p[0] else "scalar", p[1], "group" if p[2] else "window"))
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.bfloat16, 16),
+                                     (torch.float32, 128)])
+def test_pinned_paths_match_plain(cuda, dtype, d, path):
+    """Every path a caller can pin (``path=``) gives the plain version's
+    pools: K2 over CSR bags, K1 at L=3 and, on the window walk, at L=1;
+    a vector path over an unaligned view is refused, not served scalar."""
+    storage = _edge_storage(cuda, dtype, d, "unpacked")
+    idx, off = _edge_csr(cuda, d, 3, 40, False)
+    got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=EDGE_BAGS, path=path)
+    want = embedding_bag_csr_packed_reference(
+        storage, d, torch.where(idx == NEVER_READ, 0, idx), off, batch_size=EDGE_BAGS)
+    torch.testing.assert_close(got, want, **TOL)
+    rng = np.random.default_rng(d)
+    for pooling in (3,) if path[2] else (1, 3):
+        ids = torch.from_numpy(rng.integers(0, EDGE_ROWS, size=EDGE_BAGS * pooling)
+                               .astype(np.int32)).to(cuda)
+        kw = dict(pooling=pooling, batch_size=EDGE_BAGS)
+        torch.testing.assert_close(embedding_bag_fixedl(storage, d, ids, path=path, **kw),
+                                   embedding_bag_fixedl_reference(storage, d, ids, **kw),
+                                   **TOL)
+    if path[0]:
+        unaligned = _edge_storage(cuda, dtype, d, "unaligned")
+        with pytest.raises(ValueError, match="16-byte"):
+            embedding_bag_csr_packed(unaligned, d, idx, off, batch_size=EDGE_BAGS, path=path)
+
+
 # -- the training path ------------------------------------------------------------
 
 
