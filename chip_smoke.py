@@ -47,14 +47,20 @@ Kaggle width: sparse training on both wires, serving under load, the phase
 split, the int8 capacity bench at a size whose f32 form does not fit on the
 card, a trace naming K1's kernel, the kernel lab's probes with every kernel
 path it sweeps held against the plain version, and one shard of the
-scaling bench) and, with two cards or more, ``multi_gpu`` (which also runs
-the scaling bench over all the cards).  The native
+scaling bench), ``bench`` (the lookup bench through ``python -m
+pim_embedding_lookup_tpu_torch.cli bench`` in subprocesses at full width:
+Criteo Kaggle on every wire, dtype and set of tables, r.sh's random and
+bigtable presets, each configuration's first call held in this process
+against its plain versions; then ``cli sweep`` over the r.sh grids up to
+32 x 13.9M x 64 bf16, 56.9 GB) and, with two cards or more, ``multi_gpu``
+(which also runs the scaling bench and the bench under torchrun over all
+the cards).  The native
 feeder library (``native/libpelfeeder.so``) is built beside the kernels
 where it is absent, and its bucket packer feeds the bucketed CSR dispatch,
 byte-identical to the numpy packer.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only tools       # one phase alone (or multi_gpu)
+    python3 chip_smoke.py --only tools       # one phase alone (or bench, multi_gpu)
 
 Needs one CUDA device, nvcc and a C++ toolchain (``make``); exits non-zero,
 printing no result, without them.  Any failed check raises.  The line before the last is a JSON object
@@ -99,6 +105,7 @@ from pim_embedding_lookup_tpu_torch import (
     toy_config,
 )
 from pim_embedding_lookup_tpu_torch import (
+    bench,
     cli,
     make_optimizer,
     make_train_step,
@@ -167,7 +174,12 @@ from pim_embedding_lookup_tpu_torch.tools import (
     trace_capture,
     train_bench,
 )
-from pim_embedding_lookup_tpu_torch.tools.common import call_ms, device_ms
+from pim_embedding_lookup_tpu_torch.tools.common import (
+    call_ms,
+    device_ms,
+    kernel_launches,
+    zero_kernel_launches,
+)
 from pim_embedding_lookup_tpu_torch.utils import checkpoint, native, profiling
 
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit.
@@ -2237,29 +2249,10 @@ def resume_run(config, batches, tmp=None, save_at=None):
 TOOLS_LAB_PROBES = "take,pallas,pallaschain,onehot,scatter,drophot,hotcost"
 
 
-def zero_counts():
-    for fn in (embedding_bag_fixedl, embedding_bag_csr_packed):
-        fn.launches = fn.int8_launches = fn.int8_row_launches = 0
-    embedding_bag_csr_packed.masked_launches = 0
-    embedding_bag_csr_sum.launches = 0
-    embedding_bag_csr_grad.launches = embedding_bag_csr_grad.masked_launches = 0
-
-
-def read_counts() -> dict:
-    """The launches since ``zero_counts``, by kernel-table row (K2's are
-    K3's where the caller ran at d=128)."""
-    k1, k2 = embedding_bag_fixedl, embedding_bag_csr_packed
-    return {
-        "K1": k1.launches - k1.int8_launches,
-        ("K1", "table"): k1.int8_launches - k1.int8_row_launches,
-        ("K1", "row"): k1.int8_row_launches,
-        "K2": k2.launches - k2.int8_launches - k2.masked_launches,
-        ("K2", "table"): k2.int8_launches - k2.int8_row_launches,
-        ("K2", "row"): k2.int8_row_launches,
-        "K4 fwd": embedding_bag_csr_sum.launches,
-        "K4 bwd": embedding_bag_csr_grad.launches - embedding_bag_csr_grad.masked_launches,
-        "K4 bwd masked": embedding_bag_csr_grad.masked_launches,
-    }
+def add_counts(total: dict, counts: dict, sign: int = 1) -> None:
+    """Adds launches by kernel-table row (``kernel_launches``) into ``total``."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + sign * v
 
 
 def tools_phase():
@@ -2308,18 +2301,14 @@ def tools_phase():
             if tool is trace_capture:
                 argv = argv + ["--out", os.path.join(tmp, "trace")]
             t0 = time.perf_counter()
-            zero_counts()
+            zero_kernel_launches()
             result = tool.main(argv)
             torch.cuda.synchronize()
-            counts = read_counts()
-            if "d=128" in name:  # the CSR kernel at d=128 is K3
-                counts["K3"] = counts.pop("K2")
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
+            counts = kernel_launches(full_width="d=128" in name)  # K2 at d=128 is K3
+            add_counts(launches, counts)
             check_tool(name, tool, result, total_gb)
             print(f"tools {name}: {time.perf_counter() - t0:.1f} s, launches "
-                  + json.dumps({(k if isinstance(k, str) else " ".join(k)): v
-                                for k, v in counts.items() if v}), flush=True)
+                  + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -2369,6 +2358,179 @@ def check_tool(name, tool, result, total_gb):
             raise AssertionError(f"{name}: {result}")
 
 
+# -- bench: the lookup bench and the CLI's bench and sweep at full width ---------
+
+BENCH_CLI = [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.cli", "bench"]
+BENCH_CASES = [  # (name, argv): Criteo Kaggle at B=8192 (bf16 by default), r.sh's presets
+    ("default", []),  # the only one with the CPU baseline
+    ("float32", ["--dtype", "float32"]),
+    ("csr ragged", ["--wire", "csr", "--csr-ragged"]),
+    ("csr-bucketed ragged", ["--wire", "csr-bucketed", "--csr-ragged"]),
+    ("int8 table", ["--dtype", "int8", "--int8-scale", "table"]),
+    ("int8 row", ["--dtype", "int8", "--int8-scale", "row"]),
+    ("int8 row csr-bucketed ragged", ["--dtype", "int8", "--int8-scale", "row",
+                                      "--wire", "csr-bucketed", "--csr-ragged"]),
+    ("int8 no-hybrid", ["--dtype", "int8", "--no-hybrid"]),
+    ("no-hybrid", ["--no-hybrid"]),
+    ("tables-filter small", ["--tables-filter", "small"]),
+    ("tables-filter big", ["--tables-filter", "big"]),
+    ("random", ["--config", "random"]),
+    ("bigtable dense", ["--config", "bigtable"]),
+    ("bigtable csr", ["--config", "bigtable", "--wire", "csr"]),
+]
+BENCH_LOG = ("layout:", "ragged CSR:", "bucket plan:", "tables-filter", "cpu torch:",
+             "us/iter")
+SWEEP_RUNS = [["--grid", g] for g in cli.SWEEP_GRIDS] + [
+    ["--grid", "table-size", "--quantized-above-gb", "20"]]
+SWEEP_TOP = dict(tables=32, rows=13_900_000, dim=64, batch=64, pooling=120)  # 56.9 GB bf16
+
+
+def plain_check(lk, tol=KERNEL_TOL) -> tuple[float, dict]:
+    """``lk``'s first call on the card against the same call with the pool
+    kernels replaced by their plain versions; raises on a mismatch.
+    Returns (max abs err, the first call's kernel launches by row).  Every
+    configuration of the bench is held at the kernel rows' tolerance: the
+    kernels and their plain versions add the same entries of each bag (one
+    at Kaggle's pooling 1, where they agree exactly), and the small set's
+    product runs the same code on both sides."""
+    full_width = lk.tables[0].dim % 128 == 0
+    before = kernel_launches(full_width)
+    with torch.no_grad():
+        got = lk.fn(lk.idx)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in kernel_launches(full_width).items()
+                    if v > before[k]}
+        with mock.patch.object(collection_mod, "embedding_bag_fixedl",
+                               embedding_bag_fixedl_reference), \
+             mock.patch.object(collection_mod, "embedding_bag_csr_packed",
+                               embedding_bag_csr_packed_reference):
+            want = lk.fn(lk.idx)
+    shape = (lk.batch, len(lk.tables), lk.tables[0].dim)
+    if tuple(got.shape) != shape or not torch.isfinite(got).all():
+        raise AssertionError(f"bench lookup: shape {tuple(got.shape)} for {shape}, or "
+                             "non-finite values")
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **tol)
+    return err, launched
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def checked_sweep(argv) -> tuple[list, dict]:
+    """``cli.cmd_sweep(argv)`` with each point's first call, on the tables
+    and ids the sweep built, held against its plain versions
+    (:func:`plain_check`) before the sweep times it, a line a point; the
+    table-size grid's top point in bf16 (32 x 13.9M x 64, 56.9 GB) must
+    read storage past element 2^31.  Returns the records and the kernel
+    launches of the sweep's timed loops by row (the checks' left out)."""
+    build, checks = bench.build_lookup, {}
+
+    def build_checked(tables, batch, pooling, **kw):
+        lk = build(tables, batch, pooling, **kw)
+        err, launched = plain_check(lk)
+        add_counts(checks, launched)
+        dtype = "int8" if lk.quantized else lk.dtype
+        coll = getattr(lk.coll, "big", None) or lk.coll  # the gathered set
+        end = (int(coll.globalize(lk.idx).max()) + 1) * tables[0].dim  # elements read
+        top = SWEEP_TOP == dict(tables=len(tables), rows=tables[0].num_rows,
+                                dim=tables[0].dim, batch=batch, pooling=pooling)
+        if not launched or (top and dtype == "bfloat16" and end <= 2 ** 31):
+            raise AssertionError(f"sweep point {len(tables)} x {tables[0].num_rows} {dtype}: "
+                                 f"launches {launched}, storage elements read up to {end}")
+        print(f"sweep {' '.join(argv)} point {len(tables)} x {tables[0].num_rows} x "
+              f"{tables[0].dim} {dtype}, B={batch}, L={pooling}: first call equal to the "
+              f"plain versions, max abs err {err:.3g} (tol {KERNEL_TOL}), launches "
+              f"{json.dumps(launched)}, storage elements read up to {end}"
+              f"{' (past 2^31)' if end > 2 ** 31 else ''}", flush=True)
+        return lk
+
+    zero_kernel_launches()
+    with mock.patch.object(bench, "build_lookup", build_checked):
+        records = cli.cmd_sweep(argv)
+    torch.cuda.synchronize()
+    counts = kernel_launches()
+    add_counts(counts, checks, -1)
+    return records, counts
+
+
+def bench_phase():
+    """The lookup bench as users run it, ``python -m
+    pim_embedding_lookup_tpu_torch.cli bench`` in a subprocess on the card,
+    at full width: the Criteo-Kaggle config (B=8192) in bf16 with the CPU
+    baseline, in f32, on the ragged CSR and bucketed CSR wires, in int8
+    (hybrid in both scale modes, the bucketed wire in "row" mode, and the
+    plain int8 collection), without the hybrid, each side of the hybrid's
+    threshold alone, and r.sh's random (32 x 500k x 64, L=120) and
+    bigtable (8 x 2M x 128, L=32, dense and CSR) presets.  Each prints its
+    JSON line and a ``bench <case>:`` line of its seconds and kernel
+    launches; in this process each configuration's first call from
+    ``bench.build_lookup`` is held against the same call on the kernels'
+    plain versions.  Then ``cli sweep`` on every r.sh grid at the default
+    budget and the table-size grid with its top points in int8, each point
+    a JSON record and its first call held against its plain versions
+    (:func:`checked_sweep`); the table-size grid's top point (32 x 13.9M x
+    64 bf16, 56.9 GB) must run, on ids that read storage past element 2^31.
+    Returns the launches of the subprocess runs and the sweeps by
+    kernel-table row."""
+    launches = {}
+    free_card()
+    for i, (name, argv) in enumerate(BENCH_CASES):
+        argv = argv + ([] if i == 0 else ["--no-baseline"])
+        t0 = time.perf_counter()
+        run = subprocess.run(BENCH_CLI + argv, capture_output=True, text=True, timeout=600,
+                             cwd=REPO)
+        secs = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"cli bench {argv} exited {run.returncode}:\n"
+                                 f"{run.stderr[-3000:]}")
+        for line in run.stderr.splitlines():
+            if any(key in line for key in BENCH_LOG):
+                print(f"bench {name} | {line.strip()}", flush=True)
+        line = run.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        result = json.loads(line)
+        counts = result["device_kernel_launches"]
+        add_counts(launches, counts)
+        if (counts["K2 masked"] or result["device_name"] != torch.cuda.get_device_name(DEV)
+                or result["device_us_per_iter"] is None or not result["value"] > 0
+                or (i == 0) == (result["vs_baseline"] is None)):
+            raise AssertionError(f"bench {name}: {result}")
+        print(f"bench {name}: {secs:.1f} s, launches "
+              + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
+        lk = bench.lookup_for(bench.parse_args(argv), device=DEV)
+        err, launched = plain_check(lk)
+        if not launched and name != "tables-filter small":  # the small set has no kernel
+            raise AssertionError(f"bench {name}: the first call launched no kernel")
+        print(f"bench {name} first call: equal to the plain versions, max abs err {err:.3g} "
+              f"(tol {KERNEL_TOL}), kernel launches {json.dumps(launched)}", flush=True)
+        del lk
+        free_card()
+
+    for argv in SWEEP_RUNS:
+        free_card()
+        t0 = time.perf_counter()
+        records, counts = checked_sweep(argv)
+        add_counts(launches, counts)
+        ran = [r for r in records if "skipped" not in r]
+        bad = [r for r in ran if not r["lookups_per_s"] > 0 or r["device_mean_us"] is None]
+        if argv == ["--grid", "table-size"]:  # the 56.9 GB point runs in bf16
+            bad += [r for r in records if r["rows"] == SWEEP_TOP["rows"]
+                    and r.get("dtype") != "bfloat16"]
+        if bad:
+            raise AssertionError(f"sweep {argv}: {bad}")
+        skipped = [f"{r['tables']}x{r['rows']} ({r['tables_gb']} GB)"
+                   for r in records if "skipped" in r]
+        print(f"sweep {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, {len(ran)} points "
+              f"run ({sum(r['dtype'] == 'int8' for r in ran)} in int8), skipped "
+              f"{skipped or 'none'}, launches "
+              + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
+    free_card()
+    return launches
+
+
 def multi_gpu_phase():
     """Across min(4, count) cards (only where the machine shows more than
     one): the toy battery of the sharded engine over NCCL equal to the same
@@ -2378,7 +2540,8 @@ def multi_gpu_phase():
     case passing on every rank of both; then the full-row ROW_HASH routed
     serve over the W cards; then ``tools/scaling_bench.py`` on the data and
     the routed axis over all the cards, one process a card under torchrun's
-    environment."""
+    environment, and the lookup bench under torchrun over all the cards
+    (ROW_HASH on a (1, N) mesh)."""
     n = torch.cuda.device_count()
     if n < 2:
         print(f"multi_gpu: skipped: the machine shows {n} CUDA device "
@@ -2431,6 +2594,27 @@ def multi_gpu_phase():
                 raise AssertionError(f"scaling_bench --axis {axis}: {rep}")
             print(f"multi_gpu scaling_bench --axis {axis} over {n} cards (NCCL, "
                   f"{time.perf_counter() - t0:.1f} s): " + json.dumps(rep), flush=True)
+        # the lookup bench under torchrun: bf16 on the dense wire (masked K1),
+        # int8 "row" on the bucketed CSR wire (masked int8 K1 and K2)
+        for argv, row in (([], "K1"), (["--dtype", "int8", "--int8-scale", "row", "--wire",
+                                        "csr-bucketed", "--csr-ragged"], "K2 int8 row")):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(n), "-m", "pim_embedding_lookup_tpu_torch.cli",
+                 "bench", "--no-baseline", *argv],
+                capture_output=True, text=True, timeout=900, cwd=REPO)
+            if run.returncode != 0:
+                raise AssertionError(f"torchrun cli bench {argv} exited {run.returncode}:\n"
+                                     f"{run.stderr[-3000:]}")
+            rep = json.loads(run.stdout.strip().splitlines()[-1])
+            counts = rep["device_kernel_launches"]
+            if (rep["device_mesh"] != [1, n] or not rep["value"] > 0 or not counts[row] > 0
+                    or min(counts.values()) < 0):
+                raise AssertionError(f"torchrun cli bench {argv}: {rep}")
+            print(f"multi_gpu cli bench {' '.join(argv)} under torchrun over {n} cards "
+                  f"(ROW_HASH, NCCL, {time.perf_counter() - t0:.1f} s): " + json.dumps(rep),
+                  flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2446,7 +2630,7 @@ def main(argv) -> int:
     if argv[:1] == ["--multihost-worker"]:  # the process of multihost_1
         return multihost_worker(argv[1])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("multi_gpu", "tools"):
+    if argv and only not in ("multi_gpu", "tools", "bench"):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2476,7 +2660,7 @@ def main(argv) -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     if only is not None:  # one phase alone (multi_gpu: e.g. on a 4-chip call)
-        {"multi_gpu": multi_gpu_phase, "tools": tools_phase}[only]()
+        {"multi_gpu": multi_gpu_phase, "tools": tools_phase, "bench": bench_phase}[only]()
         print(f"chip_smoke: {only} phase passed in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0
@@ -2762,6 +2946,11 @@ def main(argv) -> int:
     tools = tools_phase()
     print(f"tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 13d. bench: the lookup bench and the CLI's bench and sweep ---------------
+    t0 = time.perf_counter()
+    benched = bench_phase()
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. multi_gpu: the sharded engine over several cards, where there are --
     t0 = time.perf_counter()
     multi_gpu_phase()
@@ -2794,33 +2983,38 @@ def main(argv) -> int:
                                                 int8_mesh.items() if kind == "masked"})
           + "; every row adds the tools phase's launches (its per-tool lines; K3: the "
           "kernel lab at d=128; K4: the lab's pallas and scatter probes; masked K4 "
-          "backward: the lab's drophot probe; int8: the capacity bench)",
+          "backward: the lab's drophot probe; int8: the capacity bench) and the bench "
+          "phase's (its `bench <case>:` and `sweep` lines: the cli bench subprocesses and "
+          "the sweeps; K3: bigtable on the CSR wire; not its plain checks)",
           flush=True)
+    phases = dict(tools)  # the tools and bench phases' launches by kernel-table row
+    add_counts(phases, benched)
     print(json.dumps({"kernels": [
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu", "272",
-              k1_launches + train_launches["K1"] + native_launches[0] + cli_k1 + tools["K1"],
-              main_f32),
+              k1_launches + train_launches["K1"] + native_launches[0] + cli_k1
+              + phases["K1"], main_f32),
         entry("K2 embedding_bag_csr_packed (CSR gather+pool, d=16 packed)", "csr_pool.cu",
-              "92", k2_launches + train_launches["K2"] + native_launches[1] + tools["K2"],
+              "92", k2_launches + train_launches["K2"] + native_launches[1] + phases["K2"],
               k2_f32),
         entry("K3 embedding_bag_csr_packed (CSR gather+pool, d=128 rows)",
-              "csr_pool.cu", "48", k3_launches + tools["K3"], k3),
+              "csr_pool.cu", "48", k3_launches + phases["K3"], k3),
         entry("K4 forward embedding_bag_csr_sum (differentiable CSR bag)",
-              "csr_pool.cu", "204", k4_launches[0] + tools["K4 fwd"], k4_fwd),
+              "csr_pool.cu", "204", k4_launches[0] + phases["K4 fwd"], k4_fwd),
         entry("K4 backward embedding_bag_csr_grad (CSR bag gradient)",
-              "csr_pool.cu", "230", k4_launches[1] + tools["K4 bwd"], k4_bwd),
+              "csr_pool.cu", "230", k4_launches[1] + phases["K4 bwd"], k4_bwd),
         entry("K1 masked embedding_bag_fixedl (row shard, ownership mask)",
               "gather_pool.cu", "272", masked_launches["K1"], mean_row(shard_rows["K1"])),
         entry("K2 masked embedding_bag_csr_packed (row shard, ownership mask)",
-              "csr_pool.cu", "92", masked_launches["K2"], mean_row(shard_rows["K2"])),
+              "csr_pool.cu", "92", masked_launches["K2"] + phases["K2 masked"],
+              mean_row(shard_rows["K2"])),
         entry("K4 backward masked embedding_bag_csr_grad (row shard, ownership mask)",
-              "csr_pool.cu", "230", masked_launches["K4 bwd"] + tools["K4 bwd masked"],
+              "csr_pool.cu", "230", masked_launches["K4 bwd"] + phases["K4 bwd masked"],
               mean_row(shard_rows["K4 bwd"])),
         *(entry(f"{k} int8 {mode} scale mode {fn} (int8 codes"
                 + (", per-row f32 scales)" if mode == "row" else "; table scale folded after)"),
                 source, line,
                 int8_launches[(k, mode)] + int8_mesh[(k, mode, "REPLICATE")]
-                + tools[(k, mode)],
+                + phases[f"{k} int8 {mode}"],
                 int8_rows[(k, mode)])
           for k, fn, source, line in (
               ("K1", "embedding_bag_fixedl", "gather_pool.cu", "272"),

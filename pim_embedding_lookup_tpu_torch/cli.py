@@ -1,15 +1,20 @@
-"""Command-line entry point: train, evaluate and checkpoint a DLRM.
+"""Command-line entry point: train, evaluate and checkpoint a DLRM; bench
+the lookup; sweep the r.sh grids.
 
-The counterpart of ``pim_embedding_lookup_tpu.cli`` (its ``train``
-subcommand, with every flag and default, plus ``--device``), after the
-dlrm CLI's flag contract (``--arch-*``, ``--mini-batch-size``,
+The counterpart of ``pim_embedding_lookup_tpu.cli``, with its three
+subcommands and every flag and default, plus ``--device``.  ``train``
+follows the dlrm CLI's flag contract (``--arch-*``, ``--mini-batch-size``,
 ``--num-indices-per-lookup``, ``--inference-only``, ``--nepochs``,
-``--test-freq``, ``--save-model``, ``--load-model``, ``--print-time``):
+``--test-freq``, ``--save-model``, ``--load-model``, ``--print-time``);
+``bench`` is the port's lookup bench (``bench.py``, its flags); ``sweep``
+runs an r.sh grid through it, one JSON record a point:
 
     python -m pim_embedding_lookup_tpu_torch.cli train --data-generation=random ...
     python -m pim_embedding_lookup_tpu_torch.cli train --device=cpu ...
     torchrun --nproc-per-node 4 -m pim_embedding_lookup_tpu_torch.cli train \\
         --mesh-data=2 --mesh-model=2 --sharding=row_hash ...
+    python -m pim_embedding_lookup_tpu_torch.cli bench --config random --no-baseline
+    python -m pim_embedding_lookup_tpu_torch.cli sweep --grid table-size
 
 It runs on CUDA unless ``--device`` names another device.  One process
 drives one device: under a launcher's environment (``WORLD_SIZE`` set, as
@@ -18,12 +23,14 @@ the (data, model) mesh is ``--mesh-data`` x ``--mesh-model`` (0: the
 processes left over), and each process feeds its data row's slice of every
 batch; only rank 0 prints, and the reports cover the global batch.  On a
 single process a policy other than AUTO or REPLICATE runs on a mesh of
-one.  The ``bench`` and ``sweep`` subcommands are not ported yet.
+one.  ``bench`` runs under torchrun as ``bench.py`` says; ``sweep`` runs
+in one process on one device.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import socket
 import sys
@@ -336,13 +343,130 @@ def cmd_train(argv):
 
 
 def cmd_bench(argv):
-    sys.exit("cli bench is not ported yet: the port's bench waits for its "
-             "benchmark (ROADMAP.md, Queue 1)")
+    from . import bench
+
+    bench.main(argv)
+
+
+# A card's table budget is its free memory at start less this reserve: the
+# largest grid point's queries, output and loop buffers take under 0.1 GB
+# (the pooling grid's 26 x 2048*120 int32 ids, rotated: 51 MB); the rest
+# covers cuBLAS's workspace and the allocator's rounding.
+SWEEP_RESERVE_GB = 2.0
+# The JAX sweep's default budget (16 GB of a v5e less queries, outputs and
+# workspace): the CPU sweep's default, so that both sweeps skip alike.
+CPU_SWEEP_BUDGET_GB = 13.0
+
+SWEEP_GRIDS = {
+    # r.sh:18-39: 125k..13.9M rows x 32 tables, dim 64
+    "table-size": [
+        dict(tables=32, rows=r, dim=64, batch=64, pooling=120)
+        for r in [125_000, 250_000, 500_000, 1_000_000, 2_000_000,
+                  4_000_000, 8_000_000, 13_900_000]
+    ],
+    # r.sh:41-66: 2..32 tables @500k rows
+    "table-count": [
+        dict(tables=t, rows=500_000, dim=64, batch=64, pooling=120)
+        for t in [2, 4, 8, 16, 32]
+    ],
+    # r.sh:68-89: batch 8..100
+    "batch-size": [
+        dict(tables=32, rows=500_000, dim=64, batch=b, pooling=120)
+        for b in [8, 16, 32, 64, 100]
+    ],
+    "pooling": [
+        dict(tables=26, rows=500_000, dim=16, batch=2048, pooling=l)
+        for l in [1, 4, 16, 32, 64, 120]
+    ],
+}
 
 
 def cmd_sweep(argv):
-    sys.exit("cli sweep is not ported yet: it runs the port's bench, which waits "
-             "for its benchmark (ROADMAP.md, Queue 1)")
+    """r.sh parity sweeps (r.sh:18-89): table-size, table-count,
+    batch-size, plus a pooling-factor grid (the reference's
+    MAX_INDICES_PER_BATCH axis), each point timed by the lookup bench.
+
+    The grid's top points exceed one card in f32 (13.9M x 32 x dim 64 =
+    114 GB), so the sweep stores bf16 by default, switches to the int8
+    collection above ``--quantized-above-gb``, and skips, with a "needs N
+    chips" record, a point that does not fit the table budget even in
+    int8.  Each point's tables are freed before the next is built."""
+    import gc
+
+    import torch
+
+    from .bench import build_lookup, log, lookup_rate
+    from .config import TableConfig
+    from .device import resolve_device
+    from .tools import common
+
+    p = argparse.ArgumentParser(prog="sweep")
+    p.add_argument("--grid", required=True, choices=list(SWEEP_GRIDS))
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--out", default="")
+    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--no-hybrid", action="store_true")
+    p.add_argument("--hbm-budget-gb", type=float, default=None,
+                   help="usable table budget on the device, GB (default: on the card "
+                        f"its free memory at start less {SWEEP_RESERVE_GB} GB; on the "
+                        f"CPU {CPU_SWEEP_BUDGET_GB}, the JAX sweep's default)")
+    p.add_argument("--quantized-above-gb", type=float, default=None,
+                   help="use the int8 collection when the dtype-sized table "
+                        "exceeds this (default: the table budget)")
+    common.add_device_arg(p)
+    args = p.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    budget = args.hbm_budget_gb
+    if budget is None and dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info(dev)
+        budget = free / 1e9 - SWEEP_RESERVE_GB
+        log(f"sweep: table budget {budget:.2f} GB = {free / 1e9:.2f} GB free of "
+            f"{total / 1e9:.2f} GB at start, less a reserve of {SWEEP_RESERVE_GB} GB")
+    elif budget is None:
+        budget = CPU_SWEEP_BUDGET_GB
+    itemsize = {"float32": 4, "bfloat16": 2}[args.dtype]
+    quant_above = (args.quantized_above_gb if args.quantized_above_gb is not None
+                   else budget)
+    results = []
+    for point in SWEEP_GRIDS[args.grid]:
+        tables = tuple(
+            TableConfig(num_rows=point["rows"], dim=point["dim"], name=f"t{i}")
+            for i in range(point["tables"])
+        )
+        total = point["tables"] * point["rows"]
+        gb = total * point["dim"] * itemsize / 1e9
+        gb_int8 = total * (point["dim"] + 4) / 1e9  # +4B/row f32 scale
+        quantized = gb > quant_above
+        need_gb = gb_int8 if quantized else gb
+        if need_gb > budget:
+            rec = {**point, "skipped": "exceeds single-chip HBM",
+                   "tables_gb": round(need_gb, 1),
+                   "needs_chips": int(-(-need_gb // budget))}
+            results.append(rec)
+            print(json.dumps(rec), flush=True)
+            continue
+        lk = build_lookup(tables, point["batch"], point["pooling"],
+                          hybrid=not args.no_hybrid, dtype=args.dtype,
+                          quantized=quantized, device=dev)
+        rate = lookup_rate(lk, args.iters)
+        del lk  # free this point's tables before the next point's
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec = {**point, "dtype": "int8" if quantized else args.dtype,
+               "tables_gb": round(need_gb, 2),
+               "lookups_per_s": round(rate.lookups_per_s, 1),
+               "pooled_gbps": round(rate.gbps, 2),
+               "mean_us": round(rate.dt * 1e6, 1),
+               "device_mean_us": (None if rate.device_dt is None
+                                  else round(rate.device_dt * 1e6, 1))}
+        results.append(rec)
+        print(json.dumps(rec), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=2)
+    return results
 
 
 def main(argv=None):

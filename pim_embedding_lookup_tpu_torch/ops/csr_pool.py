@@ -31,7 +31,8 @@ code * scale[id] for each entry, as ``gather_pool``'s K1 does;
 The plain versions run only for CPU tensors; a CUDA tensor launches the
 kernel or raises.  K2 and K4's backward also take an optional per-entry
 mask (a row shard's ownership), whose dropped entries they never read;
-``masked_launches`` counts those launches.  Where the storage requires grad
+``masked_launches`` counts those launches (``masked_int8_launches`` those
+of them on int8 storage).  Where the storage requires grad
 (and grad mode is on), ``embedding_bag_csr_packed`` is differentiable
 w.r.t. the storage through the same autograd function as K4: the forward is
 the pool kernel, the backward K4's gradient kernel, both with the mask.
@@ -198,6 +199,7 @@ def embedding_bag_csr_packed(
     fn = embedding_bag_csr_packed
     fn.launches += launched
     fn.masked_launches += launched and mask is not None
+    fn.masked_int8_launches += launched and mask is not None and storage.dtype == torch.int8
     fn.int8_launches += launched and storage.dtype == torch.int8
     fn.int8_row_launches += launched and scale is not None
     return out
@@ -205,6 +207,7 @@ def embedding_bag_csr_packed(
 
 embedding_bag_csr_packed.launches = 0
 embedding_bag_csr_packed.masked_launches = 0
+embedding_bag_csr_packed.masked_int8_launches = 0  # masked, on int8 storage
 embedding_bag_csr_packed.int8_launches = 0  # int8 storage, either scale mode
 embedding_bag_csr_packed.int8_row_launches = 0  # int8 storage with a per-row scale
 

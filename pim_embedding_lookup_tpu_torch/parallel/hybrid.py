@@ -4,8 +4,9 @@ gather+pool for big ones.
 The counterpart of ``pim_embedding_lookup_tpu.parallel.hybrid``: lookups and
 the sparse optimizer step, on one device or on a mesh, with routed big-set
 lookups and updates and the hot-row cache.  Tables with at most
-``MXU_THRESHOLD`` rows form the small set: each is padded to a power-of-two bucket, equal
-buckets lie side by side, and each bucket pools as one batched product of a
+``mxu_threshold`` rows (``create``'s argument, default ``MXU_THRESHOLD``)
+form the small set: each is padded to a power-of-two bucket, equal buckets
+lie side by side, and each bucket pools as one batched product of a
 bf16 one-hot with the bf16 weights, accumulated in f32, as in the JAX
 package.  The rest form the big set, an EmbeddingCollection whose lookup
 runs the gather+pool kernel on the card.  On a mesh the small set is
@@ -128,19 +129,21 @@ class HybridEmbeddingCollection:
         *,
         device=None,
         mesh: PortMesh | None = None,
+        mxu_threshold: int = MXU_THRESHOLD,
         packed: bool | str = "auto",
         quantized_big: bool = False,
         int8_scale_mode: str = "table",
     ) -> "HybridEmbeddingCollection":
-        """Tables of at most MXU_THRESHOLD rows go to the small set
-        (replicated); the big set, lane-packed where its dim allows
-        (``packed``, as ``EmbeddingCollection.create`` takes it), is
-        placed by ``policy`` over the mesh's model axis.  ``quantized_big``:
+        """Tables of at most ``mxu_threshold`` rows go to the small set
+        (replicated), the rest to the big set; either set may be empty
+        (None).  The big set, lane-packed where its dim allows (``packed``,
+        as ``EmbeddingCollection.create`` takes it), is placed by
+        ``policy`` over the mesh's model axis.  ``quantized_big``:
         the big set stores int8 rows (inference only), with one scale per
         table (``int8_scale_mode="table"``) or per row ("row")."""
         device = mesh.device if mesh is not None else resolve_device(device)
-        small_raw = [i for i, t in enumerate(tables) if t.num_rows <= MXU_THRESHOLD]
-        big_ids = tuple(i for i, t in enumerate(tables) if t.num_rows > MXU_THRESHOLD)
+        small_raw = [i for i, t in enumerate(tables) if t.num_rows <= mxu_threshold]
+        big_ids = tuple(i for i, t in enumerate(tables) if t.num_rows > mxu_threshold)
         small = None
         small_ids: tuple[int, ...] = ()
         buckets: tuple[Bucket, ...] = ()

@@ -29,6 +29,8 @@ import torch.distributed as dist
 
 from ..config import ShardingPolicy, kaggle_config, random_config, toy_config
 from ..device import resolve_device
+from ..ops.csr_pool import embedding_bag_csr_grad, embedding_bag_csr_packed, embedding_bag_csr_sum
+from ..ops.gather_pool import embedding_bag_fixedl
 
 CONFIGS = {"kaggle": kaggle_config, "random": random_config, "toy": toy_config}
 REPO = Path(__file__).resolve().parents[2]  # the checkout holding the package
@@ -48,6 +50,39 @@ def device_info(dev: torch.device) -> dict:
     return {"device_name": "cpu", "device_count": 1}
 
 
+def zero_kernel_launches() -> None:
+    """Sets every launch counter of the pool kernels' wrappers to 0."""
+    for fn in (embedding_bag_fixedl, embedding_bag_csr_packed):
+        fn.launches = fn.int8_launches = fn.int8_row_launches = 0
+    embedding_bag_csr_packed.masked_launches = embedding_bag_csr_packed.masked_int8_launches = 0
+    embedding_bag_csr_sum.launches = 0
+    embedding_bag_csr_grad.launches = embedding_bag_csr_grad.masked_launches = 0
+
+
+def kernel_launches(full_width: bool = False) -> dict:
+    """The pool kernels' launches, by row of the kernel table (PERF.md):
+    K1 and K2 on float storage, K2 without an ownership mask (K3's row with
+    ``full_width``: the caller's K2 launches were at d % 128 == 0), their
+    int8 instances in each scale mode, masked K2 on float storage, K4's
+    forward, its backward and its masked backward.  Each launch counts in
+    one row; K1's masked launches count in K1's.  The wrappers count a
+    launch only where they launch their kernel on the card."""
+    k1, k2, grad = embedding_bag_fixedl, embedding_bag_csr_packed, embedding_bag_csr_grad
+    masked = k2.masked_launches - k2.masked_int8_launches
+    return {
+        "K1": k1.launches - k1.int8_launches,
+        "K1 int8 table": k1.int8_launches - k1.int8_row_launches,
+        "K1 int8 row": k1.int8_row_launches,
+        "K3" if full_width else "K2": k2.launches - k2.int8_launches - masked,
+        "K2 int8 table": k2.int8_launches - k2.int8_row_launches,
+        "K2 int8 row": k2.int8_row_launches,
+        "K2 masked": masked,
+        "K4 fwd": embedding_bag_csr_sum.launches,
+        "K4 bwd": grad.launches - grad.masked_launches,
+        "K4 bwd masked": grad.masked_launches,
+    }
+
+
 def uniform_ids(rng: np.random.Generator, tables, n: int) -> np.ndarray:
     """[T, n] int32 uniform local ids, drawn table by table as the JAX
     tools draw them."""
@@ -62,19 +97,24 @@ def rotation(tables, device) -> tuple[torch.Tensor, torch.Tensor]:
                          device=device)[:, None])
 
 
-def rotate(idx: torch.Tensor, rows, stride) -> torch.Tensor:
+def rotate(idx, rows, stride):
     """Each table's ids moved by its stride, modulo its rows: a bijection,
-    so the ids' duplicate structure stays the same."""
+    so the ids' duplicate structure stays the same.  ``idx`` is a [T, *]
+    tensor or a tuple of them (the bucketed CSR wire's id arrays), each
+    rotated alike."""
+    if isinstance(idx, tuple):
+        return tuple((a + stride) % rows for a in idx)
     return (idx + stride) % rows
 
 
 class RotatingLoop:
     """One call runs ``body(idx)``, adds the sum of its output to ``acc``
-    and rotates ``idx``; ``acc`` and ``idx`` stay on the device."""
+    and rotates ``idx`` (a tensor or a tuple of them, :func:`rotate`);
+    ``acc`` and ``idx`` stay on the device."""
 
-    def __init__(self, body, idx: torch.Tensor, rows, stride):
+    def __init__(self, body, idx, rows, stride):
         self.body, self.idx, self.rows, self.stride = body, idx, rows, stride
-        self.acc = torch.zeros((), dtype=torch.float32, device=idx.device)
+        self.acc = torch.zeros((), dtype=torch.float32, device=rows.device)
 
     def __call__(self):
         out = self.body(self.idx)

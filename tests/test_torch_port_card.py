@@ -966,3 +966,44 @@ def test_cli_toy_run_on_card(cuda, tmp_path):
                        capture_output=True, text=True, cwd=repo, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "accuracy=" in r.stdout and "inference:" in r.stdout
+
+
+# -- the lookup bench's configurations (bench.build_lookup) --------------------------
+
+
+def _copy_params(dst, src):
+    """Copy params ``src`` (tensors, dicts of them, None) into ``dst`` in
+    place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_params(dst[k], src[k])
+    elif dst is not None:
+        dst.copy_(src.cpu())
+
+
+@pytest.mark.parametrize("wire,ragged", [("dense", False), ("csr", False), ("csr", True),
+                                         ("csr-bucketed", True)])
+@pytest.mark.parametrize("hybrid,dtype,scale", [
+    (True, "float32", "table"), (True, "bfloat16", "table"), (True, "int8", "table"),
+    (True, "int8", "row"), (False, "float32", "table"), (False, "bfloat16", "table"),
+    (False, "int8", "table"), (False, "int8", "row")])
+def test_bench_lookup_matches_cpu(cuda, hybrid, dtype, scale, wire, ragged):
+    """Every branch of ``bench.build_lookup`` (hybrid or not, f32, bf16 and
+    int8 in both scale modes, on every wire) at toy size: the first call on
+    the card, through the pool kernels, against the same lookup on the CPU
+    on the card's tables and the same ids."""
+    from pim_embedding_lookup_tpu_torch import bench
+    from pim_embedding_lookup_tpu_torch.tools import common
+
+    tables = tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}")
+                   for i, n in enumerate((3, 24, 583, 1460, 9000, 20000)))
+    kw = dict(seed=3, hybrid=hybrid, dtype=dtype, mxu_threshold=1000, wire=wire,
+              int8_scale=scale, csr_ragged=ragged)
+    on_card = bench.build_lookup(tables, 64, 3, device=cuda, **kw)
+    on_cpu = bench.build_lookup(tables, 64, 3, device="cpu", **kw)
+    _copy_params(on_cpu.params, on_card.params)
+    before = sum(common.kernel_launches().values())
+    got = on_card.fn(on_card.idx)
+    torch.cuda.synchronize()
+    assert sum(common.kernel_launches().values()) > before  # the big set's kernel ran
+    torch.testing.assert_close(got.cpu(), on_cpu.fn(on_cpu.idx), **TOL)

@@ -163,7 +163,8 @@ def test_dataset_branch_on_npz(tmp_path):
 
 
 def test_refusals():
-    cases = [(("bench", "--device=cpu"), "ROADMAP.md"), (("sweep", "--device=cpu"), "ROADMAP.md"),
+    cases = [(("bench", "--device=cpu", "--config=toy", "--tables-filter=big"), "leaves no table"),
+             (("sweep", "--device=cpu"), "--grid"),
              (("train", "--mesh-model=4", "--num-batches=1", "--device=cpu"), "torchrun")]
     if not torch.cuda.is_available():  # the default device is the card: no CPU fallback
         cases.append((("train", "--num-batches=1"), "CUDA is not available"))
