@@ -52,15 +52,19 @@ pim_embedding_lookup_tpu_torch.cli bench`` in subprocesses at full width:
 Criteo Kaggle on every wire, dtype and set of tables, r.sh's random and
 bigtable presets, each configuration's first call held in this process
 against its plain versions; then ``cli sweep`` over the r.sh grids up to
-32 x 13.9M x 64 bf16, 56.9 GB) and, with two cards or more, ``multi_gpu``
-(which also runs the scaling bench and the bench under torchrun over all
-the cards).  The native
+32 x 13.9M x 64 bf16, 56.9 GB), ``surface`` (200 seeds of the JAX suite's
+query-surface fuzz, bf16 added, under REPLICATE, ROW_HASH and the drawn
+policy on an NCCL process group of one, both wires, against the CPU and a
+numpy oracle; then the full-row int8 DLRM saved by ``utils.checkpoint``
+and restored bit for bit in both scale modes) and, with two cards or more,
+``multi_gpu`` (which also runs the scaling bench and the bench under
+torchrun over all the cards, and the surface battery over NCCL).  The native
 feeder library (``native/libpelfeeder.so``) is built beside the kernels
 where it is absent, and its bucket packer feeds the bucketed CSR dispatch,
 byte-identical to the numpy packer.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only tools       # one phase alone (or bench, multi_gpu)
+    python3 chip_smoke.py --only tools       # one phase alone (or bench, surface, multi_gpu)
 
 Needs one CUDA device, nvcc and a C++ toolchain (``make``); exits non-zero,
 printing no result, without them.  Any failed check raises.  The line before the last is a JSON object
@@ -113,6 +117,7 @@ from pim_embedding_lookup_tpu_torch import (
     multihost_battery,
     ops,
     quantize_dlrm_embeddings,
+    surface_battery,
 )
 from pim_embedding_lookup_tpu_torch.data import SyntheticDLRMBatches, device_prefetch
 from pim_embedding_lookup_tpu_torch.models import bce_loss
@@ -1798,17 +1803,21 @@ def _spawn(cmds, timeout, env=None):
     return [out for out, _ in outs]
 
 
-def run_battery(data, model, device, tmp):
-    """``mesh_battery`` on data*model processes (NCCL over the cards, or
-    gloo on the CPU, one thread each); each rank's results."""
+def run_battery(data, model, device, tmp, battery=mesh_battery, inputs=None):
+    """A battery (``mesh_battery`` on its inputs from SEED, or another with
+    the same arguments, such as ``surface_battery``, on ``inputs``; a
+    battery's checkpoints go to the run's directory) on data*model
+    processes (NCCL over the cards, or gloo on the CPU, one thread each);
+    each rank's results."""
     world = data * model
-    out = os.path.join(tmp, f"{device}_{data}x{model}")
+    name = battery.__name__.rsplit(".", 1)[-1]
+    out = os.path.join(tmp, f"{name}_{device}_{data}x{model}")
     os.makedirs(out)
-    inputs = os.path.join(out, "inputs.npz")
-    np.savez(inputs, **mesh_battery.make_inputs(SEED, data))
-    cmd = [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.mesh_battery"]
+    path = os.path.join(out, "inputs.npz")
+    np.savez(path, **(mesh_battery.make_inputs(SEED, data) if inputs is None else inputs))
+    cmd = [sys.executable, "-m", battery.__name__]
     _spawn([cmd + [str(r), str(world), str(data), str(model), os.path.join(out, "store"),
-                   inputs, out, device] for r in range(world)],
+                   path, out, device] for r in range(world)],
            timeout=600, env=dict(os.environ, OMP_NUM_THREADS="1"))
     return [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(world)]
 
@@ -1968,19 +1977,21 @@ def multihost_worker(out):
 
 
 def compare_battery(got, want, label):
-    """Every rank's NCCL results against rank 0 of the gloo run: drop counts,
-    hot ids and refusals exactly, values at the CPU tests' tolerances (a
-    result that passes through bf16 within 2**-6 of its largest value)."""
+    """Every rank's NCCL results against the same rank of the gloo run: drop
+    counts, hot ids, refusals and other integers exactly, values at the CPU
+    tests' tolerances (a result that passes through bf16 within 2**-6 of
+    its largest value)."""
     cases = 0
     for r, ranked in enumerate(got):
-        if set(ranked) != set(want[0]):
+        if set(ranked) != set(want[r]):
             raise AssertionError(f"{label} rank {r}: other results "
-                                 f"{sorted(set(ranked) ^ set(want[0]))}")
-        for key, val in want[0].items():
+                                 f"{sorted(set(ranked) ^ set(want[r]))}")
+        for key, val in want[r].items():
             case, name = key.split("/", 1)
             if name == "error":
                 raise AssertionError(f"{label} {case}: {bytes(val).decode()[-2000:]}")
-            if name.endswith("dropped") or name in ("hot_ids", "error_text"):
+            if (name.endswith(("dropped", "error_text")) or name == "hot_ids"
+                    or val.dtype.kind != "f"):
                 np.testing.assert_array_equal(ranked[key], val, err_msg=f"{label} {key}")
             elif (case, name) in mesh_battery.BF16_RESULTS:
                 np.testing.assert_allclose(ranked[key], val, rtol=0,
@@ -2531,6 +2542,264 @@ def bench_phase():
     return launches
 
 
+SURFACE_SEEDS = 200
+SURFACE_ORACLE_TOL = {"int8": 2e-3}  # the JAX suite's; 1e-4 for float storage
+
+
+def csr_oracle(host_tables, idx, off, combiner):
+    """The pooled bags of a CSR query [T, C], [T, B+1] by numpy, empty bags
+    0 (the JAX suite's oracle, tests/test_surface_matrix.py:30-42, on CSR)."""
+    t, b = off.shape[0], off.shape[1] - 1
+    out = np.zeros((b, t, host_tables[0].shape[1]), np.float32)
+    for ti in range(t):
+        for bi in range(b):
+            rows = host_tables[ti][idx[ti, off[ti, bi]:off[ti, bi + 1]]]
+            if len(rows):
+                out[bi, ti] = {"sum": rows.sum(0), "mean": rows.mean(0),
+                               "max": rows.max(0)}[combiner]
+    return out
+
+
+def stored_values(host_tables, spec):
+    """The values a case's storage holds, as f32 numpy: int8 codes times
+    their scale (the JAX suite's ``quant_roundtrip``), bf16-rounded rows,
+    or the tables as drawn."""
+    if spec["storage"] == "bf16":
+        return [torch.from_numpy(t).to(torch.bfloat16).float().numpy() for t in host_tables]
+    if spec["storage"] != "int8":
+        return host_tables
+    out = []
+    for t in host_tables:
+        if spec["scale_mode"] == "table":
+            am = np.abs(t).max()
+            scale = np.full(t.shape[0], am / 127.0 if am > 0 else 1.0, np.float32)
+        else:
+            am = np.abs(t).max(axis=1)
+            scale = np.where(am > 0, am / 127.0, 1.0).astype(np.float32)
+        q = np.clip(np.round(t / scale[:, None]), -127, 127).astype(np.int8)
+        out.append(q.astype(np.float32) * scale[:, None])
+    return out
+
+
+def surface_phase():
+    """The query surface on the card, on an NCCL process group of one over a
+    file store ((1, 1) mesh), as ``mesh_1`` joins one: the fuzz
+    (:func:`surface_fuzz`), then the int8 checkpoint round trip at full
+    Kaggle width (:func:`surface_checkpoint`).  Returns the launches of
+    both by kernel-table row, K1's launches under the ownership mask in
+    their own row ("K1 masked")."""
+    store = tempfile.mkdtemp(prefix="pel_surface_")
+    try:
+        init_distributed(0, 1, f"file://{store}/store")
+        try:
+            mesh = make_mesh(data=1, model=1)
+            t0 = time.perf_counter()
+            launches = surface_fuzz(mesh)
+            print(f"surface fuzz: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            add_counts(launches, surface_checkpoint(mesh, store))
+            print(f"surface checkpoint: {time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
+def surface_fuzz(mesh):
+    """Seeds 0-199 of the query-surface fuzz (``surface_battery.draw_fuzz``:
+    the JAX suite's draw, with bf16 as a third storage kind), each case's
+    tables, dim, packing, storage, scale mode and combiner placed three
+    ways: REPLICATE on one card, ROW_HASH on the mesh, and the drawn
+    policy on the mesh (routed where it is rowish and the draw routes).
+    Each placement runs ``lookup_csr`` and, through ``csr_to_dense``, the
+    dense-wire lookup; each result equals REPLICATE on the CPU (the plain
+    versions) within 1e-5 abs + 1e-5 rel, the numpy oracle within the JAX
+    suite's tolerance (1e-4; int8 2e-3), and a second run bit for bit;
+    routed calls drop nothing.  Deterministic algorithms (``index_add_``
+    sorts: the routed pools add in a fixed order).  Prints the cases and
+    the worst error against the CPU per kernel instance, and the seeds the
+    planner refused (COLUMN with packed=True, with its message)."""
+    cases, worst, refused, total = {}, {}, {}, {}
+    with deterministic(), torch.no_grad():
+        for seed in range(SURFACE_SEEDS):
+            spec, arrays = surface_battery.draw_fuzz(seed, mesh.data, bf16=True)
+            host = [arrays[f"table{i}"] for i in range(len(spec["rows"]))]
+            oracle_tol = SURFACE_ORACLE_TOL.get(spec["storage"], 1e-4)
+            placements = [("replicate", None), ("row_hash", mesh)]
+            if spec["policy"] not in ("replicate", "row_hash"):
+                placements.append((spec["policy"], mesh))
+            cpu_coll, cpu_params = surface_battery.build(spec, host, "replicate", device="cpu")
+            cpu_q = [torch.from_numpy(arrays[k]) for k in ("idx", "off")]
+            dev_q = [q.to(DEV) for q in cpu_q]
+            oracle = csr_oracle(stored_values(host, spec), arrays["idx"], arrays["off"],
+                                spec["combiner"])
+            for wire in ("csr", "dense"):
+                want, _ = surface_battery.lookup(cpu_coll, cpu_params, spec, *cpu_q,
+                                                 wire=wire, routed=False)
+                np.testing.assert_allclose(want.numpy(), oracle, rtol=oracle_tol,
+                                           atol=oracle_tol, err_msg=f"seed {seed} CPU {wire}")
+                for policy, on in placements:
+                    try:
+                        coll, params = surface_battery.build(spec, host, policy, mesh=on,
+                                                             device=DEV)
+                    except ValueError as e:
+                        if not (policy == "column" and spec["packed"]):
+                            raise
+                        refused[seed] = f"{type(e).__name__}: {e}"
+                        continue
+                    rowish = on is not None and policy in surface_battery.ROWISH
+                    routed = spec["routed"] and rowish
+                    tag = f"seed {seed} {policy} {wire} {spec}"
+                    zero_kernel_launches()
+                    got, dropped = surface_battery.lookup(coll, params, spec, *dev_q,
+                                                          wire=wire, routed=routed)
+                    torch.cuda.synchronize()
+                    counts = kernel_launches()
+                    again, _ = surface_battery.lookup(coll, params, spec, *dev_q, wire=wire,
+                                                      routed=routed)
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{tag}: a second run differs")
+                    if routed and int(dropped.item()):
+                        raise AssertionError(f"{tag}: routed lookup dropped {dropped.item()}")
+                    got = got.cpu()
+                    torch.testing.assert_close(got, want, **KERNEL_TOL, msg=tag)
+                    np.testing.assert_allclose(got.numpy(), oracle, rtol=oracle_tol,
+                                               atol=oracle_tol, err_msg=tag)
+                    err = (got - want).abs().max().item() if got.numel() else 0.0
+                    masked = rowish and not routed
+                    for row, n in counts.items():
+                        if not n:
+                            continue
+                        inst = f"{row} masked" if masked and row != "K2 masked" else row
+                        cases[inst] = cases.get(inst, 0) + 1
+                        worst[inst] = max(worst.get(inst, 0.0), err)
+                        key = "K1 masked" if masked and row == "K1" else row
+                        total[key] = total.get(key, 0) + n
+    if refused and any(not v.startswith("ValueError: packed storage unsupported")
+                       for v in refused.values()):
+        raise AssertionError(f"surface: unexpected refusals {refused}")
+    for inst in ("K1", "K2", "K1 masked", "K2 masked", "K1 int8 table", "K1 int8 row",
+                 "K2 int8 table", "K2 int8 row"):
+        if not cases.get(inst):
+            raise AssertionError(f"surface: no case launched {inst}: {cases}")
+    print(f"surface: {SURFACE_SEEDS} seeds of the query-surface fuzz, REPLICATE, ROW_HASH "
+          "and the drawn policy on an NCCL mesh of one, lookup_csr and the dense wire, "
+          "each equal to REPLICATE on the CPU (1e-5 abs + 1e-5 rel) and the numpy oracle "
+          "(1e-4; int8 2e-3), repeated runs bitwise equal, routed drops 0; cases per "
+          f"kernel instance {json.dumps(dict(sorted(cases.items())))}; worst abs error "
+          "against the CPU per instance "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in sorted(worst.items())})}; "
+          f"seeds refused by the planner {sorted(refused)} "
+          f"({set(refused.values()) or 'none'})", flush=True)
+    return total
+
+
+def surface_checkpoint(mesh, tmp):
+    """int8 params through ``utils.checkpoint`` at full width: the
+    full-row Kaggle hybrid DLRM (REPLICATE, from a seed) quantized by
+    ``quantize_dlrm_embeddings`` in each scale mode serves one B=8192
+    request; its params (int8 big set, f32 small set and MLPs) are saved,
+    restored into a model built from another seed and quantized the same
+    way, and the same request served again: the logits bit for bit.  Then
+    a ROW_HASH model's checkpoint on the mesh of one, restored into a
+    REPLICATE template, is refused ("layout mismatch").  Prints each
+    checkpoint's bytes, save and restore seconds and the request's device
+    ms before and after; returns the served requests' launches."""
+    config = kaggle_config()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    model = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=DEV, generator=gen)
+    fresh = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=DEV,
+                 generator=torch.Generator(device=DEV).manual_seed(SEED + 12))
+    dense, idx, mask = request(config, gen, BATCH)
+
+    def serve_int8(m, coll, emb):
+        return m.apply_from_pooled(dense, coll.lookup(emb, idx, mask, batch_size=BATCH))
+
+    launches = {}
+    for mode in SCALE_MODES:
+        path = os.path.join(tmp, f"int8_{mode}")
+        with torch.no_grad():
+            coll, emb = quantize_dlrm_embeddings(model, scale_mode=mode)
+            fcoll, femb = quantize_dlrm_embeddings(fresh, scale_mode=mode)
+            zero_kernel_launches()
+            before = serve_int8(model, coll, emb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(path, {**checkpoint.model_params(model), "emb": emb},
+                            meta=checkpoint.collection_meta(coll))
+            save_s = time.perf_counter() - t0
+            template = {**checkpoint.model_params(fresh), "emb": femb}
+            t0 = time.perf_counter()
+            restored = checkpoint.restore(path, template,
+                                          expect_meta=checkpoint.collection_meta(fcoll))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            after = serve_int8(fresh, fcoll, restored["emb"])
+            torch.cuda.synchronize()
+            add_counts(launches, kernel_launches())
+            if not torch.equal(before, after) or not torch.isfinite(before).all():
+                raise AssertionError(f"surface checkpoint {mode}: logits differ after the "
+                                     f"round trip by {(before - after).abs().max().item()}")
+            ms = [device_ms(lambda m=m, c=c, e=e: serve_int8(m, c, e), [()], calls=3)
+                  for m, c, e in ((model, coll, emb), (fresh, fcoll, restored["emb"]))]
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        big = emb["big"]
+        print(f"surface checkpoint {mode}: full-row Kaggle int8 DLRM (big set "
+              f"{tuple(big['q'].shape)} int8 codes"
+              + (f" + {big['scale'].numel() * 4 / 1e9:.3f} GB row scales" if "scale" in big
+                 else "") + f"), checkpoint {size} bytes in {sorted(os.listdir(path))}, "
+              f"save {save_s:.3f} s, restore {restore_s:.3f} s; B={BATCH} request device ms "
+              f"{ms[0]:.4f} before, {ms[1]:.4f} after the round trip; logits bit-equal",
+              flush=True)
+        shutil.rmtree(path)
+        del coll, emb, fcoll, femb, template, restored
+    del model, fresh
+    rh = DLRM(config, ShardingPolicy.ROW_HASH, hybrid=True, mesh=mesh,
+              generator=torch.Generator(device=DEV).manual_seed(SEED + 13))
+    rep = DLRM(config, ShardingPolicy.REPLICATE, hybrid=True, device=DEV,
+               generator=torch.Generator(device=DEV).manual_seed(SEED + 13))
+    path = os.path.join(tmp, "int8_row_hash")
+    with torch.no_grad():
+        coll, emb = quantize_dlrm_embeddings(rh, scale_mode="table")
+        checkpoint.save(path, {**checkpoint.model_params(rh), "emb": emb},
+                        meta=checkpoint.collection_meta(coll), mesh=mesh)
+        rcoll, remb = quantize_dlrm_embeddings(rep, scale_mode="table")
+        try:
+            checkpoint.restore(path, {**checkpoint.model_params(rep), "emb": remb},
+                               expect_meta=checkpoint.collection_meta(rcoll))
+        except ValueError as e:
+            if "layout mismatch" not in str(e):
+                raise
+            print(f"surface checkpoint: the ROW_HASH model's checkpoint (mesh of one, "
+                  f"{sorted(os.listdir(path))}) restored into a REPLICATE template: "
+                  f"refused, {str(e)[:160]}...", flush=True)
+        else:
+            raise AssertionError("surface checkpoint: a ROW_HASH checkpoint restored into "
+                                 "a REPLICATE template")
+    shutil.rmtree(path)
+    return launches
+
+
+def surface_multi_gpu(w, tmp):
+    """``surface_battery`` (the query-surface fuzz, bf16 routed and
+    broadcast, int8 checkpoints with one file per model shard) over NCCL on
+    ``w`` cards, (data 2, model 2) on 4, else (1, w), against the same
+    battery over gloo on the CPU, rank by rank."""
+    data, model = (2, 2) if w == 4 else (1, w)
+    t0 = time.perf_counter()
+    inputs = surface_battery.make_inputs(data)
+    got, want = (run_battery(data, model, kind, tmp, surface_battery, inputs)
+                 for kind in ("cuda", "cpu"))
+    cases = compare_battery(got, want, f"multi_gpu surface {data}x{model}")
+    refused = sorted(k.split("/")[0] for k, v in want[0].items()
+                     if k.startswith("fuzz-") and k.endswith("/error_text"))
+    print(f"multi_gpu: surface battery, mesh (data {data}, model {model}) over NCCL on "
+          f"{w} cards: {cases} cases equal to the gloo run on the CPU rank by rank (rtol 1e-5 "
+          f"atol 1e-6; drop counts, refusals and checkpoint checks exact; refused {refused}) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def multi_gpu_phase():
     """Across min(4, count) cards (only where the machine shows more than
     one): the toy battery of the sharded engine over NCCL equal to the same
@@ -2559,6 +2828,7 @@ def multi_gpu_phase():
                   f"{data * model} cards: {cases} cases equal to the gloo run on the CPU "
                   f"(rtol 1e-5 atol 1e-6; 3-step traces rtol 1e-4; drop counts exact) in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
+        surface_multi_gpu(w, tmp)
         t0 = time.perf_counter()
         hw = 2 * (w // 2)  # 2 hosts of hw / 2 processes
         hosts = {kind: run_multihost_battery(kind, hw, tmp) for kind in ("cuda", "cpu")}
@@ -2630,7 +2900,7 @@ def main(argv) -> int:
     if argv[:1] == ["--multihost-worker"]:  # the process of multihost_1
         return multihost_worker(argv[1])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("multi_gpu", "tools", "bench"):
+    if argv and only not in ("multi_gpu", "tools", "bench", "surface"):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2660,7 +2930,8 @@ def main(argv) -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     if only is not None:  # one phase alone (multi_gpu: e.g. on a 4-chip call)
-        {"multi_gpu": multi_gpu_phase, "tools": tools_phase, "bench": bench_phase}[only]()
+        {"multi_gpu": multi_gpu_phase, "tools": tools_phase, "bench": bench_phase,
+         "surface": surface_phase}[only]()
         print(f"chip_smoke: {only} phase passed in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0
@@ -2951,6 +3222,11 @@ def main(argv) -> int:
     benched = bench_phase()
     print(f"bench phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 13e. surface: the query-surface fuzz and the full-width int8 checkpoint
+    t0 = time.perf_counter()
+    surfaced = surface_phase()
+    print(f"surface phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. multi_gpu: the sharded engine over several cards, where there are --
     t0 = time.perf_counter()
     multi_gpu_phase()
@@ -2985,10 +3261,14 @@ def main(argv) -> int:
           "kernel lab at d=128; K4: the lab's pallas and scatter probes; masked K4 "
           "backward: the lab's drophot probe; int8: the capacity bench) and the bench "
           "phase's (its `bench <case>:` and `sweep` lines: the cli bench subprocesses and "
-          "the sweeps; K3: bigtable on the CSR wire; not its plain checks)",
+          "the sweeps; K3: bigtable on the CSR wire; not its plain checks) and the surface "
+          "phase's (the fuzz's first run of each lookup, K1 under ROW_HASH's ownership mask "
+          "in masked K1's row, masked int8 launches in the int8 rows; the int8 checkpoint's "
+          "served requests): " + json.dumps(surfaced),
           flush=True)
-    phases = dict(tools)  # the tools and bench phases' launches by kernel-table row
+    phases = dict(tools)  # the tools, bench and surface phases' launches by kernel-table row
     add_counts(phases, benched)
+    add_counts(phases, surfaced)
     print(json.dumps({"kernels": [
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu", "272",
               k1_launches + train_launches["K1"] + native_launches[0] + cli_k1
@@ -3003,7 +3283,8 @@ def main(argv) -> int:
         entry("K4 backward embedding_bag_csr_grad (CSR bag gradient)",
               "csr_pool.cu", "230", k4_launches[1] + phases["K4 bwd"], k4_bwd),
         entry("K1 masked embedding_bag_fixedl (row shard, ownership mask)",
-              "gather_pool.cu", "272", masked_launches["K1"], mean_row(shard_rows["K1"])),
+              "gather_pool.cu", "272", masked_launches["K1"] + phases.get("K1 masked", 0),
+              mean_row(shard_rows["K1"])),
         entry("K2 masked embedding_bag_csr_packed (row shard, ownership mask)",
               "csr_pool.cu", "92", masked_launches["K2"] + phases["K2 masked"],
               mean_row(shard_rows["K2"])),

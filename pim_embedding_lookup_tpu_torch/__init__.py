@@ -4,6 +4,7 @@ Importing the package builds nothing and imports no CUDA code: the kernels
 under ``csrc/`` are compiled at their first launch on a CUDA tensor.
 """
 
+from . import config, ops
 from .config import (
     KAGGLE_TABLE_ROWS,
     Combiner,
@@ -31,7 +32,7 @@ from .models import (
     quantize_dlrm_embeddings,
 )
 from .models.sparse_train import make_sparse_train_state, make_sparse_train_step
-from .ops import embedding_bag_fixedl, embedding_bag_fixedl_reference
+from .ops import embedding_bag, embedding_bag_fixedl, embedding_bag_fixedl_reference
 from .parallel import (
     EmbeddingCollection,
     FusedLayout,
@@ -52,5 +53,7 @@ __all__ = [
     "embedding_bag_fixedl", "embedding_bag_fixedl_reference",
     "EmbeddingCollection", "FusedLayout", "HybridEmbeddingCollection",
     "QuantizedEmbeddingCollection", "plan",
-    "resolve_pack",
+    "resolve_pack", "config", "ops", "embedding_bag",
 ]
+
+__version__ = "0.1.0"

@@ -50,18 +50,21 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 TRACE_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
-def _run_cluster(tmp, data, model, timeout=300, group="main"):
+def _run_cluster(tmp, data, model, timeout=300, group="main", module="mesh_battery",
+                 inp=None):
     """The battery's case ``group`` on ``data * model`` gloo processes;
-    returns the inputs and each rank's results."""
+    returns the inputs and each rank's results.  ``module``: another
+    battery of the port with the same arguments but no case group (None),
+    run on ``inp``."""
     world = data * model
-    inp = mb.make_inputs(SEED, data)
+    inp = mb.make_inputs(SEED, data) if inp is None else inp
     np.savez(tmp / "inputs.npz", **inp)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "pim_embedding_lookup_tpu_torch.mesh_battery", str(r),
+            [sys.executable, "-m", f"pim_embedding_lookup_tpu_torch.{module}", str(r),
              str(world), str(data), str(model), str(tmp / "store"), str(tmp / "inputs.npz"),
-             str(tmp), "cpu", group],
+             str(tmp), "cpu"] + ([group] if group else []),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
         for r in range(world)
     ]
