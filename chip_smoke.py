@@ -138,7 +138,8 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
-    row_path,
+    fitted_path,
+    kernel_path,
     walks_by_group,
 )
 from pim_embedding_lookup_tpu_torch.ops.ragged import (
@@ -258,33 +259,113 @@ def bound(moved_bytes, ops_count):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None):
+def in_turns(fns, id_sets) -> dict:
+    """Device ms of each of ``fns`` (name -> function of one id set), timed
+    in turns: in order, then in reverse (A B C C B A), so that drift over
+    the run falls on every function alike.  Returns name -> [ms, ms]."""
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        times[name].append(device_ms(fns[name], id_sets))
+    return times
+
+
+def path_label(pin) -> str:
+    """A kernel path as the lines print it: load bytes (or scalar), G and
+    walk."""
+    load, group, by_group = pin
+    return (f"{f'{load}-byte' if load else 'scalar'} G={group} "
+            f"{'by group' if by_group else 'by window'}")
+
+
+def check_kernel(got, want, slack=None):
+    """``got`` against the plain version's ``want`` at KERNEL_TOL, plus a
+    per-element ``slack`` where one is given (:func:`order_slack`)."""
+    if slack is None:
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        return
+    allowed = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * want.abs() + slack
+    over = (got - want).abs() - allowed
+    if over.max().item() > 0:
+        raise AssertionError(f"kernel differs from the plain version by "
+                             f"{(got - want).abs().max().item():.3g}, past KERNEL_TOL and "
+                             f"the summation bound by {over.max().item():.3g}")
+
+
+def order_slack(pooled_abs, bag_len):
+    """What two f32 sums of the same bag's terms in other orders may differ
+    by, past KERNEL_TOL (stated for short bags): the standard bound of
+    recursive summation, L * 2^-24 * sum|terms| each, twice.
+    ``pooled_abs``: the plain version over |codes| with the same scales;
+    ``bag_len``: the longest bag."""
+    return 2 * bag_len * 2.0 ** -24 * pooled_abs
+
+
+def checked_paths(run, want, paths, exact, slack=None):
+    """Each pinned path of ``paths`` (name -> pin; None: the wrapper's
+    choice) run on set 0 against the plain version's ``want``, at
+    KERNEL_TOL (plus ``slack``, :func:`check_kernel`) and, where ``exact``
+    (a row mask: bags of at most one entry) holds, bitwise.  Returns the
+    largest error over the paths."""
+    err = 0.0
+    for name, pin in paths.items():
+        got = run(pin)
+        torch.cuda.synchronize()
+        check_kernel(got, want, slack)
+        if not torch.equal(got[exact], want[exact]):
+            raise AssertionError(f"path {name}: bags of one entry differ from the plain version")
+        err = max(err, (got - want).abs().max().item())
+    return err
+
+
+def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, paths=None,
+            extra=None, abs_storage=None):
     """K1 against its plain version on set 0; kernel, plain and library
     times cycling through all sets; bound from set 0's data.  int8
     ``storage`` (with ``scale`` in "row" mode) has no library call
-    (``int8_library_probe``): ``f32_weight``'s F.embedding_bag is timed
-    beside it as a reference point."""
+    (``int8_library_probe``): ``f32_weight``'s F.embedding_bag, where
+    given, is timed beside it as a reference point.  ``paths`` (name ->
+    pinned path; "chosen" -> None, the wrapper's choice): each is held
+    against the plain version (bitwise at L=1) and the paths and
+    ``extra`` (name -> function of an id set) are timed in turns
+    (:func:`in_turns`); the kernel's time is then the mean of the
+    choice's two turns.  ``abs_storage`` (|codes| of int8 storage): the
+    checks allow :func:`order_slack` past KERNEL_TOL, for long bags."""
     ids, mask = id_sets[0]
     bags = ids.numel() // pooling
     kw = dict(pooling=pooling, batch_size=bags, scale=scale)
     got = embedding_bag_fixedl(storage, d, ids, mask=mask, **kw)
     want = embedding_bag_fixedl_reference(storage, d, ids, mask=mask, **kw)
+    slack = None if abs_storage is None else order_slack(
+        embedding_bag_fixedl_reference(abs_storage, d, ids, mask=mask, **kw), pooling)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    torch.testing.assert_close(got, want, **KERNEL_TOL)
+    check_kernel(got, want, slack)
 
     int8 = storage.dtype == torch.int8
-    weight = (f32_weight if int8 else storage).view(-1, d)
-    offsets = torch.arange(0, ids.numel(), pooling, dtype=torch.int32, device=DEV)
-    lib_sets = [(i, m.to(weight.dtype)) for i, m in id_sets]
     kernel = lambda i, m: embedding_bag_fixedl(storage, d, i, mask=m, **kw)  # noqa: E731
-    kernel_ms = device_ms(kernel, id_sets)
+    turns = None
+    if paths:
+        exact = torch.full((bags,), pooling == 1, device=DEV)
+        err = max(err, checked_paths(lambda p: embedding_bag_fixedl(
+            storage, d, ids, mask=mask, path=p, **kw), want, paths, exact, slack))
+        fns = {n: (lambda i, m, p=p: embedding_bag_fixedl(storage, d, i, mask=m, path=p, **kw))
+               for n, p in paths.items()}
+        turns = in_turns({**fns, **(extra or {})}, id_sets)
+        kernel_ms = statistics.mean(turns["chosen"])
+    else:
+        kernel_ms = device_ms(kernel, id_sets)
     kernel_call_ms = call_ms(kernel, id_sets)
     plain_ms = device_ms(
         lambda i, m: embedding_bag_fixedl_reference(storage, d, i, mask=m, **kw), id_sets)
-    embedding_bag_ms = device_ms(
-        lambda i, w: F.embedding_bag(i, weight, offsets, mode="sum", per_sample_weights=w),
-        lib_sets)
+    embedding_bag_ms = None
+    weight = f32_weight if int8 else storage
+    if weight is not None:
+        weight = weight.view(-1, d)
+        offsets = torch.arange(0, ids.numel(), pooling, dtype=torch.int32, device=DEV)
+        lib_sets = [(i, m.to(weight.dtype)) for i, m in id_sets]
+        embedding_bag_ms = device_ms(
+            lambda i, w: F.embedding_bag(i, weight, offsets, mode="sum", per_sample_weights=w),
+            lib_sets)
 
     active = int(mask.sum().item())
     bound_ms, bound_by = bound(
@@ -301,6 +382,11 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None):
     if int8:
         row.update(scale_mode="row" if scale is not None else "table",
                    f32_embedding_bag_ms=embedding_bag_ms)
+    if turns:
+        chosen = kernel_path(storage, d, ids.numel(), bags)
+        row.update(path=path_label(chosen), paths={
+            n: path_label(chosen if p is None else p) for n, p in paths.items()},
+            turns_ms=turns)
     print("K1 " + json.dumps(row), flush=True)
     return row
 
@@ -384,7 +470,8 @@ def edge_phase(gen):
         layouts = ["unpacked", "unaligned"] + (["packed"] if d < 128 and 128 % d == 0 else [])
         for layout in layouts:
             storage = edge_storage(gen, d, dtype, layout)
-            vector, group = row_path(storage, d)
+            row = kernel_path(storage, d, 1, 1)  # the row path; the walk is per case
+            vector, group = row.load > 0, row.group
             for tables, max_len, empty in ((1, 40, False), (10, 6, False), (3, 3, True),
                                            (2, 100, False)):
                 idx, off = edge_csr(gen, tables, max_len, empty)
@@ -471,34 +558,53 @@ def compact(idx, off, mask=None):
     return flat.long(), flat_off.long(), weights
 
 
-def csr_case(tag, name, storage, d, id_sets, scale=None, f32_weight=None):
+def csr_case(tag, name, storage, d, id_sets, scale=None, f32_weight=None, paths=None,
+             extra=None, abs_storage=None):
     """K2/K3 against its plain version on set 0 (fused ids [T, C], offsets
     [T, B+1], and for a row shard its [T, C] ownership mask); kernel, plain
     and library times cycling through all sets; bound from set 0's data:
     valid entries only, padding is not read, nor the rows of masked
-    entries.  int8 ``storage``: as in k1_case."""
+    entries.  int8 ``storage``, ``paths``, ``extra`` and ``abs_storage``:
+    as in k1_case (bitwise on the bags of at most one entry)."""
     idx, off, *masked = id_sets[0]
     mask = masked[0] if masked else None
     t, b = off.shape[0], off.shape[1] - 1
     kw = dict(batch_size=b, scale=scale)
     got = embedding_bag_csr_packed(storage, d, idx, off, mask=mask, **kw)
     want = embedding_bag_csr_packed_reference(storage, d, idx, off, mask=mask, **kw)
+    slack = None if abs_storage is None else order_slack(
+        embedding_bag_csr_packed_reference(abs_storage, d, idx, off, mask=mask, **kw),
+        int((off[:, 1:] - off[:, :-1]).max().item()))
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    torch.testing.assert_close(got, want, **KERNEL_TOL)
+    check_kernel(got, want, slack)
 
     int8 = storage.dtype == torch.int8
-    weight = (f32_weight if int8 else storage).view(-1, d)
-    lib_sets = [compact(*s) for s in id_sets]  # before the timed region
     kernel = lambda i, o, *m: embedding_bag_csr_packed(  # noqa: E731
         storage, d, i, o, mask=m[0] if m else None, **kw)
-    kernel_ms = device_ms(kernel, id_sets)
+    turns = None
+    if paths:
+        exact = ((off[:, 1:] - off[:, :-1]) <= 1).reshape(-1)
+        err = max(err, checked_paths(lambda p: embedding_bag_csr_packed(
+            storage, d, idx, off, mask=mask, path=p, **kw), want, paths, exact, slack))
+        fns = {n: (lambda i, o, *m, p=p: embedding_bag_csr_packed(
+                   storage, d, i, o, mask=m[0] if m else None, path=p, **kw))
+               for n, p in paths.items()}
+        turns = in_turns({**fns, **(extra or {})}, id_sets)
+        kernel_ms = statistics.mean(turns["chosen"])
+    else:
+        kernel_ms = device_ms(kernel, id_sets)
     kernel_call_ms = call_ms(kernel, id_sets)
     plain_ms = device_ms(lambda i, o, *m: embedding_bag_csr_packed_reference(
         storage, d, i, o, mask=m[0] if m else None, **kw), id_sets)
-    embedding_bag_ms = device_ms(lambda i, o, *w: F.embedding_bag(
-        i, weight, o, mode="sum", include_last_offset=True,
-        per_sample_weights=w[0] if w else None), lib_sets)
+    embedding_bag_ms = None
+    weight = f32_weight if int8 else storage
+    if weight is not None:
+        weight = weight.view(-1, d)
+        lib_sets = [compact(*s) for s in id_sets]  # before the timed region
+        embedding_bag_ms = device_ms(lambda i, o, *w: F.embedding_bag(
+            i, weight, o, mode="sum", include_last_offset=True,
+            per_sample_weights=w[0] if w else None), lib_sets)
 
     valid = torch.arange(idx.shape[1], device=DEV)[None, :] < off[:, -1:]
     active = int(valid.sum().item())
@@ -519,6 +625,11 @@ def csr_case(tag, name, storage, d, id_sets, scale=None, f32_weight=None):
     if int8:
         row.update(scale_mode="row" if scale is not None else "table",
                    f32_embedding_bag_ms=embedding_bag_ms)
+    if turns:
+        chosen = kernel_path(storage, d, idx.shape[1], b)
+        row.update(path=path_label(chosen), paths={
+            n: path_label(chosen if p is None else p) for n, p in paths.items()},
+            turns_ms=turns)
     print(f"{tag} " + json.dumps(row), flush=True)
     return row
 
@@ -652,8 +763,32 @@ def k4_masked_case(name, storage, d, id_sets, gen):
 SCALE_MODES = ("table", "row")
 # int8 against f32 logits: the bound of tests/test_quantize_serving.py
 INT8_LOGIT_ATOL = 0.05
+# 4-byte words (16-byte loads too where d is a multiple of 16), the scalar path
 INT8_EDGE = ((16, "packed"), (16, "unpacked"), (32, "unpacked"), (4, "unpacked"),
-             (20, "unpacked"), (16, "unaligned"))  # 16-byte vector rows, the scalar path
+             (20, "unpacked"), (64, "packed"), (16, "unaligned"), (4, "unaligned"))
+# the capacity bench's width: 4 tables of 5M rows of 64 codes (1.28 GB, far
+# past the 50 MB L2), B=8192 at L=1; and cli sweep's int8 points, 32 tables
+# x B=64 at L=120, over the same rows
+WIDE_TABLES, WIDE_ROWS, WIDE_D = 4, 5_000_000, 64
+SWEEP_BAGS, SWEEP_TABLES, SWEEP_L = 64, 32, 120
+WIDE_ID_SETS = 32  # 32 x 2 MB of rows at L=1: past L2
+# where the wrapper turns from 8-byte to 4-byte int8 row loads: both pinned
+# at these pooling factors, at the Kaggle width (10 tables, d=16) and the
+# capacity width (4 tables, d=64), B=8192 a table
+CROSS_L = (1, 2, 3, 4, 8, 16)
+CROSS_SHAPES = ((16, 10), (WIDE_D, WIDE_TABLES))  # (d, tables)
+CROSS_ID_SETS = 8  # 8 x 5-42 MB of rows a shape
+
+
+def int8_paths(storage, d, entries, bags) -> dict:
+    """The int8 paths timed in turns, by name: the first int8 design (16
+    codes a lane) pinned, the wrapper's choice (8-byte loads for short
+    bags, 4-byte words for long ones), and each of those loads pinned.
+    Each falls back to the scalar path where the storage does not take its
+    load."""
+    return {"16-byte": fitted_path(storage, d, entries, bags, 16), "chosen": None,
+            "8-byte": fitted_path(storage, d, entries, bags, 8),
+            "4-byte": fitted_path(storage, d, entries, bags, 4)}
 
 
 def int8_edge_storage(gen, d, layout):
@@ -674,49 +809,58 @@ def int8_edge_storage(gen, d, layout):
 
 def int8_edge_phase(gen):
     """int8 K1 and K2 against their plain versions at toy sizes, in both
-    scale modes: 16-byte vector rows (d = 16 packed and unpacked, 32) and
-    the scalar path (d = 4, 20, and 16 one byte into its buffer); both id
-    walks; K2 unmasked and with a row shard's mask; K1 at L = 1, 3, 9 with
-    no mask, a random mask and an all-false one; row 0 all zero with scale
-    1.  Padding and masked entries hold ids that fault if read (a read of
-    their scales would too).  Repeated launches bitwise equal.  Returns the
-    number of cases."""
+    scale modes, each on the wrapper's path (8-byte loads, or 4-byte words
+    for long bags and d = 4, 20: d = 4, 20, 32, 16 and 64 packed and
+    unpacked; the scalar path: d = 16 and 4 one byte into their buffers)
+    and on the first int8 design's 16-byte loads pinned (the
+    scalar path where d is not a multiple of 16); both id walks; K2
+    unmasked and with a row shard's mask; K1 at L = 1, 3, 9 with no mask, a
+    random mask and an all-false one; row 0 all zero with scale 1.  Padding
+    and masked entries hold ids that fault if read (a read of their scales
+    would too).  Repeated launches bitwise equal, and at L = 1 equal to the
+    plain version.  Returns the number of cases."""
     cases, paths = 0, set()
-    for (d, layout), mode in itertools.product(INT8_EDGE, SCALE_MODES):
+    for (d, layout), mode, design in itertools.product(INT8_EDGE, SCALE_MODES,
+                                                       ("chosen", "16-byte")):
         storage, scale = int8_edge_storage(gen, d, layout)
         scale = scale if mode == "row" else None
-        vector, group = row_path(storage, d)
         for (tables, max_len, empty), masked in itertools.product(
                 ((1, 40, False), (10, 6, False), (3, 3, True), (2, 100, False)), (False, True)):
             idx, off = edge_csr(gen, tables, max_len, empty)
+            pin = None if design == "chosen" else fitted_path(
+                storage, d, idx.shape[1], EDGE_BAGS, 16)
+            used = pin or kernel_path(storage, d, idx.shape[1], EDGE_BAGS)
             clean = torch.where(idx == NEVER_READ, 0, idx)
             mask = torch.rand(idx.shape, generator=gen, device=DEV) < 0.5 if masked else None
             read = torch.where(mask, idx, NEVER_READ) if masked else idx
             kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
-            got = embedding_bag_csr_packed(storage, d, read, off, **kw)
-            again = embedding_bag_csr_packed(storage, d, read, off, **kw)
+            got = embedding_bag_csr_packed(storage, d, read, off, path=pin, **kw)
+            again = embedding_bag_csr_packed(storage, d, read, off, path=pin, **kw)
             want = embedding_bag_csr_packed_reference(storage, d, clean, off, **kw)
             torch.testing.assert_close(got, want, **KERNEL_TOL)
             if not torch.equal(got, again):
-                raise AssertionError(f"int8 K2 not deterministic: d={d} {layout} {mode}")
+                raise AssertionError(f"int8 K2 not deterministic: d={d} {layout} {mode} {design}")
             cases += 1
-            paths.add(("K2", vector, walks_by_group(group, idx.shape[1], EDGE_BAGS)))
+            paths.add(("K2", used.load > 0, used.by_group))
         for pooling, masking in itertools.product((1, 3, 9), ("none", "random", "false")):
             n = EDGE_BAGS * pooling
+            pin = None if design == "chosen" else fitted_path(storage, d, n, EDGE_BAGS, 16)
+            used = pin or kernel_path(storage, d, n, EDGE_BAGS)
             ids = torch.randint(0, EDGE_ROWS, (n,), generator=gen, device=DEV, dtype=torch.int32)
             mask = {"none": None,
                     "random": torch.rand(n, generator=gen, device=DEV) < 0.6,
                     "false": torch.zeros(n, dtype=torch.bool, device=DEV)}[masking]
             read = ids if mask is None else torch.where(mask, ids, NEVER_READ)
             kw = dict(pooling=pooling, batch_size=EDGE_BAGS, mask=mask, scale=scale)
-            got = embedding_bag_fixedl(storage, d, read, **kw)
-            again = embedding_bag_fixedl(storage, d, read, **kw)
+            got = embedding_bag_fixedl(storage, d, read, path=pin, **kw)
+            again = embedding_bag_fixedl(storage, d, read, path=pin, **kw)
             want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
             torch.testing.assert_close(got, want, **KERNEL_TOL)
-            if not torch.equal(got, again):
-                raise AssertionError(f"int8 K1 not deterministic: d={d} {layout} {mode}")
+            if not torch.equal(got, again) or (pooling == 1 and not torch.equal(got, want)):
+                raise AssertionError(f"int8 K1 not deterministic, or not exact at L=1: d={d} "
+                                     f"{layout} {mode} {design}")
             cases += 1
-            paths.add(("K1", vector, walks_by_group(group, n, EDGE_BAGS)))
+            paths.add(("K1", used.load > 0, used.by_group))
     torch.cuda.synchronize()
     if len(paths) != 8:  # K1, K2 x vector, scalar x window, by group
         raise AssertionError(f"int8 edge cases reached only the paths {sorted(paths)}")
@@ -832,12 +976,19 @@ def int8_phase(gen, card):
                  "row scales") + f" = {int8_bytes / 1e9:.3f} GB against "
               f"{f32_bytes / 1e9:.3f} GB f32; the small set is the f32 model's tensor, "
               "unchanged", flush=True)
+        n_main = main_sets[0][0].numel()
         rows[("K1", mode)] = k1_case(
             f"int8 {mode} mode, main path (10 tables x B=8192, L=1, packed)", p["q"], 16, 1,
-            main_sets, scale=scale, f32_weight=model.emb_big)
+            main_sets, scale=scale, f32_weight=model.emb_big,
+            paths=int8_paths(p["q"], 16, n_main, n_main),
+            extra={"f32 K1": lambda i, m: embedding_bag_fixedl(  # the f32 big set's K1
+                model.emb_big, 16, i, mask=m, pooling=1, batch_size=n_main)})
         rows[("K2", mode)] = csr_case(
             "K2", f"int8 {mode} mode, CSR path (10 tables x B=8192, pooling-1 mixture, "
-            "packed)", p["q"], 16, csr_sets, scale=scale, f32_weight=model.emb_big)
+            "packed)", p["q"], 16, csr_sets, scale=scale, f32_weight=model.emb_big,
+            paths=int8_paths(p["q"], 16, csr_sets[0][0].shape[1], BATCH),
+            extra={"f32 K2": lambda i, o: embedding_bag_csr_packed(
+                model.emb_big, 16, i, o, batch_size=BATCH)})
         if probe is None:
             sc = scale
             if sc is None:  # the table's scale on each of its rows (REPLICATE order)
@@ -890,7 +1041,182 @@ def int8_phase(gen, card):
     print("int8 serve: summary " + json.dumps({f"{m} {w}": r for (m, w), r in report.items()}),
           flush=True)
     del model, f32_host, main_sets, csr_sets, reqs
+    free_card()
+    rows.update(int8_wide_rows(gen, card, probe is None))
     return rows, launches
+
+
+def int8_wide_rows(gen, card, library):
+    """int8 K1 and K2 at the capacity bench's width, d = 64, over 4 tables
+    of 5M rows (1.28 GB of codes, lane-packed), B=8192 at L=1 (K2 on the
+    pooling-1 mixture), and at cli sweep's int8 shape, 32 tables x B=64 at
+    L=120 over the same rows (K2 on the same fixed bags as CSR), in both
+    scale modes: each path of :func:`int8_paths` against the plain version
+    (at L=120 with :func:`order_slack`: 120 products of up to 127 times
+    0.02 a bag) and timed in turns, the plain version, the bound and (where
+    ``library``) the 8-bit rowwise library bag.  Returns the rows, keyed by
+    (K, mode, shape)."""
+    t0 = time.perf_counter()
+    n, d = WIDE_TABLES * WIDE_ROWS, WIDE_D
+    q = torch.randint(-127, 128, (n * d // 128, 128), generator=gen, device=DEV,
+                      dtype=torch.int8)
+    q_abs = q.abs()
+    row_scale = torch.rand(n, generator=gen, device=DEV) * 0.02 + 1e-4
+    base = torch.arange(WIDE_TABLES, device=DEV, dtype=torch.int32) * WIDE_ROWS
+    k1_sets = [((torch.randint(0, WIDE_ROWS, (WIDE_TABLES, BATCH), generator=gen, device=DEV,
+                               dtype=torch.int32) + base[:, None]).reshape(-1),
+                torch.ones(WIDE_TABLES * BATCH, dtype=torch.bool, device=DEV))
+               for _ in range(WIDE_ID_SETS)]
+    k2_sets = [((i + base[:, None]).contiguous(), o) for i, o in (
+        csr_ids([WIDE_ROWS] * WIDE_TABLES, gen, BATCH, 1) for _ in range(WIDE_ID_SETS))]
+    bags = SWEEP_TABLES * SWEEP_BAGS
+    long_ids = [torch.randint(0, n, (bags * SWEEP_L,), generator=gen, device=DEV,
+                              dtype=torch.int32) for _ in range(ID_SETS)]
+    long_off = (torch.arange(SWEEP_BAGS + 1, device=DEV, dtype=torch.int32)
+                * SWEEP_L).expand(SWEEP_TABLES, -1).contiguous()
+    l120_k1 = [(i, torch.ones_like(i, dtype=torch.bool)) for i in long_ids]
+    l120_k2 = [(i.view(SWEEP_TABLES, -1), long_off) for i in long_ids]
+    torch.cuda.synchronize()
+    print(f"int8 wide: {WIDE_TABLES} tables x {WIDE_ROWS} rows x {d} codes, "
+          f"{q.numel() / 1e9:.3f} GB lane-packed + {row_scale.numel() * 4 / 1e9:.3f} GB of row "
+          f"scales, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    rows = {}
+    for mode in SCALE_MODES:
+        scale = row_scale if mode == "row" else None
+        scaled = scale is not None
+        cases = (
+            ("K1", "d=64", lambda: k1_case(
+                f"int8 {mode} mode, capacity width ({WIDE_TABLES} tables x B={BATCH}, L=1, "
+                "d=64, packed)", q, d, 1, k1_sets, scale=scale,
+                paths=int8_paths(q, d, WIDE_TABLES * BATCH, WIDE_TABLES * BATCH)),
+             k1_sets, 1),
+            ("K2", "d=64", lambda: csr_case(
+                "K2", f"int8 {mode} mode, capacity width ({WIDE_TABLES} tables x B={BATCH}, "
+                "pooling-1 mixture, d=64, packed)", q, d, k2_sets, scale=scale,
+                paths=int8_paths(q, d, k2_sets[0][0].shape[1], BATCH)),
+             k2_sets, 0),
+            ("K1", "L=120", lambda: k1_case(
+                f"int8 {mode} mode, sweep shape ({SWEEP_TABLES} tables x B={SWEEP_BAGS}, "
+                f"L={SWEEP_L}, d=64, packed)", q, d, SWEEP_L, l120_k1, scale=scale,
+                paths=int8_paths(q, d, bags * SWEEP_L, bags), abs_storage=q_abs),
+             l120_k1, SWEEP_L),
+            ("K2", "L=120", lambda: csr_case(
+                "K2", f"int8 {mode} mode, sweep shape ({SWEEP_TABLES} tables x B={SWEEP_BAGS}, "
+                f"bags of {SWEEP_L}, d=64, packed)", q, d, l120_k2, scale=scale,
+                paths=int8_paths(q, d, SWEEP_BAGS * SWEEP_L, SWEEP_BAGS),
+                abs_storage=q_abs),
+             l120_k2, 0),
+        )
+        for k, shape, case, sets, fixed_l in cases:
+            row = case()
+            if library:
+                ms, found = rowwise_library_ms(
+                    q, d, row_scale if scaled else torch.ones(n, device=DEV), sets, fixed_l)
+                row["library_ms"] = ms
+                print(f"int8 {mode} mode {k} {shape}: library_ms (8-bit rowwise bag) {ms}; "
+                      f"{found}; {card}", flush=True)
+            rows[(k, mode, shape)] = row
+    del k1_sets, k2_sets, long_ids, l120_k1, l120_k2
+    int8_crossover(gen, q, q_abs, row_scale, card)
+    del q, q_abs, row_scale
+    free_card()
+    return rows
+
+
+def int8_crossover(gen, q, q_abs, row_scale, card):
+    """The int8 row loads where bags are short but not single: int8 K1
+    (fixed L) and K2 (CSR bags of L) at each L of CROSS_L, on each shape
+    of CROSS_SHAPES over the first rows of ``q`` (as rows of d codes) and
+    in both scale modes, with 8-byte and 4-byte loads pinned (each with the
+    group and walk the wrapper gives that load), each held against the
+    plain version (with :func:`order_slack`) and timed in turns (8, 4, 4,
+    8).  Prints a line a case, with the load the wrapper picks and the
+    faster one, and a summary line."""
+    t0 = time.perf_counter()
+    rows = row_scale.numel()
+    summary = {}
+    for d, tables in CROSS_SHAPES:
+        storage = q.view(-1)[:rows * d].view(-1, 128)
+        abs_storage = q_abs.view(-1)[:rows * d].view(-1, 128)
+        for pooling in CROSS_L:
+            n = BATCH * pooling
+            sets = [torch.randint(0, rows, (tables, n), generator=gen, device=DEV,
+                                  dtype=torch.int32) for _ in range(CROSS_ID_SETS)]
+            off = (torch.arange(BATCH + 1, device=DEV, dtype=torch.int32)
+                   * pooling).expand(tables, -1).contiguous()
+            kernels = {
+                "K1": (lambda i, scale, path: embedding_bag_fixedl(
+                    storage, d, i.view(-1), pooling=pooling, batch_size=tables * BATCH,
+                    scale=scale, path=path),
+                       lambda i, st, scale: embedding_bag_fixedl_reference(
+                    st, d, i.view(-1), pooling=pooling, batch_size=tables * BATCH,
+                    scale=scale), tables * n, tables * BATCH),
+                "K2": (lambda i, scale, path: embedding_bag_csr_packed(
+                    storage, d, i, off, batch_size=BATCH, scale=scale, path=path),
+                       lambda i, st, scale: embedding_bag_csr_packed_reference(
+                    st, d, i, off, batch_size=BATCH, scale=scale), n, BATCH),
+            }
+            for (k, (run, plain, entries, bags)), mode in itertools.product(
+                    kernels.items(), SCALE_MODES):
+                scale = row_scale if mode == "row" else None
+                pins = {f"{load}-byte": fitted_path(storage, d, entries, bags, load)
+                        for load in (8, 4)}
+                want = plain(sets[0], storage, scale)
+                slack = order_slack(plain(sets[0], abs_storage, scale), pooling)
+                for pin in pins.values():
+                    check_kernel(run(sets[0], scale, pin), want, slack)
+                turns = in_turns({name: (lambda i, p=pin: run(i, scale, p))
+                                  for name, pin in pins.items()}, [(i,) for i in sets])
+                ms = {name: statistics.mean(t) for name, t in turns.items()}
+                picked = kernel_path(storage, d, entries, bags)
+                faster = min(ms, key=ms.get)
+                line = dict(kernel=k, mode=mode, d=d, tables=tables, bags=BATCH,
+                            pooling=pooling, turns_ms=turns,
+                            paths={name: path_label(p) for name, p in pins.items()},
+                            picked=f"{picked.load}-byte", faster=faster,
+                            picked_over_faster=ms[f"{picked.load}-byte"] / ms[faster])
+                print("int8 crossover " + json.dumps(line), flush=True)
+                summary[f"{k} {mode} d={d} L={pooling}"] = (
+                    f"{picked.load}-byte", faster, round(line["picked_over_faster"], 4))
+            del sets
+    print(f"int8 crossover: summary (picked, faster, picked / faster) {json.dumps(summary)}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+
+def int8_only(card):
+    """``--only int8``: the int8 kernels' edge cases, then the int8 phase
+    (the Kaggle shape with the f32 kernels in the same turns, the capacity
+    width and the sweep shape)."""
+    cases = int8_edge_phase(torch.Generator(device=DEV).manual_seed(SEED + 1))
+    print(f"int8 kernel edge cases: {cases} cases, equal to their plain versions", flush=True)
+    int8_phase(torch.Generator(device=DEV).manual_seed(SEED), card)
+
+
+def ptxas_lines(logs) -> list:
+    """One line per kernel instance of nvcc's ``-Xptxas=-v`` output in
+    ``logs`` (source name -> log): the instance's name, demangled by
+    ``c++filt`` where it is found, its registers and its spill stores and
+    loads in bytes."""
+    found = []  # (source, mangled name, registers, spill stores, spill loads)
+    for source, log in logs.items():
+        name, spills = None, (0, 0)
+        for line in log.splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                name, spills = m.group(1), (0, 0)
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spills = (int(m.group(1)), int(m.group(2)))
+            elif (m := re.search(r"Used (\d+) registers", line)) and name:
+                found.append((source, name, int(m.group(1)), *spills))
+                name = None
+    names = [f[1] for f in found]
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = [re.sub(r"^void (\(anonymous namespace\)::)?", "", n).split("(")[0]
+                     for n in out]
+    return [f"ptxas {source}: {name}: {regs} registers, spill stores {st} B, spill loads "
+            f"{ld} B" for (source, _, regs, st, ld), name in zip(found, names)]
 
 
 def _int8_serve_stats(fn, reqs):
@@ -2900,7 +3226,7 @@ def main(argv) -> int:
     if argv[:1] == ["--multihost-worker"]:  # the process of multihost_1
         return multihost_worker(argv[1])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("multi_gpu", "tools", "bench", "surface"):
+    if argv and only not in ("multi_gpu", "tools", "bench", "surface", "int8"):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2924,14 +3250,12 @@ def main(argv) -> int:
     print(f"build: compiled {built or 'nothing (cached)'}"
           f"{' and native/libpelfeeder.so' if native_build else ''} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for name, log in _build.logs.items():  # ptxas: registers and spills
-        for line in log.splitlines():
-            if "Compiling entry function" in line or "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+    for line in ptxas_lines(_build.logs):  # every kernel instance's registers and spills
+        print(line, flush=True)
 
     if only is not None:  # one phase alone (multi_gpu: e.g. on a 4-chip call)
         {"multi_gpu": multi_gpu_phase, "tools": tools_phase, "bench": bench_phase,
-         "surface": surface_phase}[only]()
+         "surface": surface_phase, "int8": lambda: int8_only(card)}[only]()
         print(f"chip_smoke: {only} phase passed in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0

@@ -37,8 +37,18 @@
 // has its own forward instances, as in gather_pool.cu: the codes are pooled
 // in f32, and with a scale array ("row" mode) each entry adds code *
 // scale[id], its scale loaded beside its row; with none ("table" mode) the
-// caller multiplies the pooled output by the table's scale.  int8 storage
-// has no backward: the capacity mode serves, it does not train.
+// caller multiplies the pooled output by the table's scale.  A lane takes 8
+// codes (two float4 stores) where the bags are short and 4 (one float4)
+// where they are long (C / B entries a bag fill a tile of the 8-byte group
+// past 32), as gather_pool.cu says; the first design's 16 codes a lane stay
+// as a pin.  On an H100 80GB HBM3 at 700 W (PERF.md section 6's int8
+// results, every path timed in turns in one run): the int8 Kaggle CSR
+// "table" 7.93 -> 6.99 us, 32 tables x 64 bags of 120 at d=64 41.97 ->
+// 27.85 us.
+// ptxas registers, unmasked "table" / "row", by window then by group:
+// 8-byte 57/64, 64/64 (24-byte spills in "row"); 4-byte 40/48, 62/62;
+// 16-byte 75/74, 79/99.  int8 storage has no backward: the capacity mode
+// serves, it does not train.
 //
 // Design of csr_pool_kernel (the forward; pool_common.cuh has the walk).
 // The first kernel ran one thread per (bag, lane): 1.31 M threads, ~5 waves
@@ -83,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "pool_common.cuh"
 
 namespace {
@@ -100,7 +112,7 @@ __device__ __forceinline__ void bag_range(const int* off, int b,
 
 constexpr int kUnroll = 4;  // U: row loads of a bag issued before the adds
 
-template <typename T, bool VEC, bool BY_GROUP, bool MASKED, bool SCALED>
+template <typename T, int LOAD, bool BY_GROUP, bool MASKED, bool SCALED>
 __global__ void __launch_bounds__(pel::kBlock)
 csr_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
                 const int* __restrict__ indices,
@@ -136,7 +148,7 @@ csr_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
     tile.ids = indices + t * capacity;
     tile.mask = MASKED ? mask + t * capacity : nullptr;
     tile.dst = bag ? out + (t * batch + b0 + g) * (long long)d : nullptr;
-    pel::pool_tile<T, VEC, MASKED, kUnroll, BY_GROUP, SCALED>(storage, scale, d, group, tile);
+    pel::pool_tile<T, LOAD, MASKED, kUnroll, BY_GROUP, SCALED>(storage, scale, d, group, tile);
   }
 }
 
@@ -171,38 +183,57 @@ unsigned int grid_of(long long bags, const dim3& block) {
   return (unsigned int)((bags + block.y - 1) / block.y);
 }
 
-template <typename T, bool SCALED, bool VEC, bool BY_GROUP, bool MASKED>
+template <typename T, bool SCALED, int LOAD, bool BY_GROUP, bool MASKED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
                 long long capacity, int d, int group, int device, void* stream) {
-  if (!pel::geometry_ok<T, VEC>(storage, d, group)) return (int)cudaErrorInvalidValue;
+  if (!pel::geometry_ok<T, LOAD>(storage, d, group)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int bags_per_tile = 32 / group;
   const long long tiles = (long long)tables * ((batch + bags_per_tile - 1) / bags_per_tile);
   const int warps_per_block = pel::kBlock / 32;
-  const int grid = pel::wave_blocks<&csr_pool_kernel<T, VEC, BY_GROUP, MASKED, SCALED>>(
-      device, (tiles + warps_per_block - 1) / warps_per_block);
+  const int grid =
+      pel::wave_blocks<&csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED>>(
+          device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  csr_pool_kernel<T, VEC, BY_GROUP, MASKED, SCALED>
+  csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED>
       <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
           (const T*)storage, (const float*)scale, (const int*)indices, (const int*)offsets,
           (const unsigned char*)mask, (float*)out, tables, batch, capacity, d, group);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool SCALED, int LOAD, bool MASKED>
+int launch_pool(const void* storage, const void* scale, const void* indices,
+                const void* offsets, const void* mask, void* out, int tables, int batch,
+                long long capacity, int d, int group, int by_group, int device,
+                void* stream) {
+  const auto launch = by_group ? launch_pool<T, SCALED, LOAD, true, MASKED>
+                               : launch_pool<T, SCALED, LOAD, false, MASKED>;
+  return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
+                group, device, stream);
+}
+
+// load: the bytes a lane loads from a row at once (16; for int8 also 8 and
+// 4), or 0 for one element
 template <typename T, bool SCALED, bool MASKED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
-                long long capacity, int d, int vec, int group, int by_group, int device,
+                long long capacity, int d, int load, int group, int by_group, int device,
                 void* stream) {
-  const auto launch =
-      vec ? (by_group ? launch_pool<T, SCALED, true, true, MASKED>
-                      : launch_pool<T, SCALED, true, false, MASKED>)
-          : (by_group ? launch_pool<T, SCALED, false, true, MASKED>
-                      : launch_pool<T, SCALED, false, false, MASKED>);
-  return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
-                group, device, stream);
+  using Launch = int (*)(const void*, const void*, const void*, const void*, const void*,
+                         void*, int, int, long long, int, int, int, int, void*);
+  Launch chosen = nullptr;
+  if (load == 16) chosen = launch_pool<T, SCALED, 16, MASKED>;
+  if (load == 0) chosen = launch_pool<T, SCALED, 0, MASKED>;
+  if constexpr (std::is_same_v<T, int8_t>) {
+    if (load == 8) chosen = launch_pool<T, SCALED, 8, MASKED>;
+    if (load == 4) chosen = launch_pool<T, SCALED, 4, MASKED>;
+  }
+  if (chosen == nullptr) return (int)cudaErrorInvalidValue;
+  return chosen(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
+                group, by_group, device, stream);
 }
 
 // The MASKED instances run where the caller gives a mask ([T, C] bytes, an
@@ -210,12 +241,12 @@ int launch_pool(const void* storage, const void* scale, const void* indices,
 template <typename T, bool SCALED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
-                long long capacity, int d, int vec, int group, int by_group, int device,
+                long long capacity, int d, int load, int group, int by_group, int device,
                 void* stream) {
   const auto launch =
       mask != nullptr ? launch_pool<T, SCALED, true> : launch_pool<T, SCALED, false>;
-  return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d, vec,
-                group, by_group, device, stream);
+  return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
+                load, group, by_group, device, stream);
 }
 
 }  // namespace
@@ -224,18 +255,19 @@ extern "C" {
 
 int pel_csr_pool_f32(const void* storage, const void* indices,
                      const void* offsets, const void* mask, void* out, int tables,
-                     int batch, long long capacity, int d, int vec, int group,
+                     int batch, long long capacity, int d, int load, int group,
                      int by_group, int device, void* stream) {
   return launch_pool<float, false>(storage, nullptr, indices, offsets, mask, out, tables,
-                                   batch, capacity, d, vec, group, by_group, device, stream);
+                                   batch, capacity, d, load, group, by_group, device,
+                                   stream);
 }
 
 int pel_csr_pool_bf16(const void* storage, const void* indices,
                       const void* offsets, const void* mask, void* out, int tables,
-                      int batch, long long capacity, int d, int vec, int group,
+                      int batch, long long capacity, int d, int load, int group,
                       int by_group, int device, void* stream) {
   return launch_pool<__nv_bfloat16, false>(storage, nullptr, indices, offsets, mask, out,
-                                           tables, batch, capacity, d, vec, group, by_group,
+                                           tables, batch, capacity, d, load, group, by_group,
                                            device, stream);
 }
 
@@ -243,12 +275,12 @@ int pel_csr_pool_bf16(const void* storage, const void* indices,
 // codes are pooled as they are)
 int pel_csr_pool_i8(const void* storage, const void* scale, const void* indices,
                     const void* offsets, const void* mask, void* out, int tables,
-                    int batch, long long capacity, int d, int vec, int group,
+                    int batch, long long capacity, int d, int load, int group,
                     int by_group, int device, void* stream) {
   const auto launch =
       scale != nullptr ? launch_pool<int8_t, true> : launch_pool<int8_t, false>;
   return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
-                vec, group, by_group, device, stream);
+                load, group, by_group, device, stream);
 }
 
 // mask: [T, C] bytes, an entry kept where its byte is set; NULL: none (the

@@ -14,11 +14,35 @@
 //
 // int8 storage (the capacity mode: int8 codes, the JAX package's int8 dict
 // storage, which it gathers with XLA) has its own instances: the codes are
-// pooled in f32, one 16-byte load giving 16 of them at d=16 (a group of one
-// thread a bag, 32 bags a warp).  With a scale array ("row" mode) each entry
-// adds code * scale[id], its scale loaded in the same batch as its row; with
-// none ("table" mode) the caller multiplies the pooled output by the table's
-// scale.
+// pooled in f32.  With a scale array ("row" mode) each entry adds code *
+// scale[id], its scale loaded in the same batch as its row; with none
+// ("table" mode) the caller multiplies the pooled output by the table's
+// scale.  Bound: bytes, and at d=16 mostly the f32 output (64 B a bag
+// against 16 B of codes).  The first int8 design gave a thread 16 codes (one
+// 16-byte load, 16 sums, four float4 stores 64 B apart): a group of one
+// thread a bag at d=16, a quarter of the f32 path's warps, and at L=120,
+// d=64 a grid on 32 of the 132 SMs.  Now a lane is chosen by its output:
+// - short bags (a tile of the 8-byte group walks by window): 8 codes a lane
+//   (one 8-byte load, two float4 stores), G = d/8;
+// - long bags: 4 codes a lane (one 32-bit load, one float4 store), G = d/4,
+//   twice the threads on each bag's chain of loads.
+// A group's lanes read consecutive words of a row, so a warp instruction
+// asks for the same sectors as the 16-byte load.  On an H100 80GB HBM3 at
+// 700 W (PERF.md section 6's int8 results, every path timed in turns in one
+// run) the 8-byte loads were the fastest int8 path at L=1 (Kaggle "table"
+// 7.25 -> 5.97 us, under f32 K1's 6.47 in the same turns) and the 4-byte
+// ones at L=120 (42.20 -> 26.76 us); between them (L = 2, 3, 4, 8, 16 at
+// d = 16 and 64, section 6's crossover table) the wrapper's pick was within
+// 2.4 % of the faster of the two.  The 16-byte path stays as a pin.
+// Transposed stores (16-byte loads whose sums four lanes exchange by
+// shuffles) and the scale loaded by a group's first lane and shuffled were
+// measured too and lost; they are not kept.  ptxas registers of the int8
+// instances, "table" / "row", U = 1 / 2 / 4 / 8 by window, then U = 2 / 4
+// by group: 8-byte 40/40, 48/48, 48/60, 64/71, 56/60, 64/76 (spills of
+// 32-36 bytes in "table" U=4 by group); 4-byte 36/40, 40/48, 40/48, 56/64,
+// 48/56, 64/64; 16-byte 48/60, 58/64, 64/76, 80/106, 64/76, 94/98 (spills
+// of 24-28 bytes at U=8 "table"); scalar 40/32, 40/48, 48/40, 48/48, 48/48,
+// 60/64 (spills of 20-32 bytes in "row" U=1 and "table" U=2 by group).
 //
 // Design (pool_common.cuh has the walk, shared with csr_pool.cu).  The first
 // kernel ran one thread per (bag, lane), ~5 waves at the main shape, each
@@ -50,11 +74,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "pool_common.cuh"
 
 namespace {
 
-template <typename T, bool VEC, int U, bool BY_GROUP, bool SCALED>
+template <typename T, int LOAD, int U, bool BY_GROUP, bool SCALED>
 __global__ void __launch_bounds__(pel::kBlock)
 fixedl_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
                    const int* __restrict__ indices, const unsigned char* __restrict__ mask,
@@ -78,24 +104,25 @@ fixedl_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scal
     tile.s = bag ? g * pooling : 0;
     tile.e = bag ? (g + 1) * pooling : 0;
     tile.dst = bag ? out + (b0 + g) * d : nullptr;
-    pel::pool_tile<T, VEC, true, U, BY_GROUP, SCALED>(storage, scale, d, group, tile);
+    pel::pool_tile<T, LOAD, true, U, BY_GROUP, SCALED>(storage, scale, d, group, tile);
   }
 }
 
-template <typename T, bool SCALED, bool VEC, int U, bool BY_GROUP>
+template <typename T, bool SCALED, int LOAD, int U, bool BY_GROUP>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int device,
            void* stream) {
-  if (!pel::geometry_ok<T, VEC>(storage, d, group)) return (int)cudaErrorInvalidValue;
+  if (!pel::geometry_ok<T, LOAD>(storage, d, group)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int bags_per_tile = 32 / group;
   const long long tiles = (bags + bags_per_tile - 1) / bags_per_tile;
   const int warps_per_block = pel::kBlock / 32;
-  const int grid = pel::wave_blocks<&fixedl_pool_kernel<T, VEC, U, BY_GROUP, SCALED>>(
-      device, (tiles + warps_per_block - 1) / warps_per_block);
+  const int grid =
+      pel::wave_blocks<&fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED>>(
+          device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  fixedl_pool_kernel<T, VEC, U, BY_GROUP, SCALED>
+  fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED>
       <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
           (const T*)storage, (const float*)scale, (const int*)indices,
           (const unsigned char*)mask, (float*)out, bags, pooling, d, group);
@@ -105,30 +132,40 @@ int launch(const void* storage, const void* scale, const void* indices, const vo
 // U: the row loads of min(L, 8) entries of a bag (rounded up to a power of
 // two; at most 4 by group) go out before their adds.  A single-hot tile
 // (32 / G entries) is always one window.
-template <typename T, bool SCALED, bool VEC>
+template <typename T, bool SCALED, int LOAD>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int by_group,
            int device, void* stream) {
   using Launch = int (*)(const void*, const void*, const void*, const void*, void*,
                          long long, int, int, int, int, void*);
   const Launch chosen =
-      pooling == 1   ? launch<T, SCALED, VEC, 1, false>
-      : pooling == 2 ? (by_group ? launch<T, SCALED, VEC, 2, true>
-                                 : launch<T, SCALED, VEC, 2, false>)
-      : by_group     ? launch<T, SCALED, VEC, 4, true>
-      : pooling <= 4 ? launch<T, SCALED, VEC, 4, false>
-                     : launch<T, SCALED, VEC, 8, false>;
+      pooling == 1   ? launch<T, SCALED, LOAD, 1, false>
+      : pooling == 2 ? (by_group ? launch<T, SCALED, LOAD, 2, true>
+                                 : launch<T, SCALED, LOAD, 2, false>)
+      : by_group     ? launch<T, SCALED, LOAD, 4, true>
+      : pooling <= 4 ? launch<T, SCALED, LOAD, 4, false>
+                     : launch<T, SCALED, LOAD, 8, false>;
   return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, device, stream);
 }
 
+// load: the bytes a lane loads from a row at once (16; for int8 also 8 and
+// 4), or 0 for one element
 template <typename T, bool SCALED>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
-           void* out, long long bags, int pooling, int d, int vec, int group,
+           void* out, long long bags, int pooling, int d, int load, int group,
            int by_group, int device, void* stream) {
-  return vec ? launch<T, SCALED, true>(storage, scale, indices, mask, out, bags, pooling, d,
-                                       group, by_group, device, stream)
-             : launch<T, SCALED, false>(storage, scale, indices, mask, out, bags, pooling, d,
-                                        group, by_group, device, stream);
+  using Launch = int (*)(const void*, const void*, const void*, const void*, void*,
+                         long long, int, int, int, int, int, void*);
+  Launch chosen = nullptr;
+  if (load == 16) chosen = launch<T, SCALED, 16>;
+  if (load == 0) chosen = launch<T, SCALED, 0>;
+  if constexpr (std::is_same_v<T, int8_t>) {
+    if (load == 8) chosen = launch<T, SCALED, 8>;
+    if (load == 4) chosen = launch<T, SCALED, 4>;
+  }
+  if (chosen == nullptr) return (int)cudaErrorInvalidValue;
+  return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, by_group,
+                device, stream);
 }
 
 }  // namespace
@@ -137,27 +174,27 @@ extern "C" {
 
 int pel_gather_pool_f32(const void* storage, const void* indices,
                         const void* mask, void* out, long long bags,
-                        int pooling, int d, int vec, int group, int by_group,
+                        int pooling, int d, int load, int group, int by_group,
                         int device, void* stream) {
-  return launch<float, false>(storage, nullptr, indices, mask, out, bags, pooling, d, vec,
+  return launch<float, false>(storage, nullptr, indices, mask, out, bags, pooling, d, load,
                               group, by_group, device, stream);
 }
 
 int pel_gather_pool_bf16(const void* storage, const void* indices,
                          const void* mask, void* out, long long bags,
-                         int pooling, int d, int vec, int group, int by_group,
+                         int pooling, int d, int load, int group, int by_group,
                          int device, void* stream) {
   return launch<__nv_bfloat16, false>(storage, nullptr, indices, mask, out, bags, pooling,
-                                      d, vec, group, by_group, device, stream);
+                                      d, load, group, by_group, device, stream);
 }
 
 // int8 codes; scale: one f32 a row ("row" mode), or NULL ("table" mode: the
 // codes are pooled as they are)
 int pel_gather_pool_i8(const void* storage, const void* scale, const void* indices,
                        const void* mask, void* out, long long bags, int pooling, int d,
-                       int vec, int group, int by_group, int device, void* stream) {
+                       int load, int group, int by_group, int device, void* stream) {
   const auto chosen = scale != nullptr ? launch<int8_t, true> : launch<int8_t, false>;
-  return chosen(storage, scale, indices, mask, out, bags, pooling, d, vec, group, by_group,
+  return chosen(storage, scale, indices, mask, out, bags, pooling, d, load, group, by_group,
                 device, stream);
 }
 

@@ -7,14 +7,19 @@
 // consecutive, so their entries form one contiguous range [S, E) of the ids.
 // The caller gives each lane its bag's entry range [s, e) and output row.
 //
-// A row is read in chunks: 16 bytes (one vector load; 4 f32, 8 bf16 or 16
-// int8 lanes) on the vector path, one element on the scalar path.  int8 rows
-// (the capacity mode's codes) are converted to f32 as they are added; where a
-// 1-D f32 scale array is given (SCALED, the "row" scale mode), each entry
-// adds code * scale[id], its scale loaded beside its row, in the same batch
-// of U loads, so that it puts no second dependent load on the chain.  Thread g of a group
+// A row is read in chunks of LOAD bytes a lane: 16 (one vector load; 4 f32,
+// 8 bf16 or 16 int8 lanes), and for int8 rows also 8 or 4 (8 or 4 codes);
+// LOAD = 0 is the scalar path, one element a lane.  int8 rows (the capacity
+// mode's codes) are converted to f32 as they are added; where a 1-D f32
+// scale array is given (SCALED, the "row" scale mode), each entry adds code *
+// scale[id], its scale loaded beside its row, in the same batch of U loads,
+// so that it puts no second dependent load on the chain.  Thread g of a group
 // reads chunks g, g+G, g+2G, ... of each row; a row of more than 32 chunks
-// takes several rounds, each walking the bag's entries again.
+// takes several rounds, each walking the bag's entries again.  A lane writes
+// its chunk's f32 sums as float4 stores: one at LOAD = 16 f32 and at LOAD =
+// 4 int8, two at 8, four at 16 (the wrapper gives int8 rows 8 where bags
+// are short, 4 where they are long; 16, the first int8 design, only where a
+// caller pins it).
 //
 // Ids reach the groups in one of two walks, chosen per launch from the mean
 // entries of a tile (the wrapper's choice):
@@ -56,6 +61,18 @@ __device__ __forceinline__ uint4 ld_row(const void* p) {
   return v;
 }
 
+__device__ __forceinline__ uint2 ld_row8(const void* p) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_row4(const void* p) {
+  unsigned v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ float ld_elem(const float* p) {
   float v;
   asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
@@ -78,9 +95,10 @@ __device__ __forceinline__ float ld_elem(const int8_t* p) {
 // bag of one entry equals the plain version's product bitwise
 __device__ __forceinline__ float scaled(float code, float s) { return __fmul_rn(code, s); }
 
-// One chunk of a row: its lanes (P), how it is loaded and added.
-template <typename T, bool VEC>
-struct Chunk {  // scalar path: one element
+// One chunk of a row: its lanes (P), how it is loaded and added.  LOAD:
+// the bytes a lane loads at once, 0 for one element.
+template <typename T, int LOAD>
+struct Chunk {  // scalar path (LOAD = 0): one element
   static constexpr int P = 1;
   using Raw = float;
   __device__ static Raw load(const T* p) { return ld_elem(p); }
@@ -89,7 +107,7 @@ struct Chunk {  // scalar path: one element
 };
 
 template <>
-struct Chunk<float, true> {
+struct Chunk<float, 16> {
   static constexpr int P = 4;
   using Raw = uint4;
   __device__ static Raw load(const float* p) { return ld_row(p); }
@@ -102,7 +120,7 @@ struct Chunk<float, true> {
 };
 
 template <>
-struct Chunk<__nv_bfloat16, true> {
+struct Chunk<__nv_bfloat16, 16> {
   static constexpr int P = 8;
   using Raw = uint4;
   __device__ static Raw load(const __nv_bfloat16* p) { return ld_row(p); }
@@ -118,8 +136,9 @@ struct Chunk<__nv_bfloat16, true> {
   }
 };
 
+// int8: 16 codes a lane (the capacity mode's first design)
 template <>
-struct Chunk<int8_t, true> {
+struct Chunk<int8_t, 16> {
   static constexpr int P = 16;
   using Raw = uint4;
   __device__ static Raw load(const int8_t* p) { return ld_row(p); }
@@ -135,6 +154,42 @@ struct Chunk<int8_t, true> {
     const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] += scaled(code(w[i / 4], i % 4), s);
+  }
+};
+
+// int8: 4 codes a lane, loaded as one 32-bit word: a lane owns 4 outputs
+// and writes them with one float4 store, so a group of d/4 lanes reads
+// consecutive words of a row and writes its output row in one instruction.
+template <>
+struct Chunk<int8_t, 4> {
+  static constexpr int P = 4;
+  using Raw = unsigned;
+  __device__ static Raw load(const int8_t* p) { return ld_row4(p); }
+  __device__ static void add(float (&acc)[P], Raw w) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += Chunk<int8_t, 16>::code(w, i);
+  }
+  __device__ static void add(float (&acc)[P], Raw w, float s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += scaled(Chunk<int8_t, 16>::code(w, i), s);
+  }
+};
+
+// int8: 8 codes a lane (one 8-byte load, two float4 stores)
+template <>
+struct Chunk<int8_t, 8> {
+  static constexpr int P = 8;
+  using Raw = uint2;
+  __device__ static Raw load(const int8_t* p) { return ld_row8(p); }
+  __device__ static void add(float (&acc)[P], const Raw& v) {
+    const unsigned w[2] = {v.x, v.y};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] += Chunk<int8_t, 16>::code(w[i / 4], i % 4);
+  }
+  __device__ static void add(float (&acc)[P], const Raw& v, float s) {
+    const unsigned w[2] = {v.x, v.y};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] += scaled(Chunk<int8_t, 16>::code(w[i / 4], i % 4), s);
   }
 };
 
@@ -190,11 +245,11 @@ __device__ __forceinline__ void gather_add(float (&acc)[C::P], const T* column,
 }
 
 // SCALED: ``scale`` holds one f32 a row, indexed by the row's id.
-template <typename T, bool VEC, bool MASKED, int U, bool BY_GROUP, bool SCALED>
+template <typename T, int LOAD, bool MASKED, int U, bool BY_GROUP, bool SCALED>
 __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
                                           const float* __restrict__ scale, int d,
                                           int group, const Tile& tile) {
-  using C = Chunk<T, VEC>;
+  using C = Chunk<T, LOAD>;
   constexpr int P = C::P;
   const int lane = threadIdx.x & 31;
   const int gl = lane & (group - 1);  // this lane's place in its group
@@ -299,12 +354,12 @@ int wave_blocks(int device, long long blocks_needed) {
 }
 
 // The path and group the wrapper chose fit the storage and d.
-template <typename T, bool VEC>
+template <typename T, int LOAD>
 bool geometry_ok(const void* storage, int d, int group) {
-  constexpr int P = Chunk<T, VEC>::P;
+  constexpr int P = Chunk<T, LOAD>::P;
   return d >= 1 && d % P == 0 && group >= 1 && group <= 32 &&
          (group & (group - 1)) == 0 &&
-         (!VEC || (reinterpret_cast<unsigned long long>(storage) & 15) == 0);
+         reinterpret_cast<unsigned long long>(storage) % (LOAD > 0 ? LOAD : 1) == 0;
 }
 
 }  // namespace pel

@@ -12,9 +12,10 @@ C``; they are not checked on the card (that would wait for it).
 
 On the card all three are ``csrc/csr_pool.cu``, bound by bytes: one kernel
 serves K2, K3 and K4's forward, walking each bag's own offsets with no
-atomics.  A group of threads pools each bag (16-byte row loads or one
-element a thread, as ``gather_pool.row_path`` picks from the storage
-pointer and d), and a warp several consecutive bags whose offsets it loads
+atomics.  A group of threads pools each bag (16-byte row loads, 8- or
+4-byte ones for int8 rows, or one element a thread, as
+``gather_pool.row_load`` picks from the storage pointer, d and C / B), and
+a warp several consecutive bags whose offsets it loads
 together; their ids come in windows shared by the warp, or along each bag
 where bags are long (``gather_pool.walks_by_group``, from C / B), unless
 the caller pins a path (``path=``, ``gather_pool.kernel_path``).  A
@@ -57,7 +58,7 @@ from .ragged import segment_ids_from_offsets
 
 # (source, indices, offsets, mask or NULL, out, tables, batch, capacity, d,
 # device, stream); the pool kernels also take the row path and the walk
-# after d: vector, group and by_group
+# after d: load, group and by_group
 _LAUNCH_ARGS = [ctypes.c_void_p] * 5 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
@@ -101,7 +102,7 @@ def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path, mask=None
             lead=()):
     """One launch of a csr_pool.cu kernel over [T, C] ids and [T, B+1]
     offsets (and the [T, C] mask, if any) on ``src``'s device and current
-    stream; ``path`` is the pool kernels' (vector, group, by_group), ``lead``
+    stream; ``path`` is the pool kernels' (load, group, by_group), ``lead``
     the pointers the int8 entry takes after the source's (its scale)."""
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
@@ -182,7 +183,7 @@ def embedding_bag_csr_packed(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [C] or [T, C] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
-    path: tuple[bool, int, bool] | None = None,  # pinned (vector, group, by_group)
+    path: tuple[int, int, bool] | None = None,  # pinned KernelPath (load, group, by_group)
 ) -> torch.Tensor:  # [B, d] or [T*B, d] f32
     """SUM-pooled CSR embedding bag over fused storage (K2; K3 at d=128).
     Row t*B + b of the result pools bag b of table t.  ``mask`` keeps the

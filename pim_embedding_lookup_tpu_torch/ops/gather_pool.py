@@ -11,20 +11,27 @@ entry one d-wide row plus a 4-byte id and a 1-byte mask, and per bag one
 d-wide f32 output row.  It reads rows straight from the fused storage
 (lane-packed [S, 128] storage has the bytes of [rows, d]) and skips masked
 entries without reading them.  A group of threads pools each bag and a
-warp several bags: :func:`row_path` picks 16-byte vector row loads or one
-element a thread, and the group size, from the storage pointer and d;
-:func:`walks_by_group` picks how ids reach the groups from L.  A caller may
-pin all three with ``path=(vector, group, by_group)`` (the counterpart of
-the Pallas kernels' ``tile_b``/``nbuf``; ``tools/kernel_lab.py`` sweeps
-them): :func:`kernel_path` refuses a path the kernel cannot serve, and a
-pinned path on a CPU tensor, which has no kernel.
+warp several bags: :func:`row_load` picks how many bytes of a row a lane
+loads at once (16; for int8 rows 8, or 4 for long bags; 0: one element a
+thread) and :func:`group_size` the threads a bag, from the storage pointer
+and d; :func:`walks_by_group` picks how ids reach the groups from L.  A caller may
+pin all three with ``path=(load, group, by_group)`` (a :class:`KernelPath`,
+the counterpart of the Pallas kernels' ``tile_b``/``nbuf``;
+``tools/kernel_lab.py`` sweeps them): :func:`kernel_path` refuses a path the
+kernel cannot serve, and a pinned path on a CPU tensor, which has no
+kernel.
 
 int8 storage (the capacity mode's codes) has its own instances: the codes
 are pooled in f32, and with a 1-D f32 ``scale`` of one value a row (the
 "row" scale mode) each entry adds code * scale[id]; without one ("table"
-mode) the caller folds the table's scale into the pooled output.  The JAX
-package gathers int8 dict storage with XLA (its ``_gather_f32``);
-``int8_launches`` and ``int8_row_launches`` count these launches.
+mode) the caller folds the table's scale into the pooled output.  A lane
+loads 8 codes (two float4 stores of their sums; d/8 threads a bag) where
+bags are short, and 4 codes as one 32-bit word (one float4; d/4 threads)
+where they are long.  The first int8 design (one thread per 16 codes, four
+float4 stores a lane) stays reachable as ``path=(16, d // 16, by_group)``
+(:func:`fitted_path`).  The JAX package gathers int8 dict storage
+with XLA (its ``_gather_f32``); ``int8_launches`` and ``int8_row_launches``
+count these launches.
 
 The plain version runs only for CPU tensors; a CUDA tensor launches the
 kernel or raises.  Where the storage requires grad (and grad mode is on),
@@ -38,6 +45,7 @@ cannot require grad, and its scale gets no gradient.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +57,9 @@ _LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-_VECTOR_BYTES = 16
+# the row loads (bytes a lane loads at once) each storage dtype's kernels
+# have besides 0, one element a lane
+_LOADS = {torch.float32: (16,), torch.bfloat16: (16,), torch.int8: (4, 8, 16)}
 _WARP = 32
 _SIGNATURES = {
     "pel_gather_pool_f32": (_LAUNCH_ARGS, ctypes.c_int),
@@ -58,6 +68,14 @@ _SIGNATURES = {
     "pel_gather_pool_i8": ([ctypes.c_void_p] + _LAUNCH_ARGS, ctypes.c_int),
     "pel_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+
+
+class KernelPath(NamedTuple):
+    """How a pool kernel launch reads rows and ids."""
+
+    load: int  # bytes of a row a lane loads at once; 0: one element (the scalar path)
+    group: int  # threads a bag, a power of two in [1, 32]
+    by_group: bool  # ids along each bag (True) or in windows shared by the warp
 
 
 def _check_storage(storage, d, scale=None):
@@ -85,23 +103,36 @@ def _check_storage(storage, d, scale=None):
                          f"{storage.numel() // d} rows on {storage.device}")
 
 
-def row_path(storage: torch.Tensor, d: int) -> tuple[bool, int]:
-    """How the pool kernels read ``d``-wide rows of ``storage``: (vector,
-    group).  Rows load as 16-byte vectors where the row bytes and the
-    storage pointer are 16-byte aligned, else one element at a time; a bag
-    is pooled by ``group`` threads, one per chunk of the row (vector or
-    element) rounded up to a power of two, at most a warp, so a warp pools
-    32 / group bags."""
-    row_bytes = d * storage.element_size()
-    vector = row_bytes % _VECTOR_BYTES == 0 and storage.data_ptr() % _VECTOR_BYTES == 0
-    return vector, group_size(storage, d, vector)
+def _aligned(storage: torch.Tensor, d: int, load: int) -> bool:
+    """Whether ``d``-wide rows of ``storage`` take ``load``-byte loads: the
+    row bytes and the storage pointer are multiples of ``load``."""
+    return d * storage.element_size() % load == 0 and storage.data_ptr() % load == 0
 
 
-def group_size(storage: torch.Tensor, d: int, vector: bool) -> int:
-    """The group :func:`row_path` gives a row path: one thread per chunk of
-    the row (a 16-byte vector, or an element), rounded up to a power of
-    two, at most a warp."""
-    chunks = d * storage.element_size() // _VECTOR_BYTES if vector else d
+def row_load(storage: torch.Tensor, d: int, entries: int = 1, bags: int = 1) -> int:
+    """The bytes of a ``d``-wide row of ``storage`` a pool kernel's lane
+    loads at once, for ``entries`` ids in ``bags`` bags (default: single
+    hot), where the row bytes and the storage pointer are that aligned:
+    16 for f32 and bf16 rows (4 or 8 lanes); for int8 rows 8 (8 codes, two
+    float4 stores a lane) where a tile of that group walks by window, and 4
+    (4 codes, one float4 store) where its bags are long enough to walk by
+    group, since more threads a bag run more of its chain of loads at once
+    (H100: at L=1 the 8-byte loads were the fastest int8 path, at L=120 the
+    4-byte ones; at L = 2, 3, 4, 8 and 16, d = 16 and 64, this rule's pick
+    was within 2.4 % of the faster load, ``PERF.md`` section 6); else 0,
+    one element a lane (the scalar path)."""
+    if storage.dtype != torch.int8:
+        return 16 if _aligned(storage, d, 16) else 0
+    if _aligned(storage, d, 8) and not walks_by_group(group_size(storage, d, 8), entries, bags):
+        return 8
+    return 4 if _aligned(storage, d, 4) else 0
+
+
+def group_size(storage: torch.Tensor, d: int, load: int) -> int:
+    """The threads a bag gets on a row path: one per chunk of the row
+    (``load`` bytes, or an element where ``load`` is 0), rounded up to a
+    power of two, at most a warp."""
+    chunks = d * storage.element_size() // load if load else d
     return min(_WARP, 1 << (chunks - 1).bit_length())
 
 
@@ -115,27 +146,46 @@ def walks_by_group(group: int, entries: int, bags: int) -> bool:
 
 
 def kernel_path(storage: torch.Tensor, d: int, entries: int, bags: int,
-                path: tuple[bool, int, bool] | None = None) -> tuple[bool, int, bool]:
-    """(vector, group, by_group) of a pool kernel's launch over ``entries``
-    ids in ``bags`` bags: what :func:`row_path` and :func:`walks_by_group`
-    pick, or ``path`` where the caller pins one.  Raises ``ValueError`` for
-    a pinned path the kernels cannot serve: a group that is not a power of
-    two in [1, 32], vector loads where the rows or the storage pointer are
-    not 16-byte aligned, or any path on a tensor that is not on a CUDA
+                path: tuple[int, int, bool] | None = None) -> KernelPath:
+    """The :class:`KernelPath` of a pool kernel's launch over ``entries``
+    ids in ``bags`` bags: what :func:`row_load`, :func:`group_size` and
+    :func:`walks_by_group` pick, or ``path`` where the caller pins one
+    (``(load, group, by_group)``).  Raises ``ValueError`` for a pinned path
+    the kernels cannot serve: a group that is not a power of two in [1,
+    32], a row load the storage dtype's kernels do not have (f32 and bf16:
+    16; int8: 4, 8 and 16) or whose bytes the rows or the storage pointer
+    are not aligned to, or any path on a tensor that is not on a CUDA
     device (the plain version has no path)."""
     if path is None:
-        vector, group = row_path(storage, d)
-        return vector, group, walks_by_group(group, entries, bags)
-    vector, group, by_group = path
+        load = row_load(storage, d, entries, bags)
+        group = group_size(storage, d, load)
+        return KernelPath(load, group, walks_by_group(group, entries, bags))
+    load, group, by_group = KernelPath(*path)
     if not 1 <= group <= _WARP or group & (group - 1):
         raise ValueError(f"group {group} is not a power of two in [1, {_WARP}]")
+    if load != 0 and load not in _LOADS[storage.dtype]:
+        raise ValueError(f"row loads of {load} bytes: the {storage.dtype} kernels load "
+                         f"{_LOADS[storage.dtype]} bytes or one element (0)")
+    if load and not _aligned(storage, d, load):
+        raise ValueError(f"{load}-byte row loads need {load}-byte aligned rows and storage: "
+                         f"d={d} of {storage.dtype} at {storage.data_ptr():#x}")
     if storage.device.type != "cuda":
         raise ValueError(f"a kernel path was pinned for a tensor on {storage.device}: "
                          "only the card's kernels have paths")
-    if vector and not row_path(storage, d)[0]:
-        raise ValueError(f"vector row loads need 16-byte aligned rows and storage: "
-                         f"d={d} of {storage.dtype} at {storage.data_ptr():#x}")
-    return bool(vector), int(group), bool(by_group)
+    return KernelPath(int(load), int(group), bool(by_group))
+
+
+def fitted_path(storage: torch.Tensor, d: int, entries: int, bags: int,
+                load: int) -> KernelPath:
+    """The path that loads ``load`` bytes of a row a lane where the rows
+    and the storage pointer take it, else the scalar path, with the group
+    and walk the kernels pick for that load: a pin for :func:`kernel_path`.
+    At ``load`` 16 on int8 storage this is the first int8 design (16 codes
+    a lane), kept to be measured against the chosen one."""
+    if not _aligned(storage, d, load):
+        load = 0
+    group = group_size(storage, d, load)
+    return KernelPath(load, group, walks_by_group(group, entries, bags))
 
 
 def _check(storage, d, indices, pooling, batch_size, mask, scale):
@@ -200,7 +250,7 @@ def embedding_bag_fixedl(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [B*L] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
-    path: tuple[bool, int, bool] | None = None,  # pinned (vector, group, by_group)
+    path: tuple[int, int, bool] | None = None,  # pinned KernelPath (load, group, by_group)
 ) -> torch.Tensor:  # [B, d] f32
     """SUM-pooled fixed-L embedding bag over fused storage.  Unmasked ids
     must lie in [0, rows).  ``scale``: int8 storage's per-row scale.
@@ -216,7 +266,7 @@ def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None)
     on ``path`` (:func:`kernel_path`)."""
     if path is not None and path[2] and pooling == 1:
         raise ValueError("a single-hot tile is one window: K1 has no by-group walk at L=1")
-    vector, group, by_group = kernel_path(storage, d, indices.numel(), batch_size, path)
+    path = kernel_path(storage, d, indices.numel(), batch_size, path)
     if storage.device.type == "cpu":
         return embedding_bag_fixedl_reference(
             storage, d, indices, pooling=pooling, batch_size=batch_size,
@@ -233,8 +283,8 @@ def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None)
     int8 = storage.dtype == torch.int8
     lead = (storage.data_ptr(),) + ((_ptr(scale),) if int8 else ())
     err = fn(
-        *lead, indices.data_ptr(), _ptr(mask), out.data_ptr(),
-        batch_size, pooling, d, vector, group, by_group, storage.device.index, stream,
+        *lead, indices.data_ptr(), _ptr(mask), out.data_ptr(), batch_size, pooling, d,
+        *path, storage.device.index, stream,
     )
     if err != 0:
         msg = lib.pel_error_string(err).decode()

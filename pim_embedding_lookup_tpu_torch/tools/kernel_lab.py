@@ -29,8 +29,9 @@ Every probe that computes a pool (or a gather) is checked against its
 plain version on the same ids, and so is K4's backward on the gradient
 rows its ids touch; a mismatch raises.  The Pallas
 kernels' knobs (``tile_b``, ``--nbuf``) become the port kernels' path
-(``ops.gather_pool.kernel_path``): ``--row-path`` (16-byte vector loads or
-one element a thread), ``--nbuf`` (the group size G: threads a bag) and
+(``ops.gather_pool.kernel_path``): ``--row-path`` (vector loads, 16 bytes
+a lane for f32 rows, or one element a thread), ``--nbuf`` (the group size
+G: threads a bag) and
 ``--walk`` (ids by window or by group).  Unpinned, ``pallas`` and
 ``pallaschain`` sweep every row path with G at half, once and twice the
 kernels' own choice, on both walks; a pinned knob keeps the kernels'
@@ -70,9 +71,10 @@ from ..ops.csr_pool import (
 from ..ops.gather_pool import (
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
+    KernelPath,
     group_size,
     kernel_path,
-    row_path,
+    row_load,
 )
 from ..ops.ragged import segment_ids_from_offsets
 from ..parallel.hotcache import hot_cache_select
@@ -122,29 +124,30 @@ def sweep_paths(storage, d, entries, bags, args, by_group_ok=True) -> list:
     (``by_group_ok=False``: K1 at L=1)."""
     if storage.device.type != "cuda":
         return [None]
-    auto_vector, _, auto_walk = kernel_path(storage, d, entries, bags)
+    auto = kernel_path(storage, d, entries, bags)
     pinned = args.row_path or args.nbuf or args.walk
-    if args.row_path:
-        vectors = [args.row_path == "vector"]
+    vector = row_load(storage, d)
+    if args.row_path:  # an unaligned view refuses the 16-byte pin
+        loads = [(vector or 16) if args.row_path == "vector" else 0]
     else:
-        vectors = [auto_vector] if pinned else [True, False][not row_path(storage, d)[0]:]
-    walks = [args.walk == "group"] if args.walk else [auto_walk] if pinned else [False, True]
+        loads = [auto.load] if pinned else [vector, 0][not vector:]
+    walks = [args.walk == "group"] if args.walk else [auto.by_group] if pinned else [False, True]
     if not by_group_ok:
         walks = [w for w in walks if not w]
     paths = []
-    for vector in vectors:
-        g0 = group_size(storage, d, vector)
+    for load in loads:
+        g0 = group_size(storage, d, load)
         groups = [args.nbuf] if args.nbuf else \
             [g0] if pinned else sorted({max(1, g0 // 2), g0, min(32, 2 * g0)})
-        paths += [(vector, g, by_group) for g in groups for by_group in walks]
+        paths += [KernelPath(load, g, by_group) for g in groups for by_group in walks]
     return [None] + paths
 
 
 def path_name(path) -> str:
     if path is None:
         return "auto"
-    vector, group, by_group = path
-    return f"{'vector' if vector else 'scalar'}:G={group}:{'group' if by_group else 'window'}"
+    load, group, by_group = path
+    return f"{f'vector{load}' if load else 'scalar'}:G={group}:{'group' if by_group else 'window'}"
 
 
 class Lab:

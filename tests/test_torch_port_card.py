@@ -59,7 +59,8 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
-    row_path,
+    fitted_path,
+    kernel_path,
     walks_by_group,
 )
 
@@ -215,10 +216,10 @@ def _edge_csr(device, seed, tables, max_len, empty):
 def test_csr_kernel_edge_cases(cuda, dtype, d, layout, tables, max_len, empty):
     storage = _edge_storage(cuda, dtype, d, layout)
     vector = layout != "unaligned" and d * storage.element_size() % 16 == 0
-    assert row_path(storage, d)[0] == vector
+    assert (kernel_path(storage, d, 1, 1).load > 0) == vector
     idx, off = _edge_csr(cuda, d + tables, tables, max_len, empty)
     if max_len == 100:
-        assert walks_by_group(row_path(storage, d)[1], idx.shape[1], EDGE_BAGS)
+        assert walks_by_group(kernel_path(storage, d, 1, 1).group, idx.shape[1], EDGE_BAGS)
     got = embedding_bag_csr_packed(storage, d, idx, off, batch_size=EDGE_BAGS)
     again = embedding_bag_csr_packed(storage, d, idx, off, batch_size=EDGE_BAGS)
     want = embedding_bag_csr_packed_reference(
@@ -267,7 +268,7 @@ def test_repeated_launches_are_bitwise_equal(cuda):
 
 # -- pinned kernel paths (the kernel lab's sweep) ----------------------------------
 
-PINNED = [(vector, group, by_group) for vector in (True, False)
+PINNED = [(load, group, by_group) for load in (16, 0)
           for group in (1, 2, 4, 8, 16, 32) for by_group in (False, True)]
 
 
@@ -705,11 +706,24 @@ def test_mesh_of_one_gradients_match_replicate(nccl_mesh, policy):
 
 # -- int8 storage: the capacity mode's instances of K1 and K2 --------------------
 
-# (d, layout): 16-byte vector rows (d a multiple of 16, aligned) and the
-# scalar path (d = 4, 20, or an [N, d] view one byte into its buffer)
-INT8_STORAGE = [(d, layout) for d in (4, 16, 20, 32, 128)
+# (d, layout): vector rows (4-byte words; 16-byte loads where d is a
+# multiple of 16) and the scalar path (an [N, d] view one byte into its
+# buffer); d = 64 is the capacity bench's width
+INT8_STORAGE = [(d, layout) for d in (4, 16, 20, 32, 64, 128)
                 for layout in ("packed", "unpacked", "unaligned")
                 if layout != "packed" or 128 % d == 0]
+# (scale mode, int8 path): the path the wrapper picks (8- or 4-byte loads
+# by bag length); pinned, the 16-byte loads of the first int8 design and
+# each of the loads the wrapper picks from
+INT8_PATHS = [(mode, name) for mode in ("table", "row")
+              for name in ("chosen", "16-byte", "8-byte", "4-byte")]
+
+
+def _int8_path(name, storage, d, entries, bags):
+    """The pin of an INT8_PATHS name for this storage (None: the wrapper's
+    choice), where the storage takes its load, else the scalar path."""
+    load = {"chosen": None, "16-byte": 16, "8-byte": 8, "4-byte": 4}[name]
+    return None if load is None else fitted_path(storage, d, entries, bags, load)
 
 
 def _int8_storage(device, d, layout):
@@ -732,60 +746,73 @@ def _int8_storage(device, d, layout):
 
 @pytest.mark.parametrize("masking", ["none", "random", "all false"])
 @pytest.mark.parametrize("pooling", [1, 3, 9])
-@pytest.mark.parametrize("mode", ["table", "row"])
+@pytest.mark.parametrize("mode,path", INT8_PATHS)
 @pytest.mark.parametrize("d,layout", INT8_STORAGE)
-def test_int8_fixedl_kernel_edge_cases(cuda, d, layout, mode, pooling, masking):
-    """int8 K1 ("table": codes; "row": codes times per-row scales) against
-    its plain version on both row paths and both id walks; masked entries
-    hold ids that fault if read, and so would their scales."""
+def test_int8_fixedl_kernel_edge_cases(cuda, d, layout, mode, path, pooling, masking):
+    """int8 K1 ("table": codes; "row": codes times per-row scales) on each
+    int8 path against its plain version, on both row paths and both id
+    walks, bitwise at L = 1; masked entries hold ids that fault if read,
+    and so would their scales."""
     storage, scale = _int8_storage(cuda, d, layout)
     scale = scale if mode == "row" else None
-    vector = layout != "unaligned" and d % 16 == 0
-    assert row_path(storage, d)[0] == vector
+    vector = layout != "unaligned" and d % 4 == 0
+    assert (kernel_path(storage, d, 1, 1).load > 0) == vector
     rng = np.random.default_rng(pooling + d)
     n = EDGE_BAGS * pooling
+    pin = _int8_path(path, storage, d, n, EDGE_BAGS)
+    if pin is not None and pooling == 1:  # a single-hot tile is one window
+        pin = pin._replace(by_group=False)
     ids = torch.from_numpy(rng.integers(0, EDGE_ROWS, size=n).astype(np.int32)).to(cuda)
     mask = {"none": None, "random": torch.from_numpy(rng.random(n) < 0.6).to(cuda),
             "all false": torch.zeros(n, dtype=torch.bool, device=cuda)}[masking]
     read = ids if mask is None else torch.where(mask, ids, NEVER_READ)
     kw = dict(pooling=pooling, batch_size=EDGE_BAGS, mask=mask, scale=scale)
     before = (embedding_bag_fixedl.int8_launches, embedding_bag_fixedl.int8_row_launches)
-    got = embedding_bag_fixedl(storage, d, read, **kw)
-    again = embedding_bag_fixedl(storage, d, read, **kw)
+    got = embedding_bag_fixedl(storage, d, read, path=pin, **kw)
+    again = embedding_bag_fixedl(storage, d, read, path=pin, **kw)
     want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
     torch.cuda.synchronize()
     assert (embedding_bag_fixedl.int8_launches, embedding_bag_fixedl.int8_row_launches) == (
         before[0] + 2, before[1] + 2 * (mode == "row"))
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)
+    if pooling == 1:  # one product a bag, rounded once on both sides
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("tables,max_len,empty", [(1, 40, False), (10, 6, False),
                                                   (3, 3, True), (2, 100, False)])
-@pytest.mark.parametrize("mode", ["table", "row"])
+@pytest.mark.parametrize("mode,path", INT8_PATHS)
 @pytest.mark.parametrize("d,layout", INT8_STORAGE)
-def test_int8_csr_kernel_edge_cases(cuda, d, layout, mode, tables, max_len, empty, masked):
-    """int8 K2, unmasked and with a row shard's mask, against its plain
-    version: empty bags, long bags (the by-group walk), padding and masked
-    entries holding ids that fault if read."""
+def test_int8_csr_kernel_edge_cases(cuda, d, layout, mode, path, tables, max_len, empty,
+                                    masked):
+    """int8 K2 on each int8 path, unmasked and with a row shard's mask,
+    against its plain version (bitwise on bags of at most one entry): empty
+    bags, long bags (the by-group walk), padding and masked entries holding
+    ids that fault if read."""
     storage, scale = _int8_storage(cuda, d, layout)
     scale = scale if mode == "row" else None
     idx, off = _edge_csr(cuda, d + tables, tables, max_len, empty)
+    pin = _int8_path(path, storage, d, idx.shape[1], EDGE_BAGS)
     clean = torch.where(idx == NEVER_READ, 0, idx)
     mask = None
     if masked:
         mask = torch.from_numpy(np.random.default_rng(d).random(tuple(idx.shape)) < 0.5).to(cuda)
         idx = torch.where(mask, idx, NEVER_READ)
     kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
-    before = embedding_bag_csr_packed.int8_launches
-    got = embedding_bag_csr_packed(storage, d, idx, off, **kw)
-    again = embedding_bag_csr_packed(storage, d, idx, off, **kw)
+    before = (embedding_bag_csr_packed.int8_launches, embedding_bag_csr_packed.int8_row_launches)
+    got = embedding_bag_csr_packed(storage, d, idx, off, path=pin, **kw)
+    again = embedding_bag_csr_packed(storage, d, idx, off, path=pin, **kw)
     want = embedding_bag_csr_packed_reference(storage, d, clean, off, **kw)
     torch.cuda.synchronize()
-    assert embedding_bag_csr_packed.int8_launches == before + 2
+    assert (embedding_bag_csr_packed.int8_launches,
+            embedding_bag_csr_packed.int8_row_launches) == (
+        before[0] + 2, before[1] + 2 * (mode == "row"))
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)
+    single = ((off[:, 1:] - off[:, :-1]) <= 1).reshape(-1)  # bags of 0 or 1 entries
+    assert torch.equal(got[single], want[single])
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):

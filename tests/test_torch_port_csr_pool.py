@@ -28,7 +28,7 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_packed,
     embedding_bag_csr_sum,
 )
-from pim_embedding_lookup_tpu_torch.ops.gather_pool import row_path, walks_by_group
+from pim_embedding_lookup_tpu_torch.ops.gather_pool import kernel_path, walks_by_group
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -337,18 +337,27 @@ def test_cpu_tensors_count_no_launch():
     assert "csr_pool" not in csr_pool._build._loaded
 
 
-@pytest.mark.parametrize("d,offset,want", [
-    (16, 0, (True, 4)),    # lane-packed d=16 f32: 4 threads a bag, 8 bags a warp
-    (16, 1, (False, 16)),  # the same storage one element in: scalar path
-    (128, 0, (True, 32)),  # K3: a warp a bag
-    (8, 4, (True, 2)),     # 4 f32 in is 16 bytes: still aligned
+@pytest.mark.parametrize("dtype,d,offset,want", [
+    (torch.float32, 16, 0, (True, 4)),    # lane-packed d=16 f32: 4 threads a bag, 8 a warp
+    (torch.float32, 16, 1, (False, 16)),  # the same storage one element in: scalar path
+    (torch.float32, 128, 0, (True, 32)),  # K3: a warp a bag
+    (torch.float32, 8, 4, (True, 2)),     # 4 f32 in is 16 bytes: still aligned
+    # int8 codes lane-packed [S, 128], short bags: 8 codes a thread
+    (torch.int8, 4, 0, (True, 1)),        # 4-byte rows: one word a thread
+    (torch.int8, 16, 0, (True, 2)),       # the int8 Kaggle big set
+    (torch.int8, 64, 0, (True, 8)),       # the capacity bench's rows
+    (torch.int8, 128, 0, (True, 16)),
+    (torch.int8, 16, 1, (False, 16)),     # one byte in: scalar path
+    (torch.int8, 64, 1, (False, 32)),
+    (torch.int8, 16, 4, (True, 4)),       # 4 bytes in: words
 ])
-def test_csr_storage_row_path(d, offset, want):
+def test_csr_storage_row_path(dtype, d, offset, want):
     """The path the CSR wrapper passes to its kernel, for lane-packed
     [S, 128] storage and views of it."""
-    buf = torch.zeros(8 * 128 + offset)
+    buf = torch.zeros(8 * 128 + offset, dtype=dtype)
     storage = buf[offset:].view(8, 128)
-    assert row_path(storage, d) == want
+    path = kernel_path(storage, d, 8, 8)
+    assert (path.load > 0, path.group) == want
 
 
 @pytest.mark.parametrize("group,capacity,batch,want", [

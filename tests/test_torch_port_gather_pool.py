@@ -18,7 +18,8 @@ from pim_embedding_lookup_tpu_torch.ops import gather_pool
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
-    row_path,
+    kernel_path,
+    row_load,
     walks_by_group,
 )
 
@@ -125,16 +126,88 @@ def test_cpu_tensor_does_not_count_a_launch(rng):
     (torch.float32, 1, 0, (False, 1)),      # 4-byte rows: scalar
     (torch.float32, 16, 1, (False, 16)),    # a view 1 element in: not 16-byte aligned
     (torch.bfloat16, 16, 8, (True, 2)),     # 8 bf16 in: aligned again
+    # int8 rows, single hot: 8 codes a thread (two float4 of output), or 4
+    # (one 32-bit word, one float4) where rows are 4- but not 8-byte aligned
+    (torch.int8, 4, 0, (True, 1)),          # one word: 32 bags a warp
+    (torch.int8, 16, 0, (True, 2)),         # the Kaggle width: 16 bags a warp
+    (torch.int8, 20, 0, (True, 8)),         # 5 words, rounded up to 8 threads
+    (torch.int8, 64, 0, (True, 8)),         # the capacity width: 4 bags a warp
+    (torch.int8, 128, 0, (True, 16)),
+    (torch.int8, 16, 1, (False, 16)),       # a view 1 byte in: not 4-byte aligned
+    (torch.int8, 64, 1, (False, 32)),       # ... scalar, 64 -> 32 threads
+    (torch.int8, 16, 4, (True, 4)),         # 4 bytes in: words, not 8-byte loads
+    (torch.int8, 16, 8, (True, 2)),         # 8 bytes in: aligned again
+    (torch.int8, 6, 0, (False, 8)),         # 6-byte rows: scalar
 ])
 def test_row_path_picks_vector_loads_and_group(dtype, d, offset, want):
-    """The kernels read rows with 16-byte vector loads only where the row
-    bytes and the storage pointer are 16-byte aligned; a bag gets one thread
-    per vector (or element) of its row, rounded up to a power of two, at
-    most a warp."""
+    """The kernels read rows with vector loads (16 bytes a thread; 4 for
+    int8 rows) only where the row bytes and the storage pointer are that
+    aligned; a bag gets one thread per vector (or element) of its row,
+    rounded up to a power of two, at most a warp."""
     buf = torch.zeros(64 * d + offset, dtype=dtype)
     storage = buf[offset:].view(64, d)
     assert storage.is_contiguous() and storage.storage_offset() == offset
-    assert row_path(storage, d) == want
+    path = kernel_path(storage, d, 64, 64)
+    assert (path.load > 0, path.group) == want
+    assert path == (row_load(storage, d), want[1], False)
+    if dtype != torch.int8:
+        assert path.load == 16 * want[0]
+
+
+@pytest.mark.parametrize("d,pooling,want", [
+    (16, 1, (8, 2, False)),     # the int8 Kaggle big set: 8-byte loads, one window
+    (16, 2, (8, 2, False)),     # 16 bags of 2: still one window
+    (16, 3, (4, 4, False)),     # 48 entries a tile at 8 bytes: words, 8 bags a window
+    (16, 8, (4, 4, True)),      # long bags: words, by group
+    (64, 1, (8, 8, False)),     # the capacity bench at L=1
+    (64, 120, (4, 16, True)),   # cli sweep's int8 points: 16 threads a bag
+    (20, 1, (4, 8, False)),     # 20-byte rows take no 8-byte loads
+])
+def test_int8_row_load_follows_bag_length(d, pooling, want):
+    """int8 rows load 8 codes a thread where the tile of that group walks by
+    window (short bags), and 4 codes (twice the threads a bag) where its bags
+    are long enough to walk by group."""
+    storage = torch.zeros(64, d, dtype=torch.int8)
+    bags = 100
+    assert kernel_path(storage, d, bags * pooling, bags) == want
+    assert row_load(storage, d, bags * pooling, bags) == want[0]
+
+
+@pytest.mark.parametrize("d,offset,path,refused", [
+    (16, 0, (12, 4, False), "row loads of 12 bytes"),    # no such load
+    (16, 0, (32, 1, False), "row loads of 32 bytes"),    # wider than a vector
+    (20, 0, (8, 4, False), "8-byte row loads"),          # 20-byte rows: not 8-aligned
+    (20, 0, (16, 2, False), "16-byte row loads"),        # nor 16-aligned
+    (16, 1, (4, 4, False), "4-byte row loads"),          # a view 1 byte in
+    (16, 2, (4, 4, False), "4-byte row loads"),          # ... 2 bytes in
+    (16, 4, (8, 2, False), "8-byte row loads"),          # 4 bytes in: not 8-aligned
+    (16, 8, (16, 1, False), "16-byte row loads"),        # 8 bytes in: not 16-aligned
+    (16, 0, (2, 8, False), "row loads of 2 bytes"),      # narrower than a word
+    (16, 0, (64, 1, False), "row loads of 64 bytes"),    # a whole row at once
+    (6, 0, (4, 2, False), "4-byte row loads"),           # 6-byte rows: not 4-aligned
+])
+def test_pinned_int8_row_load_refused(d, offset, path, refused):
+    """A pinned path (``path=``) whose row loads int8 storage cannot take
+    is refused before any launch, on the CPU too; the kernels never fall
+    back to another load."""
+    storage = torch.zeros(64 * d + offset, dtype=torch.int8)[offset:].view(64, d)
+    ids = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match=refused):
+        kernel_path(storage, d, 8, 8, path)
+    with pytest.raises(ValueError, match=refused):
+        embedding_bag_fixedl(storage, d, ids, pooling=1, batch_size=8, path=path)
+
+
+def test_pinned_float_row_loads_are_16_bytes():
+    """f32 and bf16 kernels load 16 bytes a thread or one element: the int8
+    loads are refused for them."""
+    for dtype in (torch.float32, torch.bfloat16):
+        storage = torch.zeros(64, 16, dtype=dtype)
+        for path in ((4, 4, False), (8, 4, False), (12, 4, False)):
+            with pytest.raises(ValueError, match="row loads"):
+                kernel_path(storage, 16, 64, 64, path)
+        with pytest.raises(ValueError, match="only the card"):  # a valid pin on the CPU
+            kernel_path(storage, 16, 64, 64, (16, 4, False))
 
 
 @pytest.mark.parametrize("group,pooling,want", [

@@ -394,11 +394,11 @@ def test_pinned_kernel_path_refused():
     ids = torch.zeros(8, dtype=torch.int32)
     off = torch.arange(9, dtype=torch.int32)
     with pytest.raises(ValueError, match="power of two"):
-        embedding_bag_fixedl(storage, 16, ids, pooling=1, batch_size=8, path=(True, 3, False))
+        embedding_bag_fixedl(storage, 16, ids, pooling=1, batch_size=8, path=(16, 3, False))
     with pytest.raises(ValueError, match="only the card"):
-        embedding_bag_fixedl(storage, 16, ids, pooling=2, batch_size=4, path=(True, 4, False))
+        embedding_bag_fixedl(storage, 16, ids, pooling=2, batch_size=4, path=(16, 4, False))
     with pytest.raises(ValueError, match="by-group"):
-        embedding_bag_fixedl(storage, 16, ids, pooling=1, batch_size=8, path=(False, 4, True))
+        embedding_bag_fixedl(storage, 16, ids, pooling=1, batch_size=8, path=(0, 4, True))
     with pytest.raises(ValueError, match="only the card"):
-        embedding_bag_csr_packed(storage, 16, ids, off, batch_size=8, path=(False, 16, True))
+        embedding_bag_csr_packed(storage, 16, ids, off, batch_size=8, path=(0, 16, True))
     assert kernel_lab.sweep_paths(storage, 16, 8, 8, kernel_lab.parse_args([])) == [None]
