@@ -35,7 +35,10 @@ and K2) and routed with a hot cache, each equal to REPLICATE), ``multihost_1`` (
 multi-host entry in a subprocess that has a launcher's environment for a
 job of one), ``shards_4`` (the four shards of each policy in one process:
 the masked K1, K2 and K4-backward launches against their plain versions,
-timed), ``cli`` (the training entry point ``python -m
+timed), ``masked`` (the masked walk at a row shard's per-rank shapes of
+``cli bench``'s random and bigtable configurations and of Kaggle, 1 in 4
+kept and all kept: the compacted walk timed in turns against the first
+masked walk pinned, bitwise equal), ``cli`` (the training entry point ``python -m
 pim_embedding_lookup_tpu_torch.cli train`` at full Kaggle width in
 subprocesses: sparse row-AdaGrad training with reports and a full-state
 save, its resume, inference from it, and dense-autodiff ``fit``; in this
@@ -64,7 +67,8 @@ where it is absent, and its bucket packer feeds the bucketed CSR dispatch,
 byte-identical to the numpy packer.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only tools       # one phase alone (or bench, surface, multi_gpu)
+    python3 chip_smoke.py --only tools       # one phase alone (or bench, surface, int8,
+                                             # masked, multi_gpu)
 
 Needs one CUDA device, nvcc and a C++ toolchain (``make``); exits non-zero,
 printing no result, without them.  Any failed check raises.  The line before the last is a JSON object
@@ -106,6 +110,7 @@ from pim_embedding_lookup_tpu_torch import (
     ShardingPolicy,
     TableConfig,
     kaggle_config,
+    random_config,
     toy_config,
 )
 from pim_embedding_lookup_tpu_torch import (
@@ -136,6 +141,7 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_sum,
 )
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
+    KernelPath,
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
     fitted_path,
@@ -259,6 +265,16 @@ def bound(moved_bytes, ops_count):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def distinct_rows(ids, keep) -> int:
+    """The distinct rows among the entries of ``ids`` where ``keep`` is
+    set: what a pool kernel must read at least once.  ``ids``: [N] fused,
+    or [T, C], one table a row (keyed by table, so that local ids of two
+    tables stay apart)."""
+    if ids.dim() == 2:
+        ids = ids.long() + (torch.arange(ids.shape[0], device=ids.device)[:, None] << 32)
+    return int(torch.unique(ids[keep]).numel())
+
+
 def in_turns(fns, id_sets) -> dict:
     """Device ms of each of ``fns`` (name -> function of one id set), timed
     in turns: in order, then in reverse (A B C C B A), so that drift over
@@ -270,11 +286,11 @@ def in_turns(fns, id_sets) -> dict:
 
 
 def path_label(pin) -> str:
-    """A kernel path as the lines print it: load bytes (or scalar), G and
-    walk."""
-    load, group, by_group = pin
+    """A kernel path as the lines print it: load bytes (or scalar), G,
+    walk, and the first masked walk's flags where pinned."""
+    load, group, by_group, compact = KernelPath(*pin)
     return (f"{f'{load}-byte' if load else 'scalar'} G={group} "
-            f"{'by group' if by_group else 'by window'}")
+            f"{'by group' if by_group else 'by window'}{'' if compact else ', mask flags'}")
 
 
 def check_kernel(got, want, slack=None):
@@ -318,9 +334,10 @@ def checked_paths(run, want, paths, exact, slack=None):
 
 
 def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, paths=None,
-            extra=None, abs_storage=None):
+            extra=None, abs_storage=None, plain_timing=None):
     """K1 against its plain version on set 0; kernel, plain and library
-    times cycling through all sets; bound from set 0's data.  int8
+    times cycling through all sets; bound from set 0's data (each distinct
+    kept row read once, every id and mask byte, the output).  int8
     ``storage`` (with ``scale`` in "row" mode) has no library call
     (``int8_library_probe``): ``f32_weight``'s F.embedding_bag, where
     given, is timed beside it as a reference point.  ``paths`` (name ->
@@ -329,7 +346,10 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, pat
     ``extra`` (name -> function of an id set) are timed in turns
     (:func:`in_turns`); the kernel's time is then the mean of the
     choice's two turns.  ``abs_storage`` (|codes| of int8 storage): the
-    checks allow :func:`order_slack` past KERNEL_TOL, for long bags."""
+    checks allow :func:`order_slack` past KERNEL_TOL, for long bags.
+    ``plain_timing``: ``device_ms``'s calls and runs for the plain version
+    and the library call (default 10 and 20; fewer where a call takes
+    tens of ms)."""
     ids, mask = id_sets[0]
     bags = ids.numel() // pooling
     kw = dict(pooling=pooling, batch_size=bags, scale=scale)
@@ -356,7 +376,8 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, pat
         kernel_ms = device_ms(kernel, id_sets)
     kernel_call_ms = call_ms(kernel, id_sets)
     plain_ms = device_ms(
-        lambda i, m: embedding_bag_fixedl_reference(storage, d, i, mask=m, **kw), id_sets)
+        lambda i, m: embedding_bag_fixedl_reference(storage, d, i, mask=m, **kw), id_sets,
+        **(plain_timing or {}))
     embedding_bag_ms = None
     weight = f32_weight if int8 else storage
     if weight is not None:
@@ -365,18 +386,19 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, pat
         lib_sets = [(i, m.to(weight.dtype)) for i, m in id_sets]
         embedding_bag_ms = device_ms(
             lambda i, w: F.embedding_bag(i, weight, offsets, mode="sum", per_sample_weights=w),
-            lib_sets)
+            lib_sets, **(plain_timing or {}))
 
     active = int(mask.sum().item())
+    rows = distinct_rows(ids, mask)
     bound_ms, bound_by = bound(
-        active * d * storage.element_size()  # rows read
-        + active * 4 * (scale is not None)  # their f32 scales
+        rows * d * storage.element_size()  # each distinct kept row read once
+        + rows * 4 * (scale is not None)  # its f32 scale
         + ids.numel() * 5  # int32 id + 1-byte mask per entry
         + bags * d * 4,  # f32 output
         active * d * (1 + (scale is not None)))  # an add (and a multiply) per value
     row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
                bags=bags, pooling=pooling, d=d, active_entries=active,
-               max_abs_err=err, kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               distinct_rows=rows, max_abs_err=err, kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                plain_ms=plain_ms, library_ms=None if int8 else embedding_bag_ms,
                bound_ms=bound_ms, bound_by=bound_by)
     if int8:
@@ -461,9 +483,9 @@ def edge_phase(gen):
     unpacked and unaligned storage, so vector and scalar row loads; bags
     longer than the unroll, all-empty bags, T = 1, 2 and 10, and bags long
     enough for the by-group walk; K1 at L = 1, 3, 8, 9 with no mask, a
-    random mask and an all-false mask), and repeated launches bitwise equal.
-    Padding and masked entries hold ids that fault if read.  Returns the
-    number of cases."""
+    random mask and an all-false mask; :func:`compaction_cases`), and
+    repeated launches bitwise equal.  Padding and masked entries hold ids
+    that fault if read.  Returns the number of cases."""
     cases, paths = 0, set()
     for dtype, d in itertools.product((torch.float32, torch.bfloat16),
                                       (1, 4, 16, 20, 128, 256)):
@@ -502,10 +524,106 @@ def edge_phase(gen):
                     raise AssertionError(f"K1 not deterministic: {dtype} d={d} {layout}")
                 cases += 1
                 paths.add(("K1", vector, walks_by_group(group, n, EDGE_BAGS)))
+            cases += compaction_cases(gen, storage, d)
     torch.cuda.synchronize()
     if len(paths) != 8:  # K1, K2 x vector, scalar x window, by group
         raise AssertionError(f"edge cases reached only the paths {sorted(paths)}")
     return cases
+
+
+# where compaction can slip: the edges of a 32-id window and of a by-group
+# round of G*U entries (G a power of two up to 32, U 2 or 4), as positions in
+# a bag; EDGE_LONG entries a bag reach them all
+EDGE_KEPT = sorted({0, 31, 32, 33} | {g * u + k for g in (1, 2, 4, 8, 16, 32)
+                                       for u in (2, 4) for k in (-1, 0, 1)})
+EDGE_LONG = EDGE_KEPT[-1] + 3
+
+
+def edge_keep(lens):
+    """[bags, max(lens)] keep masks of bags of ``lens`` entries, by bag: the
+    EDGE_KEPT positions (shifted by 0, 1 or 2, so that tiles meet them at
+    every alignment), nothing, all but those positions, the first and the
+    last entry only."""
+    keep = torch.zeros(len(lens), max(max(lens), 1), dtype=torch.bool)
+    for b, n in enumerate(lens):
+        kind, shift = b % 4, (b // 4) % 3
+        edge = [p + shift for p in EDGE_KEPT if p + shift < n]
+        if kind == 0:
+            keep[b, edge] = True
+        elif kind == 2:
+            keep[b, :n] = True
+            keep[b, edge] = False
+        elif kind == 3 and n:
+            keep[b, [0, n - 1]] = True
+    return keep.to(DEV)
+
+
+def compaction_cases(gen, storage, d, scale=None) -> int:
+    """K1 and K2 over bags whose kept entries sit at the compaction's edges
+    (EDGE_KEPT; bags with nothing kept; an all-false mask), on both walks
+    pinned, each compacted and with the first masked walk's flags: all
+    bitwise equal, within KERNEL_TOL of the plain version, the bags with
+    nothing kept exactly zero, repeated launches bitwise equal.  Masked and
+    padding entries hold NEVER_READ.  Returns the number of cases."""
+    cases = 0
+    lens = [EDGE_LONG] * EDGE_BAGS
+    for all_false in (False, True):
+        keep = edge_keep(lens) & (not all_false)
+        n = EDGE_BAGS * EDGE_LONG
+        ids = torch.randint(0, EDGE_ROWS, (n,), generator=gen, device=DEV, dtype=torch.int32)
+        mask = keep.reshape(-1).contiguous()
+        read = torch.where(mask, ids, NEVER_READ)
+        kw = dict(pooling=EDGE_LONG, batch_size=EDGE_BAGS, mask=mask, scale=scale)
+        compaction_check(f"K1 {storage.dtype} d={d}, all-false mask {all_false}",
+                         lambda p: embedding_bag_fixedl(storage, d, read, path=p, **kw),
+                         kernel_path(storage, d, n, EDGE_BAGS),
+                         embedding_bag_fixedl_reference(storage, d, ids, **kw),
+                         ~keep.any(dim=1))
+        cases += 1
+    # K2: two tables of long bags, empty bags and bags of 1, 33 and 64 entries
+    lens = [[[EDGE_LONG, 0, 1, 33, EDGE_LONG, 64][(b + t) % 6] for b in range(EDGE_BAGS)]
+             for t in range(2)]
+    off = torch.zeros(2, EDGE_BAGS + 1, dtype=torch.int32, device=DEV)
+    off[:, 1:] = torch.tensor(lens, device=DEV).cumsum(dim=1)
+    cap = int(off[:, -1].max().item()) + 8
+    for all_false in (False, True):
+        mask = torch.zeros(2, cap, dtype=torch.bool, device=DEV)
+        none_kept = []
+        for t in range(2):
+            keep = edge_keep(lens[t]) & (not all_false)
+            for b, n in enumerate(lens[t]):
+                start = int(off[t, b].item())
+                mask[t, start:start + n] = keep[b, :n]
+            none_kept.append(~keep.any(dim=1))
+        idx = torch.randint(0, EDGE_ROWS, (2, cap), generator=gen, device=DEV, dtype=torch.int32)
+        read = torch.where(mask, idx, NEVER_READ)  # padding past offsets[B] is never kept
+        kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
+        compaction_check(f"K2 {storage.dtype} d={d}, all-false mask {all_false}",
+                         lambda p: embedding_bag_csr_packed(storage, d, read, off, path=p, **kw),
+                         kernel_path(storage, d, cap, EDGE_BAGS),
+                         embedding_bag_csr_packed_reference(storage, d, idx, off, **kw),
+                         torch.cat(none_kept))
+        cases += 1
+    return cases
+
+
+def compaction_check(what, run, chosen, want, none_kept):
+    """One compaction case: ``run(path)`` on the wrapper's path, on each
+    walk pinned (``chosen`` by window and by group, compacted and with the
+    first masked walk's flags) and on the wrapper's path again, all bitwise
+    equal, within KERNEL_TOL of the plain ``want``, and zero where a bag
+    kept nothing."""
+    runs = [run(None)] + [run(chosen._replace(by_group=bg, compact=c))
+                          for bg in (False, True) for c in (True, False)] + [run(None)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(runs[0], want, **KERNEL_TOL)
+    for i, got in enumerate(runs[1:], 1):
+        if not torch.equal(got, runs[0]):
+            raise AssertionError(f"compaction case {what}: run {i} (window/group x "
+                                 "compacted/flags, then repeated) differs bitwise from "
+                                 f"the wrapper's walk by {(got - runs[0]).abs().max().item():.3g}")
+    if not torch.equal(runs[0][none_kept], torch.zeros_like(runs[0][none_kept])):
+        raise AssertionError(f"compaction case {what}: a bag that kept nothing is not 0")
 
 
 # -- the CSR wire ---------------------------------------------------------------
@@ -559,13 +677,14 @@ def compact(idx, off, mask=None):
 
 
 def csr_case(tag, name, storage, d, id_sets, scale=None, f32_weight=None, paths=None,
-             extra=None, abs_storage=None):
+             extra=None, abs_storage=None, plain_timing=None):
     """K2/K3 against its plain version on set 0 (fused ids [T, C], offsets
     [T, B+1], and for a row shard its [T, C] ownership mask); kernel, plain
     and library times cycling through all sets; bound from set 0's data:
-    valid entries only, padding is not read, nor the rows of masked
-    entries.  int8 ``storage``, ``paths``, ``extra`` and ``abs_storage``:
-    as in k1_case (bitwise on the bags of at most one entry)."""
+    the ids of valid entries only (padding is not read), each distinct row
+    of a kept entry read once (not the rows of masked entries).  int8 ``storage``, ``paths``, ``extra``, ``abs_storage`` and
+    ``plain_timing``: as in k1_case (bitwise on the bags of at most one
+    entry)."""
     idx, off, *masked = id_sets[0]
     mask = masked[0] if masked else None
     t, b = off.shape[0], off.shape[1] - 1
@@ -596,29 +715,32 @@ def csr_case(tag, name, storage, d, id_sets, scale=None, f32_weight=None, paths=
         kernel_ms = device_ms(kernel, id_sets)
     kernel_call_ms = call_ms(kernel, id_sets)
     plain_ms = device_ms(lambda i, o, *m: embedding_bag_csr_packed_reference(
-        storage, d, i, o, mask=m[0] if m else None, **kw), id_sets)
+        storage, d, i, o, mask=m[0] if m else None, **kw), id_sets, **(plain_timing or {}))
     embedding_bag_ms = None
     weight = f32_weight if int8 else storage
     if weight is not None:
         weight = weight.view(-1, d)
-        lib_sets = [compact(*s) for s in id_sets]  # before the timed region
+        lib_sets = [(i, o, *(w.to(weight.dtype) for w in ws))  # before the timed region
+                    for i, o, *ws in (compact(*s) for s in id_sets)]
         embedding_bag_ms = device_ms(lambda i, o, *w: F.embedding_bag(
             i, weight, o, mode="sum", include_last_offset=True,
-            per_sample_weights=w[0] if w else None), lib_sets)
+            per_sample_weights=w[0] if w else None), lib_sets, **(plain_timing or {}))
 
     valid = torch.arange(idx.shape[1], device=DEV)[None, :] < off[:, -1:]
     active = int(valid.sum().item())
-    read = active if mask is None else int((valid & mask).sum().item())
+    kept = valid if mask is None else valid & mask
+    read = int(kept.sum().item())
+    rows = distinct_rows(idx, kept)
     bound_ms, bound_by = bound(
-        read * d * storage.element_size()  # rows read
-        + read * 4 * (scale is not None)  # their f32 scales
+        rows * d * storage.element_size()  # each distinct kept row read once
+        + rows * 4 * (scale is not None)  # its f32 scale
         + active * (4 + (mask is not None))  # ids, and mask bytes
         + t * (b + 1) * 4  # offsets
         + t * b * d * 4,  # f32 output
         read * d * (1 + (scale is not None)))
     row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
                tables=t, bags=b, capacity=idx.shape[1], d=d, active_entries=active,
-               rows_read=read, max_abs_err=err, kernel_ms=kernel_ms,
+               rows_read=read, distinct_rows=rows, max_abs_err=err, kernel_ms=kernel_ms,
                kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
                library_ms=None if int8 else embedding_bag_ms,
                bound_ms=bound_ms, bound_by=bound_by)
@@ -695,8 +817,9 @@ def k4_phase(gen):
                              lib_outs),
     )
     active = int(off[-1].item())
+    rows = distinct_rows(idx[:active], torch.ones(active, dtype=torch.bool, device=DEV))
     fwd.update(zip(("bound_ms", "bound_by"), bound(
-        active * (d * 4 + 4) + (BATCH + 1) * 4 + BATCH * d * 4, active * d)))
+        rows * d * 4 + active * 4 + (BATCH + 1) * 4 + BATCH * d * 4, active * d)))
     bwd.update(zip(("bound_ms", "bound_by"), bound(
         BATCH * d * 4 + active * 4 + (BATCH + 1) * 4  # g, ids, offsets read
         + n * d * 4,  # the dense f32 gradient, written once
@@ -815,7 +938,8 @@ def int8_edge_phase(gen):
     and on the first int8 design's 16-byte loads pinned (the
     scalar path where d is not a multiple of 16); both id walks; K2
     unmasked and with a row shard's mask; K1 at L = 1, 3, 9 with no mask, a
-    random mask and an all-false one; row 0 all zero with scale 1.  Padding
+    random mask and an all-false one; row 0 all zero with scale 1; on the
+    wrapper's path :func:`compaction_cases` in each scale mode.  Padding
     and masked entries hold ids that fault if read (a read of their scales
     would too).  Repeated launches bitwise equal, and at L = 1 equal to the
     plain version.  Returns the number of cases."""
@@ -824,6 +948,8 @@ def int8_edge_phase(gen):
                                                        ("chosen", "16-byte")):
         storage, scale = int8_edge_storage(gen, d, layout)
         scale = scale if mode == "row" else None
+        if design == "chosen":
+            cases += compaction_cases(gen, storage, d, scale)
         for (tables, max_len, empty), masked in itertools.product(
                 ((1, 40, False), (10, 6, False), (3, 3, True), (2, 100, False)), (False, True)):
             idx, off = edge_csr(gen, tables, max_len, empty)
@@ -1987,8 +2113,8 @@ def shards_4_phase(gen):
     lookup makes: masked K1 over the dense wire (single-hot, B=8192) and
     masked K2 over the CSR wire (pooling-1 mixture), or K1 / K2 on the
     shard's d/4 slice for COLUMN, held against the plain version (1e-5) and
-    timed beside it, the library call and the bound (the rows the shard
-    owns, every id, mask and offset byte, the output).  The shards' partials
+    timed beside it, the library call and the bound (the distinct rows of
+    its kept entries, every id, mask and offset byte, the output).  The shards' partials
     (the per-shard bodies) summed, maxed for MAX, or side by side for
     COLUMN, then finished, equal the REPLICATE lookup.  On ROW_HASH's
     shards also K4's masked backward over the CSR sets, against its plain
@@ -2089,6 +2215,198 @@ def shards_4_phase(gen):
                     "pooling-1 mixture)", shards[s], dsub, k2_sets, gen))
         del shards
     return rows_out
+
+
+# -- masked: the compacted walk against the first masked walk -------------------
+
+MASKED_ID_SETS = 4  # id sets cycled at the long-bag shapes: each reads >= 130 MB of rows
+# the plain version takes 3-50 ms a call at the long-bag shapes: 2 calls a run, 5 runs
+MASKED_PLAIN_TIMING = dict(calls=2, runs=5)
+
+
+def masked_sets(tables, pooling, n_sets, gen):
+    """Per-table local ids of ``n_sets`` queries, B=8192: (dense [T, B*L],
+    CSR ids [T, C], offsets [T, B+1]); at L=1 the single-hot dense query and
+    the pooling-1 CSR mixture (shards_4's), else fixed-L bags on both wires
+    (``cli bench``'s CSR wire)."""
+    rows = [t.num_rows for t in tables]
+    sets = []
+    for _ in range(n_sets):
+        dense = torch.stack([torch.randint(0, n, (BATCH * pooling,), generator=gen, device=DEV,
+                                           dtype=torch.int32) for n in rows])
+        if pooling == 1:
+            sets.append((dense, *csr_ids(rows, gen, BATCH, 1)))
+        else:
+            off = (torch.arange(BATCH + 1, device=DEV, dtype=torch.int32) * pooling).expand(
+                len(rows), -1).contiguous()
+            sets.append((dense, dense, off))
+    return sets
+
+
+def masked_phase(gen, card):
+    """The masked walk at the shapes where it matters: K1 and masked K2 on
+    shard 0 of a ROW_HASH cut into 4 shards (about 1 entry in 4 kept,
+    owner-local ids and the ownership mask from ``_owner_local``, the shard
+    storage as ``shards_4`` builds it) and on one card's whole tables under
+    an all-set mask (the dense wire's padding mask, which K1 always takes),
+    at the per-rank shapes of ``cli bench``'s ``random`` (32 x 500k x 64
+    bf16, L=120) and ``bigtable`` (8 x 2M x 128 bf16, L=32; masked K2 at
+    d=128 is K3's path), both walked by group, at the Kaggle big set's
+    (10 tables, d=16 f32, L=1 and the pooling-1 CSR mixture), and at three
+    multi-hot shapes walked by window: the Kaggle big set at L=4 (G=4, U=4)
+    and ``bigtable``'s tables in f32 at L=8 and L=32 (G=32, U=8; K1 runs
+    the first walk's instance on both pins where a bag fits one batch, L <=
+    8), B=8192.  Each shape checks that K1's chosen walk is the one named.
+    Each row times the first masked walk pinned (mask flags through the
+    batches) against the wrapper's compacted walk in turns (pin, new, new,
+    pin), holds both
+    against the plain version (KERNEL_TOL) and against each other bitwise,
+    and a repeated launch bitwise, with its bound and F.embedding_bag with
+    the mask as per-sample weights.  On each shard the row-shard lookups
+    (``_rowshard_pooled_lookup``, ``_csr_rowshard_pool``) launch the same
+    kernels once each, counted, with the same bits.  Returns the rows by
+    (shape, kernel, kept)."""
+    config = kaggle_config()
+    hyb = HybridEmbeddingCollection.create(config.tables, ShardingPolicy.REPLICATE, device=DEV)
+    big = [config.tables[i] for i in hyb.big_ids]
+    shapes = (  # (name, tables, dtype, L, id sets, K1 walks by group)
+        ("random", random_config().tables, torch.bfloat16, 120, MASKED_ID_SETS, True),
+        ("bigtable", bench.bigtable_tables(), torch.bfloat16, 32, MASKED_ID_SETS, True),
+        ("kaggle", big, torch.float32, 1, ID_SETS, False),
+        ("kaggle L=4", big, torch.float32, 4, ID_SETS, False),
+        ("bigtable f32 L=8", bench.bigtable_tables(), torch.float32, 8, MASKED_ID_SETS, False),
+        ("bigtable f32 L=32", bench.bigtable_tables(), torch.float32, 32, MASKED_ID_SETS, False),
+    )
+    del hyb
+    out = {}
+    for shape, tables, dtype, pooling, n_sets, by_group in shapes:
+        t0 = time.perf_counter()
+        rep = EmbeddingCollection.create(list(tables), ShardingPolicy.REPLICATE, device=DEV)
+        storage = rep.init(gen, dtype)
+        d = rep.layout.dim
+        lay = plan(list(tables), SHARDS, ShardingPolicy.ROW_HASH, "auto")
+        coll = EmbeddingCollection(lay, DEV)
+        glob = global_storage(rep.layout, storage.view(-1, d), lay)
+        shard = shard_storage(lay, 0, glob).contiguous()
+        del glob
+        rps = lay.rows_per_shard
+
+        def on_shard(local):
+            """(owner-local ids, owned) of shard 0, shaped as ``local``."""
+            owner, loc = _owner_local(coll.globalize(local), rps, SHARDS, True)
+            return loc.to(torch.int32).contiguous(), ((owner == 0) & (loc < rps)).contiguous()
+
+        def one_card(local):
+            fused = rep.globalize(local).to(torch.int32).contiguous()
+            return fused, torch.ones(fused.shape, dtype=torch.bool, device=DEV)
+
+        sets = masked_sets(tables, pooling, n_sets, gen)
+        quick = MASKED_PLAIN_TIMING if pooling > 1 else None
+        torch.cuda.synchronize()
+        print(f"masked {shape}: {len(tables)} tables x {tables[0].num_rows} rows x d={d} "
+              f"{str(dtype).replace('torch.', '')}, B={BATCH}, L={pooling}: one card's storage "
+              f"{storage.numel() * storage.element_size() / 1e9:.3f} GB, shard 0 of {SHARDS} "
+              f"(ROW_HASH) {shard.numel() * shard.element_size() / 1e9:.3f} GB; {n_sets} id "
+              f"sets; built in {time.perf_counter() - t0:.2f} s ({card})", flush=True)
+        for kept, stor, cut in (("1 in 4", shard, on_shard), ("all", storage, one_card)):
+            k1_sets = [tuple(x.reshape(-1) for x in cut(dense)) for dense, _, _ in sets]
+            k2_sets = [(i, off, m) for (i, m), off in ((cut(idx), off) for _, idx, off in sets)]
+            where = (f"shard 0 of {SHARDS}, ROW_HASH ownership mask" if stor is shard
+                     else "one card, all-set mask")
+            ids, mask = k1_sets[0]
+            bags = ids.numel() // pooling
+            chosen = kernel_path(stor, d, ids.numel(), bags)
+            if chosen.by_group != by_group:
+                raise AssertionError(f"masked {shape}: K1 walks {path_label(chosen)}, not "
+                                     f"{'by group' if by_group else 'by window'}")
+            pin = chosen._replace(compact=False)
+            k1 = k1_case(f"masked {shape} K1 ({where}; {len(tables)} tables x B={BATCH}, "
+                         f"L={pooling})", stor, d, pooling, k1_sets,
+                         paths={"pin": pin, "chosen": None}, plain_timing=quick)
+            bitwise_pin(f"{shape} K1 {kept}", pin, lambda p: embedding_bag_fixedl(
+                stor, d, ids, pooling=pooling, batch_size=bags, mask=mask, path=p))
+            idx, off, kmask = k2_sets[0]
+            pin2 = kernel_path(stor, d, idx.shape[1], BATCH)._replace(compact=False)
+            k2 = csr_case("K2 masked", f"masked {shape} K2 ({where}; {len(tables)} tables x "
+                          f"B={BATCH}, {'pooling-1 mixture' if pooling == 1 else f'L={pooling}'})",
+                          stor, d, k2_sets, paths={"pin": pin2, "chosen": None},
+                          plain_timing=quick)
+            bitwise_pin(f"{shape} K2 {kept}", pin2, lambda p: embedding_bag_csr_packed(
+                stor, d, idx, off, batch_size=BATCH, mask=kmask, path=p))
+            out[(shape, "K1", kept)], out[(shape, "K2", kept)] = k1, k2
+            if stor is shard:
+                via_entry_points(shape, coll, shard, d, pooling, sets[0], k1_sets[0], k2_sets[0])
+        for kernel, kept in itertools.product(("K1", "K2"), ("1 in 4", "all")):
+            row = out[(shape, kernel, kept)]
+            pin_ms, new_ms = statistics.mean(row["turns_ms"]["pin"]), row["kernel_ms"]
+            print(f"masked {shape} {kernel}, {kept} kept ({row['path']}): pin {pin_ms:.5f} "
+                  f"ms -> new "
+                  f"{new_ms:.5f} ms (turns pin {row['turns_ms']['pin']}, new "
+                  f"{row['turns_ms']['chosen']}), x{pin_ms / new_ms:.3f}, share of bound "
+                  f"{row['bound_ms'] / pin_ms:.3f} -> {row['bound_ms'] / new_ms:.3f} (bound "
+                  f"{row['bound_ms']:.5f} ms), library {row['library_ms']:.5f} ms, plain "
+                  f"{row['plain_ms']:.5f} ms; bitwise equal, max abs err vs plain "
+                  f"{row['max_abs_err']:.3g} ({card})", flush=True)
+        del rep, storage, shard, coll, sets, k1_sets, k2_sets, ids, mask, idx, off, kmask
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def masked_only(card):
+    """``--only masked``: the kernel edge cases (the compaction cases among
+    them, f32, bf16 and int8), then the masked phase."""
+    t0 = time.perf_counter()
+    cases = edge_phase(torch.Generator(device=DEV).manual_seed(SEED))
+    cases += int8_edge_phase(torch.Generator(device=DEV).manual_seed(SEED + 1))
+    print(f"kernel edge cases: {cases} cases of K1 and K2 (f32, bf16, int8) equal to their "
+          f"plain versions, in {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    masked_phase(torch.Generator(device=DEV).manual_seed(SEED), card)
+    print(f"masked phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def bitwise_pin(what, pin, run):
+    """The first masked walk (``pin``) and the compacted one, launched on
+    the same inputs, and the compacted one again: the same bits."""
+    new, old, again = run(None), run(pin), run(None)
+    torch.cuda.synchronize()
+    if not (torch.equal(new, old) and torch.equal(new, again)):
+        raise AssertionError(f"masked {what}: the compacted walk differs from the pinned first "
+                             f"masked walk by {(new - old).abs().max().item():.3g}, or from "
+                             f"itself by {(new - again).abs().max().item():.3g}")
+
+
+def via_entry_points(shape, coll, shard, d, pooling, query, k1_set, k2_set):
+    """Shard 0's partials through the row-shard lookups of both wires: one
+    counted launch of K1 and of masked K2 each, equal bitwise to the direct
+    kernel calls on the same owner-local ids and mask."""
+    dense, idx, off = query
+    t = dense.shape[0]
+    kw = dict(shard=0, num_shards=SHARDS, rows_per_shard=coll.layout.rows_per_shard,
+              strided=True)
+    before = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.masked_launches)
+    with torch.no_grad():
+        keep = torch.ones(dense.shape, dtype=torch.bool, device=DEV)
+        k1 = _rowshard_pooled_lookup(shard, d, coll.globalize(dense), keep, pooling, "sum", **kw)
+        k2 = _csr_rowshard_pool(shard, d, coll.globalize(idx).contiguous(), off, BATCH, "sum",
+                                **kw)
+    launched = (embedding_bag_fixedl.launches - before[0],
+                embedding_bag_csr_packed.masked_launches - before[1])
+    direct1 = embedding_bag_fixedl(shard, d, k1_set[0], pooling=pooling, batch_size=t * BATCH,
+                                   mask=k1_set[1])
+    direct2 = embedding_bag_csr_packed(shard, d, k2_set[0], k2_set[1], batch_size=BATCH,
+                                       mask=k2_set[2])
+    torch.cuda.synchronize()
+    if launched != (1, 1):
+        raise AssertionError(f"masked {shape}: the row-shard lookups launched (K1, masked K2) "
+                             f"{launched} times, not once each")
+    for name, via, direct in (("K1", k1, direct1), ("K2", k2, direct2)):
+        if not torch.equal(via, direct.reshape(t, BATCH, d).transpose(0, 1)):
+            raise AssertionError(f"masked {shape}: the row-shard lookup's {name} differs from "
+                                 "the direct call")
+    print(f"masked {shape}: shard 0's row-shard lookups (dense wire, CSR wire) launched "
+          f"(K1, masked K2) {launched}, bitwise equal to the direct calls", flush=True)
 
 
 def mean_row(rows):
@@ -3226,7 +3544,7 @@ def main(argv) -> int:
     if argv[:1] == ["--multihost-worker"]:  # the process of multihost_1
         return multihost_worker(argv[1])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("multi_gpu", "tools", "bench", "surface", "int8"):
+    if argv and only not in ("multi_gpu", "tools", "bench", "surface", "int8", "masked"):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3255,7 +3573,8 @@ def main(argv) -> int:
 
     if only is not None:  # one phase alone (multi_gpu: e.g. on a 4-chip call)
         {"multi_gpu": multi_gpu_phase, "tools": tools_phase, "bench": bench_phase,
-         "surface": surface_phase, "int8": lambda: int8_only(card)}[only]()
+         "surface": surface_phase, "int8": lambda: int8_only(card),
+         "masked": lambda: masked_only(card)}[only]()
         print(f"chip_smoke: {only} phase passed in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0
@@ -3530,6 +3849,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     shard_rows = shards_4_phase(gen)
     print(f"shards_4 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 13a. masked: the compacted masked walk at the per-rank shapes ----------
+    t0 = time.perf_counter()
+    masked_phase(gen, card)
+    print(f"masked phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 13b. cli: the training entry point at full Kaggle width ----------------
     t0 = time.perf_counter()

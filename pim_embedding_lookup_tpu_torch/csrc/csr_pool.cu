@@ -41,8 +41,8 @@
 // codes (two float4 stores) where the bags are short and 4 (one float4)
 // where they are long (C / B entries a bag fill a tile of the 8-byte group
 // past 32), as gather_pool.cu says; the first design's 16 codes a lane stay
-// as a pin.  On an H100 80GB HBM3 at 700 W (PERF.md section 6's int8
-// results, every path timed in turns in one run): the int8 Kaggle CSR
+// as a pin.  On an H100 80GB HBM3 at 700 W (the int8 redesign's results in
+// PERF_APPENDIX.md, every path timed in turns in one run): the int8 Kaggle CSR
 // "table" 7.93 -> 6.99 us, 32 tables x 64 bags of 120 at d=64 41.97 ->
 // 27.85 us.
 // ptxas registers, unmasked "table" / "row", by window then by group:
@@ -79,6 +79,24 @@
 // registers, bf16 vector 60 / 80, f32 scalar 40 / 64, bf16 scalar 48 / 64;
 // no spills.
 //
+// The MASKED instances take the compacted walk (pool_common.cuh): a row
+// shard's dropped entries leave the walk before any row load, in entry
+// order, so the sums are bitwise those of the first masked walk, which
+// carried each entry's mask as a flag through the batches and stays as a
+// pin (compact = 0).  On an H100 80GB HBM3 at 700 W (PERF.md section 6,
+// the masked rows, pin and compacted in turns; the bound counts each
+// distinct kept row once), shard 0 of a ROW_HASH cut into 4,
+// fixed-L bags: 32 x 500k x 64 bf16, B=8192, L=120 0.517 -> 0.414 ms, 38
+// -> 48 % of the bound; 8 x 2M x 128 bf16, L=32 (K3's width) 0.0778 ->
+// 0.0709 ms, 65 -> 72 %; by window, 8 x 2M x 128 f32 at L=8 and L=32
+// 0.0464 -> 0.0433 and 0.1227 -> 0.1143 ms; Kaggle's pooling-1 mixture
+// 7.48 -> 7.29 us; all kept within 2.6 % (compacted faster).  ptxas of
+// the compacted instances, by window / by group: f32 vector 60 / 76, bf16 vector 60 / 80
+// (its flagged twins 64 / 64 with spills of 32-60 bytes by group), f32
+// scalar 40 / 64, bf16 scalar 48 / 64; int8 within -16 / +12 registers of
+// the flagged twins, spills of 12-28 bytes in the scalar "table" by window
+// and "row" by group instances.
+//
 // csr_grad_kernel (K4's backward) keeps the first design: one thread per
 // (bag, lane), one f32 atomicAdd of g[bag, lane] per (entry, lane), so rows
 // shared by several bags sum in an order that changes from run to run.  It
@@ -112,7 +130,7 @@ __device__ __forceinline__ void bag_range(const int* off, int b,
 
 constexpr int kUnroll = 4;  // U: row loads of a bag issued before the adds
 
-template <typename T, int LOAD, bool BY_GROUP, bool MASKED, bool SCALED>
+template <typename T, int LOAD, bool BY_GROUP, bool MASKED, bool SCALED, bool COMPACT>
 __global__ void __launch_bounds__(pel::kBlock)
 csr_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
                 const int* __restrict__ indices,
@@ -148,7 +166,8 @@ csr_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
     tile.ids = indices + t * capacity;
     tile.mask = MASKED ? mask + t * capacity : nullptr;
     tile.dst = bag ? out + (t * batch + b0 + g) * (long long)d : nullptr;
-    pel::pool_tile<T, LOAD, MASKED, kUnroll, BY_GROUP, SCALED>(storage, scale, d, group, tile);
+    pel::pool_tile<T, LOAD, MASKED, kUnroll, BY_GROUP, SCALED, COMPACT>(storage, scale, d,
+                                                                        group, tile);
   }
 }
 
@@ -183,7 +202,7 @@ unsigned int grid_of(long long bags, const dim3& block) {
   return (unsigned int)((bags + block.y - 1) / block.y);
 }
 
-template <typename T, bool SCALED, int LOAD, bool BY_GROUP, bool MASKED>
+template <typename T, bool SCALED, int LOAD, bool BY_GROUP, bool MASKED, bool COMPACT>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
                 long long capacity, int d, int group, int device, void* stream) {
@@ -194,30 +213,30 @@ int launch_pool(const void* storage, const void* scale, const void* indices,
   const long long tiles = (long long)tables * ((batch + bags_per_tile - 1) / bags_per_tile);
   const int warps_per_block = pel::kBlock / 32;
   const int grid =
-      pel::wave_blocks<&csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED>>(
+      pel::wave_blocks<&csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED, COMPACT>>(
           device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED>
+  csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED, COMPACT>
       <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
           (const T*)storage, (const float*)scale, (const int*)indices, (const int*)offsets,
           (const unsigned char*)mask, (float*)out, tables, batch, capacity, d, group);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SCALED, int LOAD, bool MASKED>
+template <typename T, bool SCALED, int LOAD, bool MASKED, bool COMPACT>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
                 long long capacity, int d, int group, int by_group, int device,
                 void* stream) {
-  const auto launch = by_group ? launch_pool<T, SCALED, LOAD, true, MASKED>
-                               : launch_pool<T, SCALED, LOAD, false, MASKED>;
+  const auto launch = by_group ? launch_pool<T, SCALED, LOAD, true, MASKED, COMPACT>
+                               : launch_pool<T, SCALED, LOAD, false, MASKED, COMPACT>;
   return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
                 group, device, stream);
 }
 
 // load: the bytes a lane loads from a row at once (16; for int8 also 8 and
 // 4), or 0 for one element
-template <typename T, bool SCALED, bool MASKED>
+template <typename T, bool SCALED, bool MASKED, bool COMPACT>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
                 long long capacity, int d, int load, int group, int by_group, int device,
@@ -225,11 +244,11 @@ int launch_pool(const void* storage, const void* scale, const void* indices,
   using Launch = int (*)(const void*, const void*, const void*, const void*, const void*,
                          void*, int, int, long long, int, int, int, int, void*);
   Launch chosen = nullptr;
-  if (load == 16) chosen = launch_pool<T, SCALED, 16, MASKED>;
-  if (load == 0) chosen = launch_pool<T, SCALED, 0, MASKED>;
+  if (load == 16) chosen = launch_pool<T, SCALED, 16, MASKED, COMPACT>;
+  if (load == 0) chosen = launch_pool<T, SCALED, 0, MASKED, COMPACT>;
   if constexpr (std::is_same_v<T, int8_t>) {
-    if (load == 8) chosen = launch_pool<T, SCALED, 8, MASKED>;
-    if (load == 4) chosen = launch_pool<T, SCALED, 4, MASKED>;
+    if (load == 8) chosen = launch_pool<T, SCALED, 8, MASKED, COMPACT>;
+    if (load == 4) chosen = launch_pool<T, SCALED, 4, MASKED, COMPACT>;
   }
   if (chosen == nullptr) return (int)cudaErrorInvalidValue;
   return chosen(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
@@ -238,13 +257,17 @@ int launch_pool(const void* storage, const void* scale, const void* indices,
 
 // The MASKED instances run where the caller gives a mask ([T, C] bytes, an
 // entry kept where its byte is set); the others take no per-entry load.
+// compact: a mask's dropped entries leave the walk before the row loads
+// (the wrapper's walk), or ride through it as flags (the first masked walk,
+// a pin).
 template <typename T, bool SCALED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
-                long long capacity, int d, int load, int group, int by_group, int device,
-                void* stream) {
-  const auto launch =
-      mask != nullptr ? launch_pool<T, SCALED, true> : launch_pool<T, SCALED, false>;
+                long long capacity, int d, int load, int group, int by_group, int compact,
+                int device, void* stream) {
+  const auto launch = mask == nullptr ? launch_pool<T, SCALED, false, false>
+                      : compact       ? launch_pool<T, SCALED, true, true>
+                                      : launch_pool<T, SCALED, true, false>;
   return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
                 load, group, by_group, device, stream);
 }
@@ -256,19 +279,19 @@ extern "C" {
 int pel_csr_pool_f32(const void* storage, const void* indices,
                      const void* offsets, const void* mask, void* out, int tables,
                      int batch, long long capacity, int d, int load, int group,
-                     int by_group, int device, void* stream) {
+                     int by_group, int compact, int device, void* stream) {
   return launch_pool<float, false>(storage, nullptr, indices, offsets, mask, out, tables,
-                                   batch, capacity, d, load, group, by_group, device,
+                                   batch, capacity, d, load, group, by_group, compact, device,
                                    stream);
 }
 
 int pel_csr_pool_bf16(const void* storage, const void* indices,
                       const void* offsets, const void* mask, void* out, int tables,
                       int batch, long long capacity, int d, int load, int group,
-                      int by_group, int device, void* stream) {
+                      int by_group, int compact, int device, void* stream) {
   return launch_pool<__nv_bfloat16, false>(storage, nullptr, indices, offsets, mask, out,
                                            tables, batch, capacity, d, load, group, by_group,
-                                           device, stream);
+                                           compact, device, stream);
 }
 
 // int8 codes; scale: one f32 a row ("row" mode), or NULL ("table" mode: the
@@ -276,11 +299,11 @@ int pel_csr_pool_bf16(const void* storage, const void* indices,
 int pel_csr_pool_i8(const void* storage, const void* scale, const void* indices,
                     const void* offsets, const void* mask, void* out, int tables,
                     int batch, long long capacity, int d, int load, int group,
-                    int by_group, int device, void* stream) {
+                    int by_group, int compact, int device, void* stream) {
   const auto launch =
       scale != nullptr ? launch_pool<int8_t, true> : launch_pool<int8_t, false>;
   return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
-                load, group, by_group, device, stream);
+                load, group, by_group, compact, device, stream);
 }
 
 // mask: [T, C] bytes, an entry kept where its byte is set; NULL: none (the

@@ -28,12 +28,13 @@
 //   twice the threads on each bag's chain of loads.
 // A group's lanes read consecutive words of a row, so a warp instruction
 // asks for the same sectors as the 16-byte load.  On an H100 80GB HBM3 at
-// 700 W (PERF.md section 6's int8 results, every path timed in turns in one
-// run) the 8-byte loads were the fastest int8 path at L=1 (Kaggle "table"
-// 7.25 -> 5.97 us, under f32 K1's 6.47 in the same turns) and the 4-byte
-// ones at L=120 (42.20 -> 26.76 us); between them (L = 2, 3, 4, 8, 16 at
-// d = 16 and 64, section 6's crossover table) the wrapper's pick was within
-// 2.4 % of the faster of the two.  The 16-byte path stays as a pin.
+// 700 W (the int8 redesign's results, word for word in PERF_APPENDIX.md,
+// every path timed in turns in one run) the 8-byte loads were the fastest
+// int8 path at L=1 (Kaggle "table" 7.25 -> 5.97 us, under f32 K1's 6.47 in
+// the same turns) and the 4-byte ones at L=120 (42.20 -> 26.76 us); between
+// them (L = 2, 3, 4, 8, 16 at d = 16 and 64, the crossover table there) the
+// wrapper's pick was within 2.4 % of the faster of the two.  The 16-byte
+// path stays as a pin.
 // Transposed stores (16-byte loads whose sums four lanes exchange by
 // shuffles) and the scale loaded by a group's first lane and shuffled were
 // measured too and lost; they are not kept.  ptxas registers of the int8
@@ -54,7 +55,9 @@
 //   bytes, loaded 32 at a time, coalesced, and passed between lanes by
 //   __shfl_sync; where a tile holds more than 32 entries (L * 32/G > 32),
 //   each group loads and shuffles its own bag's instead (the wrapper picks
-//   the walk).  Masked rows are skipped without being read;
+//   the walk).  Masked rows are skipped without being read, and dropped
+//   before the row loads (the compacted walk, pool_common.cuh), so a batch
+//   of loads in flight is kept entries only;
 // - a bag's row loads are issued before their adds, min(L, 8) at a time
 //   (U = 1, 2, 4 or 8; 4 at most by group), looping beyond that;
 // - a grid-stride loop over tiles, with a grid of one wave (blocks that fit
@@ -66,7 +69,28 @@
 // 40 / 60 / 63 / 80, 61 / 76; bf16 vector 40 / 48 / 60 / 80, 58 / 80; f32
 // scalar 32 / 40 / 48 / 48, 48 / 60; bf16 scalar 40 / 40 / 48 / 48, 48 /
 // 60.  Spills of 16-36 bytes in f32 vector U=1 (the single-hot main path),
-// f32 scalar U=1 and bf16 scalar U=2 (both walks); none elsewhere.
+// f32 scalar U=1 and bf16 scalar U=2 (both walks); none elsewhere.  These
+// are the first masked walk's instances, kept as a pin (compact = 0).
+//
+// The masked walk.  K1 always takes a mask (a row shard's ownership, or the
+// dense wire's padding), and "K1" and "K1 masked" in PERF.md are this one
+// kernel.  The first masked walk carried each entry's mask as a flag
+// through the batches: on a row shard of 4 a bag of 120 waited on 30
+// batches of about one row load each.  The compacted walk drops masked
+// entries before any row load (by group: each kept id written at its rank
+// into shared memory, then read back U at a time), in entry order, so the
+// sums are bitwise the first walk's.  K1 takes it by group only; by window
+// it runs the first walk's instance on either pin (launch below says why).
+// On an H100 80GB HBM3 at 700 W (PERF.md section 6, the masked rows, pin
+// and compacted in turns; the bound counts each distinct kept row once),
+// shard 0 of a ROW_HASH cut into 4 (1 in 4 kept): cli bench's random
+// shape (32 x 500k x 64 bf16, B=8192, L=120) 0.590 -> 0.414 ms, 34 -> 48 %
+// of the bound; bigtable's (8 x 2M x 128 bf16, L=32) 0.0858 -> 0.0704 ms,
+// 59 -> 72 %; all kept within 0.3 % of the pin (random 43 %, bigtable
+// 79 %).  ptxas of the compacted instances, U = 2 / 4 by group: f32 vector
+// 64 / 74 registers (16-byte spills at U = 2), bf16 vector 58 / 80, f32
+// scalar 48 / 48, bf16 scalar 56 / 56; the int8 instances within -20 / +8
+// registers of their flagged twins.
 //
 // Plain C interface, loaded with ctypes.  Each launch function returns
 // cudaGetLastError() after the launch (0 = success).
@@ -80,7 +104,7 @@
 
 namespace {
 
-template <typename T, int LOAD, int U, bool BY_GROUP, bool SCALED>
+template <typename T, int LOAD, int U, bool BY_GROUP, bool SCALED, bool COMPACT>
 __global__ void __launch_bounds__(pel::kBlock)
 fixedl_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
                    const int* __restrict__ indices, const unsigned char* __restrict__ mask,
@@ -104,11 +128,12 @@ fixedl_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scal
     tile.s = bag ? g * pooling : 0;
     tile.e = bag ? (g + 1) * pooling : 0;
     tile.dst = bag ? out + (b0 + g) * d : nullptr;
-    pel::pool_tile<T, LOAD, true, U, BY_GROUP, SCALED>(storage, scale, d, group, tile);
+    pel::pool_tile<T, LOAD, true, U, BY_GROUP, SCALED, COMPACT>(storage, scale, d, group,
+                                                                 tile);
   }
 }
 
-template <typename T, bool SCALED, int LOAD, int U, bool BY_GROUP>
+template <typename T, bool SCALED, int LOAD, int U, bool BY_GROUP, bool COMPACT>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int device,
            void* stream) {
@@ -119,10 +144,10 @@ int launch(const void* storage, const void* scale, const void* indices, const vo
   const long long tiles = (bags + bags_per_tile - 1) / bags_per_tile;
   const int warps_per_block = pel::kBlock / 32;
   const int grid =
-      pel::wave_blocks<&fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED>>(
+      pel::wave_blocks<&fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED, COMPACT>>(
           device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED>
+  fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED, COMPACT>
       <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
           (const T*)storage, (const float*)scale, (const int*)indices,
           (const unsigned char*)mask, (float*)out, bags, pooling, d, group);
@@ -130,22 +155,39 @@ int launch(const void* storage, const void* scale, const void* indices, const vo
 }
 
 // U: the row loads of min(L, 8) entries of a bag (rounded up to a power of
-// two; at most 4 by group) go out before their adds.  A single-hot tile
-// (32 / G entries) is always one window.
-template <typename T, bool SCALED, int LOAD>
+// two; at most 4 by group) go out before their adds.  By window K1 runs the
+// first masked walk's instance on both pins.  Its bags are fixed-length and
+// at most 32 entries there (a tile fits a window), so compaction saves a
+// batch only at L > U = 8, which needs G >= 16; and the compacted U=8
+// instance takes 88 registers against 80 (2 blocks an SM against 3).  On an
+// H100 (PERF.md section 6) it was 1.38x slower than the first walk at f32
+// d=128, L=8, 1 entry in 4 kept, and 2-3 % slower at L=32; nothing measured
+// gained.  The compacted by-window walk serves masked K2, whose bags vary.
+template <typename T, bool SCALED, int LOAD, bool COMPACT>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int by_group,
            int device, void* stream) {
   using Launch = int (*)(const void*, const void*, const void*, const void*, void*,
                          long long, int, int, int, int, void*);
   const Launch chosen =
-      pooling == 1   ? launch<T, SCALED, LOAD, 1, false>
-      : pooling == 2 ? (by_group ? launch<T, SCALED, LOAD, 2, true>
-                                 : launch<T, SCALED, LOAD, 2, false>)
-      : by_group     ? launch<T, SCALED, LOAD, 4, true>
-      : pooling <= 4 ? launch<T, SCALED, LOAD, 4, false>
-                     : launch<T, SCALED, LOAD, 8, false>;
+      pooling == 1   ? launch<T, SCALED, LOAD, 1, false, false>
+      : pooling == 2 ? (by_group ? launch<T, SCALED, LOAD, 2, true, COMPACT>
+                                 : launch<T, SCALED, LOAD, 2, false, false>)
+      : by_group     ? launch<T, SCALED, LOAD, 4, true, COMPACT>
+      : pooling <= 4 ? launch<T, SCALED, LOAD, 4, false, false>
+                     : launch<T, SCALED, LOAD, 8, false, false>;
   return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, device, stream);
+}
+
+// compact: the masked entries dropped before the row loads (the wrapper's
+// walk), or carried as flags through it (the first masked walk, a pin)
+template <typename T, bool SCALED, int LOAD>
+int launch(const void* storage, const void* scale, const void* indices, const void* mask,
+           void* out, long long bags, int pooling, int d, int group, int by_group,
+           int compact, int device, void* stream) {
+  const auto chosen = compact ? launch<T, SCALED, LOAD, true> : launch<T, SCALED, LOAD, false>;
+  return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, by_group, device,
+                stream);
 }
 
 // load: the bytes a lane loads from a row at once (16; for int8 also 8 and
@@ -153,9 +195,9 @@ int launch(const void* storage, const void* scale, const void* indices, const vo
 template <typename T, bool SCALED>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int load, int group,
-           int by_group, int device, void* stream) {
+           int by_group, int compact, int device, void* stream) {
   using Launch = int (*)(const void*, const void*, const void*, const void*, void*,
-                         long long, int, int, int, int, int, void*);
+                         long long, int, int, int, int, int, int, void*);
   Launch chosen = nullptr;
   if (load == 16) chosen = launch<T, SCALED, 16>;
   if (load == 0) chosen = launch<T, SCALED, 0>;
@@ -165,7 +207,7 @@ int launch(const void* storage, const void* scale, const void* indices, const vo
   }
   if (chosen == nullptr) return (int)cudaErrorInvalidValue;
   return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, by_group,
-                device, stream);
+                compact, device, stream);
 }
 
 }  // namespace
@@ -175,27 +217,28 @@ extern "C" {
 int pel_gather_pool_f32(const void* storage, const void* indices,
                         const void* mask, void* out, long long bags,
                         int pooling, int d, int load, int group, int by_group,
-                        int device, void* stream) {
+                        int compact, int device, void* stream) {
   return launch<float, false>(storage, nullptr, indices, mask, out, bags, pooling, d, load,
-                              group, by_group, device, stream);
+                              group, by_group, compact, device, stream);
 }
 
 int pel_gather_pool_bf16(const void* storage, const void* indices,
                          const void* mask, void* out, long long bags,
                          int pooling, int d, int load, int group, int by_group,
-                         int device, void* stream) {
+                         int compact, int device, void* stream) {
   return launch<__nv_bfloat16, false>(storage, nullptr, indices, mask, out, bags, pooling,
-                                      d, load, group, by_group, device, stream);
+                                      d, load, group, by_group, compact, device, stream);
 }
 
 // int8 codes; scale: one f32 a row ("row" mode), or NULL ("table" mode: the
 // codes are pooled as they are)
 int pel_gather_pool_i8(const void* storage, const void* scale, const void* indices,
                        const void* mask, void* out, long long bags, int pooling, int d,
-                       int load, int group, int by_group, int device, void* stream) {
+                       int load, int group, int by_group, int compact, int device,
+                       void* stream) {
   const auto chosen = scale != nullptr ? launch<int8_t, true> : launch<int8_t, false>;
   return chosen(storage, scale, indices, mask, out, bags, pooling, d, load, group, by_group,
-                device, stream);
+                compact, device, stream);
 }
 
 const char* pel_error_string(int code) {

@@ -37,6 +37,26 @@
 // flight.  Each bag is summed in entry order in f32 registers and written
 // once: deterministic, no atomics.  Entries outside a lane's [s, e)
 // (padding, other bags) and masked entries are never read, nor their scales.
+//
+// A mask (MASKED: a row shard's ownership, or the dense wire's padding)
+// drops entries.  The compacted walk (COMPACT, the wrapper's) drops them
+// before any row load, so that each batch of U loads is U kept entries:
+// - by window: one __ballot_sync of the window's keep flags; each group
+//   takes its bag's bits of it and walks the set ones, lowest first (__ffs,
+//   then clear it), so a window takes the warp's most kept entries of a bag
+//   in steps, not its most entries;
+// - by group: a round's ids are loaded so that lane g of a group holds
+//   entries v*G + g (v < U), so the ballot of slot v holds G consecutive
+//   entries in order; each kept entry's rank is the kept count of the slots
+//   before it plus a popcount of the lanes before it, and the group writes
+//   its kept ids at their ranks into its span of a per-warp buffer in
+//   shared memory, then reads them back U at a time: ceil(kept / U)
+//   batches a round, not ceil(entries / U).
+// Both keep entry order, so the sums are bitwise those of the first masked
+// walk (!COMPACT, kept as a pin), which carries each entry's mask as a
+// flag through the walk and issues only the kept loads of each batch: on a
+// row shard of 4, about one load of U in flight.  Masked K2 runs the
+// compacted walk on both walks; K1 by group only (gather_pool.cu says why).
 
 #pragma once
 
@@ -244,13 +264,43 @@ __device__ __forceinline__ void gather_add(float (&acc)[C::P], const T* column,
     if (take[u]) add_chunk<C, SCALED>(acc, raw[u], SCALED ? sc[u] : 1.0f);
 }
 
-// SCALED: ``scale`` holds one f32 a row, indexed by the row's id.
-template <typename T, int LOAD, bool MASKED, int U, bool BY_GROUP, bool SCALED>
+// Bits lo .. lo+n-1 of a word; none where n <= 0 (then lo may be anything).
+__device__ __forceinline__ unsigned bit_span(int lo, int n) {
+  return n <= 0 ? 0u : (n >= 32 ? kFull : (1u << n) - 1u) << lo;
+}
+
+// The compacted by-group walk's buffer: U ids a lane, one span of G*U a
+// group, so a warp holds 32*U; 16-byte aligned for the vector reads.
+template <int U>
+__device__ __forceinline__ int* kept_ids() {
+  __shared__ __align__(16) int slots[kBlock / 32][32 * U];
+  return slots[threadIdx.x >> 5];
+}
+
+// ids[0..U-1] from U consecutive ints of shared memory, aligned to U*4
+// bytes: one vector read (the by-group walk runs U = 2 or 4).
+template <int U>
+__device__ __forceinline__ void read_ids(const int* p, int (&id)[U]) {
+  static_assert(U == 2 || U == 4, "the by-group walk reads 2 or 4 ids a batch");
+  if constexpr (U == 4) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    id[0] = v.x, id[1] = v.y, id[2] = v.z, id[3] = v.w;
+  } else {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    id[0] = v.x, id[1] = v.y;
+  }
+}
+
+// SCALED: ``scale`` holds one f32 a row, indexed by the row's id.  COMPACT
+// (with MASKED): masked entries are dropped before the row loads.
+template <typename T, int LOAD, bool MASKED, int U, bool BY_GROUP, bool SCALED,
+          bool COMPACT = false>
 __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
                                           const float* __restrict__ scale, int d,
                                           int group, const Tile& tile) {
   using C = Chunk<T, LOAD>;
   constexpr int P = C::P;
+  constexpr bool kCompact = MASKED && COMPACT;
   const int lane = threadIdx.x & 31;
   const int gl = lane & (group - 1);  // this lane's place in its group
   const int first = lane - gl;        // its group's first lane
@@ -264,7 +314,74 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
 #pragma unroll
     for (int q = 0; q < P; ++q) acc[q] = 0.0f;
 
-    if constexpr (!BY_GROUP) {
+    if constexpr (!BY_GROUP && kCompact) {
+      for (int base = tile.S; base < tile.E; base += 32) {  // windows of 32 entries
+        const int pos = base + lane;
+        const bool in = pos < tile.E;
+        const int ids = in ? __ldg(tile.ids + pos) : 0;
+        const bool keep = in && (tile.mask == nullptr || __ldg(tile.mask + pos) != 0);
+        const int lo = max(tile.s, base) - base;           // this bag's first entry here
+        const int n = min(tile.e, base + 32) - base - lo;  // its entries here (<= 0: none)
+        unsigned left = __ballot_sync(kFull, keep) & bit_span(lo, n);  // its kept ones
+        const int steps = (int)__reduce_max_sync(kFull, (unsigned)__popc(left));
+        for (int k = 0; k < steps; k += U) {
+          typename C::Raw raw[U];
+          float sc[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {  // every lane shuffles, whatever it takes
+            const int id = __shfl_sync(kFull, ids, (__ffs(left) - 1) & 31);
+            ok[u] = on && left != 0u;
+            left &= left - 1u;  // the next kept entry
+            if (ok[u]) {
+              raw[u] = C::load(column + (long long)id * d);
+              if constexpr (SCALED) sc[u] = ld_elem(scale + id);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (ok[u]) add_chunk<C, SCALED>(acc, raw[u], SCALED ? sc[u] : 1.0f);
+        }
+      }
+    } else if constexpr (BY_GROUP && kCompact) {
+      int* const kept = kept_ids<U>() + first * U;  // this group's span
+      const unsigned mine = group == 32 ? kFull : ((1u << group) - 1u) << first;
+      const unsigned before_me = mine & ((1u << lane) - 1u);  // its lanes before this one
+      const int span = group * U;  // entries of a round: U ids a lane
+      const int len = tile.e - tile.s;
+      const int rounds = (int)__reduce_max_sync(
+          kFull, len > 0 ? (unsigned)((len + span - 1) / span) : 0u);
+      for (int r = 0; r < rounds; ++r) {
+        const int cursor = tile.s + r * span;
+        const int n = min(tile.e - cursor, span);  // entries this round (<= 0: none)
+        int ids[U];
+        bool keep[U];
+#pragma unroll
+        for (int v = 0; v < U; ++v) {  // lane gl holds entries v*G + gl
+          const int j = v * group + gl;
+          ids[v] = j < n ? __ldg(tile.ids + cursor + j) : 0;
+          keep[v] = j < n && (tile.mask == nullptr || __ldg(tile.mask + cursor + j) != 0);
+        }
+        int kept_n = 0;  // kept entries of the slots before v: the rank of the next
+#pragma unroll
+        for (int v = 0; v < U; ++v) {
+          const unsigned bits = __ballot_sync(kFull, keep[v]) & mine;
+          if (keep[v]) kept[kept_n + __popc(bits & before_me)] = ids[v];
+          kept_n += __popc(bits);
+        }
+        __syncwarp();
+        const int batches = (int)__reduce_max_sync(kFull, (unsigned)((kept_n + U - 1) / U));
+        for (int q = 0; q < batches; ++q) {  // kept entries q*U .. q*U+U-1
+          int id[U];
+          bool take[U];
+          read_ids<U>(kept + q * U, id);
+#pragma unroll
+          for (int v = 0; v < U; ++v) take[v] = on && q * U + v < kept_n;
+          gather_add<C, U, SCALED>(acc, column, scale, d, id, take);
+        }
+        __syncwarp();  // every read of this round before the next round's writes
+      }
+    } else if constexpr (!BY_GROUP) {
       for (int base = tile.S; base < tile.E; base += 32) {  // windows of 32 entries
         const int pos = base + lane;
         const bool in = pos < tile.E;

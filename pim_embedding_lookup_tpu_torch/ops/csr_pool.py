@@ -31,7 +31,8 @@ code * scale[id] for each entry, as ``gather_pool``'s K1 does;
 
 The plain versions run only for CPU tensors; a CUDA tensor launches the
 kernel or raises.  K2 and K4's backward also take an optional per-entry
-mask (a row shard's ownership), whose dropped entries they never read;
+mask (a row shard's ownership), whose dropped entries they never read (K2
+drops them before its row loads, ``gather_pool``'s compacted walk);
 ``masked_launches`` counts those launches (``masked_int8_launches`` those
 of them on int8 storage).  Where the storage requires grad
 (and grad mode is on), ``embedding_bag_csr_packed`` is differentiable
@@ -58,12 +59,12 @@ from .ragged import segment_ids_from_offsets
 
 # (source, indices, offsets, mask or NULL, out, tables, batch, capacity, d,
 # device, stream); the pool kernels also take the row path and the walk
-# after d: load, group and by_group
+# after d: load, group, by_group and compact
 _LAUNCH_ARGS = [ctypes.c_void_p] * 5 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
-_POOL_ARGS = _LAUNCH_ARGS[:9] + [ctypes.c_int] * 3 + _LAUNCH_ARGS[9:]
+_POOL_ARGS = _LAUNCH_ARGS[:9] + [ctypes.c_int] * 4 + _LAUNCH_ARGS[9:]
 _SIGNATURES = {
     "pel_csr_pool_f32": (_POOL_ARGS, ctypes.c_int),
     "pel_csr_pool_bf16": (_POOL_ARGS, ctypes.c_int),
@@ -102,8 +103,9 @@ def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path, mask=None
             lead=()):
     """One launch of a csr_pool.cu kernel over [T, C] ids and [T, B+1]
     offsets (and the [T, C] mask, if any) on ``src``'s device and current
-    stream; ``path`` is the pool kernels' (load, group, by_group), ``lead``
-    the pointers the int8 entry takes after the source's (its scale)."""
+    stream; ``path`` is the pool kernels' (load, group, by_group, compact),
+    ``lead`` the pointers the int8 entry takes after the source's (its
+    scale)."""
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
     idx2, off2 = _as_2d(indices, offsets)
@@ -183,7 +185,7 @@ def embedding_bag_csr_packed(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [C] or [T, C] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
-    path: tuple[int, int, bool] | None = None,  # pinned KernelPath (load, group, by_group)
+    path: tuple | None = None,  # pinned KernelPath (load, group, by_group[, compact])
 ) -> torch.Tensor:  # [B, d] or [T*B, d] f32
     """SUM-pooled CSR embedding bag over fused storage (K2; K3 at d=128).
     Row t*B + b of the result pools bag b of table t.  ``mask`` keeps the

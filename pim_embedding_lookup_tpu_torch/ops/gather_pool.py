@@ -14,12 +14,18 @@ entries without reading them.  A group of threads pools each bag and a
 warp several bags: :func:`row_load` picks how many bytes of a row a lane
 loads at once (16; for int8 rows 8, or 4 for long bags; 0: one element a
 thread) and :func:`group_size` the threads a bag, from the storage pointer
-and d; :func:`walks_by_group` picks how ids reach the groups from L.  A caller may
-pin all three with ``path=(load, group, by_group)`` (a :class:`KernelPath`,
-the counterpart of the Pallas kernels' ``tile_b``/``nbuf``;
-``tools/kernel_lab.py`` sweeps them): :func:`kernel_path` refuses a path the
-kernel cannot serve, and a pinned path on a CPU tensor, which has no
-kernel.
+and d; :func:`walks_by_group` picks how ids reach the groups from L.  The
+kernel drops masked entries before it issues row loads, so that each batch
+of loads in flight is kept entries (the compacted walk; by group, since a
+tile that walks by window holds bags of at most 32 entries, where the card
+measured no gain, and there the kernel runs the first walk on either pin);
+the first masked walk, which carried each entry's mask as a flag through
+the batches, stays reachable as a pin (``compact=False``) to be measured
+against, and sums bitwise alike.  A caller may pin all four with ``path=(load, group,
+by_group, compact)`` (a :class:`KernelPath`, the counterpart of the Pallas
+kernels' ``tile_b``/``nbuf``; ``tools/kernel_lab.py`` sweeps the first
+three): :func:`kernel_path` refuses a path the kernel cannot serve, and a
+pinned path on a CPU tensor, which has no kernel.
 
 int8 storage (the capacity mode's codes) has its own instances: the codes
 are pooled in f32, and with a 1-D f32 ``scale`` of one value a row (the
@@ -53,10 +59,8 @@ from . import _build
 
 _STORAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}
 _MAX_DIM = 1024
-_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-]
+_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p]
 # the row loads (bytes a lane loads at once) each storage dtype's kernels
 # have besides 0, one element a lane
 _LOADS = {torch.float32: (16,), torch.bfloat16: (16,), torch.int8: (4, 8, 16)}
@@ -76,6 +80,9 @@ class KernelPath(NamedTuple):
     load: int  # bytes of a row a lane loads at once; 0: one element (the scalar path)
     group: int  # threads a bag, a power of two in [1, 32]
     by_group: bool  # ids along each bag (True) or in windows shared by the warp
+    # masked entries dropped before the row loads (True), or flags through
+    # the batches (False: the first masked walk, only ever pinned)
+    compact: bool = True
 
 
 def _check_storage(storage, d, scale=None):
@@ -119,7 +126,7 @@ def row_load(storage: torch.Tensor, d: int, entries: int = 1, bags: int = 1) -> 
     group, since more threads a bag run more of its chain of loads at once
     (H100: at L=1 the 8-byte loads were the fastest int8 path, at L=120 the
     4-byte ones; at L = 2, 3, 4, 8 and 16, d = 16 and 64, this rule's pick
-    was within 2.4 % of the faster load, ``PERF.md`` section 6); else 0,
+    was within 2.4 % of the faster load, ``PERF_APPENDIX.md``); else 0,
     one element a lane (the scalar path)."""
     if storage.dtype != torch.int8:
         return 16 if _aligned(storage, d, 16) else 0
@@ -146,21 +153,23 @@ def walks_by_group(group: int, entries: int, bags: int) -> bool:
 
 
 def kernel_path(storage: torch.Tensor, d: int, entries: int, bags: int,
-                path: tuple[int, int, bool] | None = None) -> KernelPath:
+                path: tuple | None = None) -> KernelPath:
     """The :class:`KernelPath` of a pool kernel's launch over ``entries``
     ids in ``bags`` bags: what :func:`row_load`, :func:`group_size` and
-    :func:`walks_by_group` pick, or ``path`` where the caller pins one
-    (``(load, group, by_group)``).  Raises ``ValueError`` for a pinned path
-    the kernels cannot serve: a group that is not a power of two in [1,
-    32], a row load the storage dtype's kernels do not have (f32 and bf16:
-    16; int8: 4, 8 and 16) or whose bytes the rows or the storage pointer
-    are not aligned to, or any path on a tensor that is not on a CUDA
-    device (the plain version has no path)."""
+    :func:`walks_by_group` pick, with the compacted walk, or ``path`` where
+    the caller pins one (``(load, group, by_group)``, or with ``compact``
+    after them; ``compact=False`` is reachable only so).  Raises
+    ``ValueError`` for a pinned path the kernels cannot serve: a group
+    that is not a power of two in [1, 32], a row load the storage dtype's
+    kernels do not have (f32 and bf16: 16; int8: 4, 8 and 16) or whose
+    bytes the rows or the storage pointer are not aligned to, or any path
+    on a tensor that is not on a CUDA device (the plain version has no
+    path)."""
     if path is None:
         load = row_load(storage, d, entries, bags)
         group = group_size(storage, d, load)
         return KernelPath(load, group, walks_by_group(group, entries, bags))
-    load, group, by_group = KernelPath(*path)
+    load, group, by_group, compact = KernelPath(*path)
     if not 1 <= group <= _WARP or group & (group - 1):
         raise ValueError(f"group {group} is not a power of two in [1, {_WARP}]")
     if load != 0 and load not in _LOADS[storage.dtype]:
@@ -172,7 +181,7 @@ def kernel_path(storage: torch.Tensor, d: int, entries: int, bags: int,
     if storage.device.type != "cuda":
         raise ValueError(f"a kernel path was pinned for a tensor on {storage.device}: "
                          "only the card's kernels have paths")
-    return KernelPath(int(load), int(group), bool(by_group))
+    return KernelPath(int(load), int(group), bool(by_group), bool(compact))
 
 
 def fitted_path(storage: torch.Tensor, d: int, entries: int, bags: int,
@@ -250,7 +259,7 @@ def embedding_bag_fixedl(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [B*L] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
-    path: tuple[int, int, bool] | None = None,  # pinned KernelPath (load, group, by_group)
+    path: tuple | None = None,  # pinned KernelPath (load, group, by_group[, compact])
 ) -> torch.Tensor:  # [B, d] f32
     """SUM-pooled fixed-L embedding bag over fused storage.  Unmasked ids
     must lie in [0, rows).  ``scale``: int8 storage's per-row scale.

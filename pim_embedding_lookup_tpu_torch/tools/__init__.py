@@ -12,6 +12,10 @@ keys, plus ``--device``:
     python -m pim_embedding_lookup_tpu_torch.tools.routed_gather_audit  # rows gathered a shard
 
 Each runs on CUDA unless ``--device`` names another device, and fails where
-there is no card and the CPU was not asked for.  Importing a module runs
-nothing.
+there is no card and the CPU was not asked for.  One more, with no JAX
+counterpart, needs ``nvcc`` and no card:
+
+    python -m pim_embedding_lookup_tpu_torch.tools.build_times     # nvcc seconds a source
+
+Importing a module runs nothing.
 """

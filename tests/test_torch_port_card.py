@@ -815,6 +815,69 @@ def test_int8_csr_kernel_edge_cases(cuda, d, layout, mode, path, tables, max_len
     assert torch.equal(got[single], want[single])
 
 
+# -- the masked walk: compacted, against the first masked walk pinned ------------
+
+MASKED_L = 40  # past a 32-id window and a by-group round of G*U entries
+
+
+def _masked_walks(device, storage, d, kernel, by_group, keep, seed, scale=None):
+    """One masked K1 (L = MASKED_L) or K2 (two tables of bags of 0-80 ids)
+    launch on each walk: the wrapper's compacted walk, pinned to
+    ``by_group``, against the first masked walk on the same pin and against
+    the plain version; masked entries and padding hold NEVER_READ."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kernel == "K1":
+        n = EDGE_BAGS * MASKED_L
+        ids = torch.randint(0, EDGE_ROWS, (n,), generator=gen, device=device, dtype=torch.int32)
+        mask = torch.rand(n, generator=gen, device=device) < keep
+        kw = dict(pooling=MASKED_L, batch_size=EDGE_BAGS, mask=mask, scale=scale)
+        pin = kernel_path(storage, d, n, EDGE_BAGS)._replace(by_group=by_group)
+        run = lambda p: embedding_bag_fixedl(  # noqa: E731
+            storage, d, torch.where(mask, ids, NEVER_READ), path=p, **kw)
+        want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
+    else:
+        idx, off = _edge_csr(device, seed, 2, 80, False)
+        mask = torch.rand(tuple(idx.shape), generator=gen, device=device) < keep
+        clean = torch.where(idx == NEVER_READ, 0, idx)
+        kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
+        pin = kernel_path(storage, d, idx.shape[1], EDGE_BAGS)._replace(by_group=by_group)
+        run = lambda p: embedding_bag_csr_packed(  # noqa: E731
+            storage, d, torch.where(mask, idx, NEVER_READ), off, path=p, **kw)
+        want = embedding_bag_csr_packed_reference(storage, d, clean, off, **kw)
+    assert pin.compact
+    new, old, again = run(pin), run(pin._replace(compact=False)), run(pin)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(new, want, **TOL)
+    assert torch.equal(new, old)
+    assert torch.equal(new, again)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("by_group", [False, True], ids=["window", "group"])
+@pytest.mark.parametrize("keep", [0.25, 1.0, 0.0])
+@pytest.mark.parametrize("dtype,d,layout", EDGE_STORAGE)
+def test_compacted_walk_equals_first_masked_walk(cuda, dtype, d, layout, keep, by_group,
+                                                 kernel):
+    """The compacted masked walk sums the same kept entries in the same
+    order as the first masked walk (``compact=False``, pinned): bitwise
+    equal on both walks, 1 entry in 4 kept (a row shard of 4), all kept
+    and none kept, and within TOL of the plain version."""
+    storage = _edge_storage(cuda, dtype, d, layout)
+    _masked_walks(cuda, storage, d, kernel, by_group, keep, seed=d + int(keep * 4))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("by_group", [False, True], ids=["window", "group"])
+@pytest.mark.parametrize("mode", ["table", "row"])
+@pytest.mark.parametrize("d,layout", INT8_STORAGE)
+def test_int8_compacted_walk_equals_first_masked_walk(cuda, d, layout, mode, by_group, kernel):
+    """The same for int8 K1 and K2 in both scale modes, 1 entry in 4 kept:
+    masked entries' scales are never read either."""
+    storage, scale = _int8_storage(cuda, d, layout)
+    _masked_walks(cuda, storage, d, kernel, by_group, 0.25, seed=d,
+                  scale=scale if mode == "row" else None)
+
+
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     storage, scale = _int8_storage(cuda, 16, "unpacked")
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)

@@ -16,8 +16,10 @@ from pim_embedding_lookup_tpu.ops.pallas_lookup import (
 )
 from pim_embedding_lookup_tpu_torch.ops import gather_pool
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
+    KernelPath,
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
+    fitted_path,
     kernel_path,
     row_load,
     walks_by_group,
@@ -40,17 +42,21 @@ def _pallas(table, d, idx, mask, b, l, tile_b, nbuf):
     return packed, np.asarray(out)
 
 
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked", [False, True, "1 in 4"])
 @pytest.mark.parametrize("d,b,l,tile_b,nbuf", [
     (16, 32, 4, 8, 8),    # packed, multi-hot
     (16, 64, 1, 8, 16),   # packed, single-hot
     (128, 16, 2, 8, 4),   # full-width rows
+    (16, 16, 40, 8, 8),   # packed, long bags (past a 32-id window)
 ])
 def test_matches_pallas(rng, d, b, l, tile_b, nbuf, masked):
+    """``masked``: none, 6 entries in 10 kept, or 1 in 4 (a row shard of
+    4's share, where the kernel's compacted walk drops 3 entries in 4
+    before its row loads)."""
     n = 500
     table = rng.standard_normal((n, d)).astype(np.float32)
     idx = rng.integers(0, n, size=b * l).astype(np.int32)
-    mask = rng.random(b * l) < 0.6 if masked else None
+    mask = rng.random(b * l) < (0.25 if masked == "1 in 4" else 0.6) if masked else None
     packed, want = _pallas(table, d, idx, mask, b, l, tile_b, nbuf)
     got = embedding_bag_fixedl(
         torch.from_numpy(packed), d, torch.from_numpy(idx), pooling=l,
@@ -149,7 +155,7 @@ def test_row_path_picks_vector_loads_and_group(dtype, d, offset, want):
     assert storage.is_contiguous() and storage.storage_offset() == offset
     path = kernel_path(storage, d, 64, 64)
     assert (path.load > 0, path.group) == want
-    assert path == (row_load(storage, d), want[1], False)
+    assert path == (row_load(storage, d), want[1], False, True)
     if dtype != torch.int8:
         assert path.load == 16 * want[0]
 
@@ -169,7 +175,7 @@ def test_int8_row_load_follows_bag_length(d, pooling, want):
     are long enough to walk by group."""
     storage = torch.zeros(64, d, dtype=torch.int8)
     bags = 100
-    assert kernel_path(storage, d, bags * pooling, bags) == want
+    assert kernel_path(storage, d, bags * pooling, bags) == (*want, True)
     assert row_load(storage, d, bags * pooling, bags) == want[0]
 
 
@@ -223,3 +229,46 @@ def test_fixedl_walk(group, pooling, want):
     ids go along each bag, not in shared windows."""
     bags = 100
     assert walks_by_group(group, bags * pooling, bags) == want
+
+
+@pytest.mark.parametrize("dtype,d,pooling", [
+    (torch.float32, 16, 1), (torch.float32, 16, 40), (torch.bfloat16, 64, 120),
+    (torch.bfloat16, 128, 32), (torch.int8, 16, 3), (torch.int8, 64, 120),
+])
+def test_wrapper_walk_is_compacted(dtype, d, pooling):
+    """Unpinned, every launch takes the compacted walk (masked entries
+    dropped before the row loads), whatever the row load, group and walk;
+    a three-field pin means the compacted walk too."""
+    storage = torch.zeros(64, d, dtype=dtype)
+    bags = 100
+    path = kernel_path(storage, d, bags * pooling, bags)
+    assert path.compact is True
+    assert fitted_path(storage, d, bags * pooling, bags, 4 if dtype == torch.int8 else 16
+                       ).compact is True
+    assert KernelPath(*path[:3]) == path
+
+
+@pytest.mark.parametrize("pin", [
+    (16, 4, False, False),  # the first masked walk, by window
+    (16, 4, True, False),   # ... by group
+    (16, 4, True, True),    # the compacted walk, pinned
+    (16, 4, True),          # three fields: compacted
+    (0, 16, False, False),  # the scalar path with the first masked walk
+])
+def test_first_masked_walk_is_a_card_only_pin(pin):
+    """The first masked walk (``compact=False``) is reachable only as a
+    ``path=`` pin, and like every pin only for a tensor on the card: a CPU
+    tensor's call is refused before the plain version runs, on K1 and on
+    K2."""
+    from pim_embedding_lookup_tpu_torch.ops.csr_pool import embedding_bag_csr_packed
+
+    storage = torch.zeros(64, 16)
+    ids = torch.zeros(32, dtype=torch.int32)
+    mask = torch.zeros(32, dtype=torch.bool)
+    with pytest.raises(ValueError, match="only the card"):
+        kernel_path(storage, 16, 32, 8, pin)
+    with pytest.raises(ValueError, match="only the card"):
+        embedding_bag_fixedl(storage, 16, ids, pooling=4, batch_size=8, mask=mask, path=pin)
+    with pytest.raises(ValueError, match="only the card"):
+        embedding_bag_csr_packed(storage, 16, ids, torch.arange(9, dtype=torch.int32) * 4,
+                                 batch_size=8, mask=mask, path=pin)

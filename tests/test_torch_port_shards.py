@@ -174,3 +174,41 @@ def test_row_shard_never_reads_dropped_entries(policy, wire):
     got = part(poisoned)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, part(shards[s]), rtol=0, atol=0)
+
+
+LONG_L = 40  # past a 32-id window and a by-group round: the compacted walk's edges
+
+
+@pytest.mark.parametrize("wire", ["dense", "csr"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_row_hash_long_bags_match_jax(jmesh, packed, wire):
+    """ROW_HASH's shard bodies over long bags (L = 40 on the dense wire, 32
+    to 48 ids a CSR bag), where each shard owns about 1 entry in 4 and its
+    kernel drops the rest before its row loads: summed, equal to the JAX
+    collection's lookup on the (1, 4) mesh."""
+    rng = np.random.default_rng(20 + packed)
+    host = [rng.standard_normal((n, DIM)).astype(np.float32) for n in ROWS]
+    tc, shards = _port_shards("row_hash", packed, host)
+    jc = JColl.create(_tables(jcfg), jmesh, jcfg.ShardingPolicy.ROW_HASH, packed=packed)
+    jf = jc.device_put_tables(host)
+    lay = tc.layout
+    if wire == "dense":
+        idx = np.stack([rng.integers(0, n, B * LONG_L) for n in ROWS]).astype(np.int32)
+        mask = rng.random(idx.shape) < 0.7
+        want = jc.lookup(jf, jnp.asarray(idx), jnp.asarray(mask), batch_size=B)
+        g = tc.globalize(torch.from_numpy(idx))
+        keep = torch.from_numpy(mask)
+        got = _reduce([_rowshard_pooled_lookup(st, DIM, g, keep, LONG_L, "sum",
+                                               **_rowshard_kw(lay, s))
+                       for s, st in enumerate(shards)], "sum")
+    else:
+        bags = [[rng.integers(0, n, size=rng.integers(32, 49)).tolist() for _ in range(B)]
+                for n in ROWS]
+        cidx, coff = shard_csr(bags, 1, 48 * B + 8, pad_index=POISON)
+        want = jc.lookup_csr(jf, jnp.asarray(cidx), jnp.asarray(coff))
+        g = tc.globalize(torch.from_numpy(cidx)).contiguous()
+        off = torch.from_numpy(coff)
+        got = _reduce([_csr_rowshard_pool(st, DIM, g, off, B, "sum", **_rowshard_kw(lay, s))
+                       for s, st in enumerate(shards)], "sum")
+    assert got.shape == (B, len(ROWS), DIM)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

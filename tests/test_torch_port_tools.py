@@ -54,6 +54,7 @@ from pim_embedding_lookup_tpu_torch.parallel.quantized_collection import (
     QuantizedEmbeddingCollection as TQuant,
 )
 from pim_embedding_lookup_tpu_torch.tools import (
+    build_times,
     capacity_bench,
     common,
     kernel_lab,
@@ -378,6 +379,21 @@ def test_tool_without_device_fails_without_a_card(tool, tmp_path):
     args = ["--out", str(tmp_path)] if tool is trace_capture else []
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tool.main(args)
+
+
+def test_build_times_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build-time tool raises, as the kernels' build does;
+    it never times anything else."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build_times.main(["--csrc", str(tmp_path)])
+
+
+def test_build_times_counts_kernel_instances():
+    line = "ptxas info    : Compiling entry function '_Z1kILi{}EEvv' for 'sm_90a'\n"
+    log = "".join(line.format(i) + "ptxas info    : Used 40 registers\n" for i in range(3))
+    assert build_times.instances(log) == 3 and build_times.instances("") == 0
 
 
 def test_tool_process_without_device_exits_nonzero():
