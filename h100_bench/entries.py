@@ -1,0 +1,245 @@
+"""The two entries a cell drives, ``score`` and ``train``: set-up,
+the measured window, the traced segment and the check against the plain
+reference.
+
+Each entry returns a ``Run``: what was attempted and failed, the window's
+end-to-end numbers, what the per-layer readers read, and the numbers the
+check compared.  ``control`` puts the reference in the program's place,
+computed with TF32 on; ``fault`` plants one of the faults the check has to
+catch in the program's timed path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from collections import deque
+
+import torch
+
+from . import gen, reference, tracing, yardstick
+from .faults import plant
+
+
+@dataclasses.dataclass
+class Run:
+    attempted: int = 0
+    failed: int = 0
+    e2e: dict = dataclasses.field(default_factory=dict)  # name -> value
+    context: dict = dataclasses.field(default_factory=dict)  # what the readers read
+    checks: dict = dataclasses.field(default_factory=dict)  # name -> value
+    trace: object = None
+    peak_bytes: int = 0
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak(device) -> int:
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def _pool(cfg, traffic, seed, device, stream=0):
+    return [gen.batch(seed, i, table_rows_=tuple(cfg["tables"]), batch_size=traffic["batch_size"],
+                      pooling=traffic["pooling"], dense_dim=cfg["dense_dim"], device=device,
+                      stream=stream)
+            for i in range(traffic["pool_batches"])]
+
+
+def _closed_loop(fn, items, seconds, in_flight, device, first=0, keep=None, per_second=None):
+    """Calls ``fn`` on ``items`` in turn, ``in_flight`` outstanding, until
+    ``seconds`` have passed, then waits for all.  Returns (calls, window
+    seconds from the first call to the last completion).  ``per_second``,
+    a list, gets the calls begun in each second of the window."""
+    inflight = deque()
+    calls = 0
+    t0 = time.perf_counter()
+    while (now := time.perf_counter()) - t0 < seconds:
+        if per_second is not None:
+            sec = int(now - t0)
+            per_second.extend([0] * (sec + 1 - len(per_second)))
+            per_second[sec] += 1
+        k = (first + calls) % len(items)
+        out = fn(items[k])
+        if keep is not None:
+            keep[k] = out
+        ev = None
+        if device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+        inflight.append(ev)
+        calls += 1
+        if len(inflight) >= in_flight:
+            ev = inflight.popleft()
+            if ev is not None:
+                ev.synchronize()
+    _sync(device)
+    return calls, time.perf_counter() - t0
+
+
+# -- score --------------------------------------------------------------------
+
+
+def score(system, cfg, traffic, seed, seconds, device, *, trace, control, fault):
+    run = Run()
+    pool = _pool(cfg, traffic, seed, device)
+    predict = plant(fault, "predict", _control(cfg, seed, device) if control else system.predict)
+    for _ in range(2):  # every shape of the cell, twice
+        for b in pool:
+            predict(b)
+    _sync(device)
+    yield "setup_done"
+    outs, timeline = {}, []
+    calls, window = _closed_loop(predict, pool, seconds, traffic["in_flight"], device, keep=outs,
+                                 per_second=timeline)
+    run.context["timeline"] = timeline
+    bsz = traffic["batch_size"]
+    run.attempted = calls
+    run.e2e["score_samples_per_s"] = calls * bsz / window
+    run.context.update(samples=calls * bsz, window_s=window,
+                       flops_per_sample=yardstick.forward_flops_per_sample(cfg, traffic["pooling"]))
+    if trace and not control:
+        system.spanned()
+        with tracing.traced(device) as tr:
+            n, _ = _closed_loop(system.predict, pool, traffic["trace_seconds"],
+                                traffic["in_flight"], device)
+        run.trace = tr["trace"]
+        big = [k for k, r in enumerate(cfg["tables"]) if r > cfg["small_set_max_rows"]]
+        per_batch = [yardstick.pool_bytes(b["ids"][big], b["mask"][big], cfg["dim"])
+                     + yardstick.pool_out_bytes(len(big), bsz, cfg["dim"]) for b in pool]
+        run.context["pool_bytes"] = sum(per_batch[k % len(pool)] for k in range(n))
+        run.context["traced_batches"] = n
+    run.peak_bytes = _peak(device)
+    got = {k: v.float().cpu() for k, v in outs.items()}
+    system.free()
+    yield "window_done"
+    dense_half = reference.DenseHalf(cfg, seed, device)
+    err = 0.0
+    for k, p in got.items():
+        want = reference.probabilities(cfg, seed, dense_half, pool[k]).cpu()
+        err = max(err, float((p - want).abs().max()))
+    run.checks["prob_err"] = err
+    yield run
+
+
+def _control(cfg, seed, device):
+    """The reference's probabilities with TF32 on, in the program's place."""
+    dense_half = reference.DenseHalf(cfg, seed, device)
+    return lambda b: reference.probabilities(cfg, seed, dense_half, b, tf32=True)
+
+
+# -- train --------------------------------------------------------------------
+
+
+CHECK_STEPS = 3
+
+
+def train(system, cfg, traffic, seed, seconds, device, *, trace, control, fault):
+    run = Run()
+    pool = _pool(cfg, traffic, seed, device, stream=1)
+    if len(pool) <= CHECK_STEPS:
+        raise ValueError(f"a train cell needs more than {CHECK_STEPS} pool batches")
+    lr, t = traffic["lr"], len(cfg["tables"])
+    first = pool[:CHECK_STEPS]
+    uniq = [torch.unique(torch.cat([b["ids"][k].long() for b in first])) for k in range(t)]
+    if control:
+        snap = _control_readings(cfg, seed, first, traffic, device)
+    else:
+        system.make_train(traffic)
+        step = plant(fault, "train_step", system.train_step, system=system)
+        snap = {"loss": []}
+        for i, b in enumerate(first):  # the check's three steps are the first warm-up
+            snap["loss"].append(float(step(b)))
+            if i == 0:
+                snap["p1"] = {n: p.detach().clone() for n, p in system.dense_leaves().items()}
+                snap["w1"] = [system.rows(k, uniq[k]) for k in range(t)]
+                if traffic["optimizer"] == "row_adagrad":
+                    snap["acc1"] = [system.accumulator(k, uniq[k]).clone() for k in range(t)]
+        snap["p3"] = {n: p.detach().clone() for n, p in system.dense_leaves().items()}
+        snap["w3"] = [system.rows(k, uniq[k]) for k in range(t)]
+        step(pool[CHECK_STEPS])  # the window's first shapes once more
+    _sync(device)
+    yield "setup_done"
+    if not control:
+        timeline = run.context["timeline"] = []
+        calls, window = _closed_loop(step, pool, seconds, traffic["in_flight"], device,
+                                     first=CHECK_STEPS + 1, per_second=timeline)
+        bsz = traffic["batch_size"]
+        run.attempted = calls
+        run.e2e["train_samples_per_s"] = calls * bsz / window
+        run.context.update(samples=calls * bsz, window_s=window,
+                           flops_per_sample=3 * yardstick.forward_flops_per_sample(
+                               cfg, traffic["pooling"]))
+        if trace:
+            def spanned(b):
+                with tracing.span("train_step"):
+                    return step(b)
+
+            with tracing.traced(device) as tr:
+                _closed_loop(spanned, pool, traffic["trace_seconds"], traffic["in_flight"],
+                             device)
+            run.trace = tr["trace"]
+    run.peak_bytes = _peak(device)
+    system.free()
+    yield "window_done"
+    ref = reference.Trainer(cfg, seed, first, lr=lr, optimizer=traffic["optimizer"],
+                            eps=traffic["eps"], device=device)
+    for k in range(t):
+        if not torch.equal(ref.uniq[k], uniq[k]):
+            raise RuntimeError("the reference's touched rows differ from the harness's")
+    w0 = {f"emb.{k}": r.clone() for k, r in enumerate(ref.rows)}
+    p0 = {n: p.detach().clone() for n, p in ref.dense.leaves().items()}
+    steps = [ref.step(i, b) for i, b in enumerate(first)]
+    ref_g = steps[0]["grads"]
+    prog_g = {n: (p0[n] - snap["p1"][n]) / lr for n in p0}
+    for k in range(t):
+        dw = w0[f"emb.{k}"] - snap["w1"][k]
+        if traffic["optimizer"] == "row_adagrad":
+            dw = dw * torch.sqrt(snap["acc1"][k] + traffic["eps"])[:, None]
+        prog_g[f"emb.{k}"] = dw / lr
+    ref_d = {n: p.detach() - p0[n] for n, p in ref.dense.leaves().items()}
+    ref_d.update({f"emb.{k}": r - w0[f"emb.{k}"] for k, r in enumerate(ref.rows)})
+    prog_d = {n: snap["p3"][n] - p0[n] for n in p0}
+    prog_d.update({f"emb.{k}": snap["w3"][k] - w0[f"emb.{k}"] for k in range(t)})
+    ref_loss = [s["loss"] for s in steps]
+    run.checks["loss_gap"] = max(abs(a - b) / abs(b) for a, b in zip(snap["loss"], ref_loss))
+    norms = {n: float(g.norm()) for n, g in ref_g.items()}
+    med = statistics.median(norms.values())
+    moving = [n for n, v in norms.items() if v >= 1e-3 * med]
+    worst = {}
+    run.checks["grad_gap"], worst["grad_gap"] = _worst_leaf(prog_g, ref_g, list(norms))
+    run.checks["change_gap"], worst["change_gap"] = _worst_leaf(prog_d, ref_d, moving)
+    run.context["worst_leaf"] = worst
+    run.context["leaves_left_out"] = sorted(set(norms) - set(moving))
+    yield run
+
+
+def _worst_leaf(prog: dict, ref: dict, names) -> tuple[float, str]:
+    """The largest gap between the program's norm of a leaf and the
+    reference's, over the reference's norm of that leaf or of the median
+    leaf, whichever is larger; and that leaf's name."""
+    ref_n = {n: float(ref[n].norm()) for n in names}
+    med = statistics.median(ref_n.values())
+    return max((abs(float(prog[n].norm()) - ref_n[n]) / max(ref_n[n], med), n) for n in names)
+
+
+def _control_readings(cfg, seed, first, traffic, device) -> dict:
+    """The reference with TF32 on, read as the program's state is read."""
+    ctl = reference.Trainer(cfg, seed, first, lr=traffic["lr"], optimizer=traffic["optimizer"],
+                            eps=traffic["eps"], device=device, tf32=True)
+    snap = {"loss": []}
+    for i, b in enumerate(first):
+        snap["loss"].append(ctl.step(i, b)["loss"])
+        if i == 0:
+            snap["p1"] = {n: p.detach().clone() for n, p in ctl.dense.leaves().items()}
+            snap["w1"] = [r.clone() for r in ctl.rows]
+            snap["acc1"] = [a.clone() for a in ctl.acc]
+    snap["p3"] = {n: p.detach().clone() for n, p in ctl.dense.leaves().items()}
+    snap["w3"] = [r.clone() for r in ctl.rows]
+    return snap
+
+
+ENTRIES = {"score": score, "train": train}
