@@ -1,0 +1,10 @@
+"""Device activities a batch launched inside the port's ``pel.forward``
+span (``models/dlrm.py`` ``DLRM.forward``): kernels, copies and fills."""
+
+from h100_bench import spans
+
+UNIT = "count"
+
+
+def read(run):
+    return spans.launches(run, "pel.forward")

@@ -18,6 +18,7 @@ from ..config import DLRMConfig, ShardingPolicy
 from ..device import resolve_device
 from ..parallel.collection import EmbeddingCollection
 from ..parallel.hybrid import HybridEmbeddingCollection
+from ..utils.profiling import span
 
 
 def _init_mlp(sizes: Sequence[int], generator: torch.Generator,
@@ -132,10 +133,11 @@ class DLRM(nn.Module):
 
     def forward(self, dense: torch.Tensor, indices: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        pooled = self.collection.lookup(
-            self.emb_params(), indices, mask, batch_size=dense.shape[0]
-        )  # [B, T, D]
-        return self.apply_from_pooled(dense, pooled)
+        with span("pel.forward"):
+            pooled = self.collection.lookup(
+                self.emb_params(), indices, mask, batch_size=dense.shape[0]
+            )  # [B, T, D]
+            return self.apply_from_pooled(dense, pooled)
 
     def predict(self, dense, indices, mask) -> torch.Tensor:
         """Click probabilities."""

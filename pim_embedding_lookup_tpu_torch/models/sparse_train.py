@@ -37,6 +37,7 @@ from ..parallel.hybrid import (
 )
 from ..parallel.mesh import DATA_AXIS
 from ..parallel.sparse_update import init_accumulator, sparse_update, sparse_update_csr
+from ..utils.profiling import span
 from .dlrm import DLRM, bce_loss
 from .train import OptimizerFactory, make_optimizer, sum_grads_over_data
 
@@ -138,23 +139,25 @@ def make_sparse_train_step(
         if bool(hc_args) != hot_cache:
             raise TypeError("step built with hot_cache=%s but got %d trailing cache args"
                             % (hot_cache, len(hc_args)))
-        with torch.no_grad():
-            pooled = lookup(indices, mask, dense.shape[0], hc_args or None)  # [B, T, D]
-        pooled.requires_grad_(True)
-        dense_opt.zero_grad(set_to_none=True)
-        loss = bce_loss(model.apply_from_pooled(dense, pooled), labels)
-        if mesh is not None:  # the mean over the global batch
-            loss = loss / mesh.data
-        loss.backward()
-        if mesh is not None:
-            sum_grads_over_data(mesh, params)
-            loss = mesh.psum(loss.detach().clone(), DATA_AXIS)
-        dense_opt.step()
-        apply = _apply_sparse_csr if wire == "csr" else _apply_sparse
-        with torch.no_grad():
-            _, acc = apply(coll, model.emb_params(), acc, indices, mask, pooled.grad,
-                           lr=lr, optimizer=optimizer, eps=eps, routed=routed,
-                           capacity_factor=capacity_factor)
+        with span("pel.train_step"):
+            with torch.no_grad():
+                pooled = lookup(indices, mask, dense.shape[0], hc_args or None)  # [B, T, D]
+            pooled.requires_grad_(True)
+            with span("pel.train.dense"):
+                dense_opt.zero_grad(set_to_none=True)
+                loss = bce_loss(model.apply_from_pooled(dense, pooled), labels)
+                if mesh is not None:  # the mean over the global batch
+                    loss = loss / mesh.data
+                loss.backward()
+                if mesh is not None:
+                    sum_grads_over_data(mesh, params)
+                    loss = mesh.psum(loss.detach().clone(), DATA_AXIS)
+                dense_opt.step()
+            apply = _apply_sparse_csr if wire == "csr" else _apply_sparse
+            with torch.no_grad():
+                _, acc = apply(coll, model.emb_params(), acc, indices, mask, pooled.grad,
+                               lr=lr, optimizer=optimizer, eps=eps, routed=routed,
+                               capacity_factor=capacity_factor)
         return acc, loss.detach()
 
     return train_step

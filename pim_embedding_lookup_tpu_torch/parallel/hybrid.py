@@ -40,6 +40,7 @@ import torch
 from ..config import ShardingPolicy, TableConfig
 from ..device import resolve_device
 from ..ops.ragged import segment_ids_from_offsets
+from ..utils.profiling import span
 from .collection import _NEG_INF, EmbeddingCollection, _csr_counts, _finish_combiner
 from .mesh import DATA_AXIS, PortMesh
 from .planner import FusedLayout
@@ -229,29 +230,34 @@ class HybridEmbeddingCollection:
         routed path)."""
         if routed and combiner == "max":
             raise ValueError("routed lookup supports sum/mean combiners")
-        mask = mask.to(torch.bool)
-        dropped = torch.zeros((), dtype=torch.int32, device=self.device)
-        parts = []
-        if self.small is not None:
-            sel = self._index["small_ids"]
-            parts.append(_mxu_pooled_lookup(
-                self.small._lookup_input("lookup", params["small"]), self.buckets,
-                indices[sel], mask[sel],
-                batch_size=batch_size, combiner=combiner,
-            ))
-        if self.big is not None:
-            sel = self._index["big_ids"]
-            kw = dict(batch_size=batch_size, combiner=combiner)
-            if routed:
-                out = self.big.lookup_routed(
-                    params["big"], indices[sel], mask[sel], capacity_factor=capacity_factor,
-                    hot_cache=hot_cache, return_stats=return_stats, **kw)
-                bp, dropped = out if return_stats else (out, dropped)
-            else:
-                bp = self.big.lookup(params["big"], indices[sel], mask[sel], **kw)
-            parts.append(bp)
-        pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        out = pooled[:, self._index["perm"]]
+        with span("pel.lookup"):
+            mask = mask.to(torch.bool)
+            dropped = (torch.zeros((), dtype=torch.int32, device=self.device)
+                       if return_stats else None)
+            parts = []
+            if self.small is not None:
+                with span("pel.lookup.small"):
+                    sel = self._index["small_ids"]
+                    parts.append(_mxu_pooled_lookup(
+                        self.small._lookup_input("lookup", params["small"]), self.buckets,
+                        indices[sel], mask[sel],
+                        batch_size=batch_size, combiner=combiner,
+                    ))
+            if self.big is not None:
+                with span("pel.lookup.big"):
+                    sel = self._index["big_ids"]
+                    kw = dict(batch_size=batch_size, combiner=combiner)
+                    if routed:
+                        out = self.big.lookup_routed(
+                            params["big"], indices[sel], mask[sel],
+                            capacity_factor=capacity_factor, hot_cache=hot_cache,
+                            return_stats=return_stats, **kw)
+                        bp, dropped = out if return_stats else (out, dropped)
+                    else:
+                        bp = self.big.lookup(params["big"], indices[sel], mask[sel], **kw)
+                    parts.append(bp)
+            pooled = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            out = pooled[:, self._index["perm"]]
         if return_stats:
             return out, dropped
         return out
@@ -428,21 +434,22 @@ def sparse_update_hybrid(
         )
     _check_sets(coll, optimizer, routed, "sparse_update_hybrid")
     params, accs = dict(params), dict(accs)
-    mask = mask.to(torch.bool)
-    dropped = torch.zeros((), dtype=torch.int32, device=coll.device)
-    if coll.small is not None:
-        sel = coll._index["small_ids"]
-        params["small"], accs["small"] = _mxu_sparse_update(
-            coll.buckets, params["small"], accs["small"], indices[sel], mask[sel],
-            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps, mesh=coll.mesh,
-        )
-    if coll.big is not None:
-        sel = coll._index["big_ids"]
-        params["big"], accs["big"], dropped = sparse_update(
-            coll.big, params["big"], accs["big"], indices[sel], mask[sel],
-            g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps, routed=routed,
-            capacity_factor=capacity_factor, return_stats=True,
-        )
+    with span("pel.sparse_update"):
+        mask = mask.to(torch.bool)
+        dropped = torch.zeros((), dtype=torch.int32, device=coll.device)
+        if coll.small is not None:
+            sel = coll._index["small_ids"]
+            params["small"], accs["small"] = _mxu_sparse_update(
+                coll.buckets, params["small"], accs["small"], indices[sel], mask[sel],
+                g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps, mesh=coll.mesh,
+            )
+        if coll.big is not None:
+            sel = coll._index["big_ids"]
+            params["big"], accs["big"], dropped = sparse_update(
+                coll.big, params["big"], accs["big"], indices[sel], mask[sel],
+                g_pooled[:, sel], lr=lr, optimizer=optimizer, eps=eps, routed=routed,
+                capacity_factor=capacity_factor, return_stats=True,
+            )
     if return_stats:
         return params, accs, dropped
     return params, accs

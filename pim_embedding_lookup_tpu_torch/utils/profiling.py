@@ -8,6 +8,8 @@ The counterpart of ``pim_embedding_lookup_tpu.utils.profiling``:
    busy intervals, the CSV schema of the JAX package, and a Gantt chart.
 3. ``cost_stats``: flops and bytes accessed of one call.
 4. ``trace``: a ``torch.profiler`` Chrome trace, viewable in Perfetto.
+5. ``span``: a named span at a layer boundary of the program, recorded
+   only while a profiler records.
 """
 
 from __future__ import annotations
@@ -137,6 +139,20 @@ def trace(log_dir: str | None = None) -> Iterator[torch.profiler.profile]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` named ``name`` while the
+    autograd profiler records (``trace``, ``torch.profiler.profile``), so
+    that the trace shows the span and the device work launched inside it;
+    otherwise one shared no-op context, which costs a fraction of a
+    ``record_function`` that records nothing."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class _BytesAccessed(TorchDispatchMode):
