@@ -166,9 +166,9 @@ from pim_embedding_lookup_tpu_torch.parallel.collection import (
 )
 from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
     _mxu_csr_lookup,
-    _mxu_pooled_lookup,
     _mxu_sparse_update,
     _mxu_sparse_update_csr,
+    _small_pooled_lookup,
 )
 from pim_embedding_lookup_tpu_torch.parallel.hotcache import build_hot_cache, hot_ids_from_sample
 from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
@@ -202,10 +202,28 @@ SEED = 0
 BATCH = 8192
 REQUESTS = 5
 ID_SETS = 16  # distinct id sets cycled while timing: > 50 MB of rows, past L2
+SMALL_SET_BATCH = 65536  # the small set's K1 row: the Kaggle benchmark cells' batch
 # Kernel checks: f32 sums in another order; bf16 storage adds the same bf16
 # values in f32 on both sides, so the same tolerance holds.
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 DEV = torch.device("cuda")
+# K1's launches by the hybrid's small set over f32 rows (its bf16-rounding
+# instance, a row of its own in the kernel table), gathered over the phases
+# that count them apart from the rest of K1's (take_k1)
+SMALL_SET_K1 = [0]
+
+
+def zero_k1() -> None:
+    """Sets K1's launch counters to 0, the small set's among them."""
+    embedding_bag_fixedl.launches = embedding_bag_fixedl.bf16_round_launches = 0
+
+
+def take_k1() -> tuple[int, int]:
+    """K1's launches since :func:`zero_k1`: (all but the small set's, the
+    small set's bf16-rounding ones, which join SMALL_SET_K1)."""
+    small = embedding_bag_fixedl.bf16_round_launches
+    SMALL_SET_K1[0] += small
+    return embedding_bag_fixedl.launches - small, small
 
 
 class _OpCount(TorchDispatchMode):
@@ -334,7 +352,7 @@ def checked_paths(run, want, paths, exact, slack=None):
 
 
 def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, paths=None,
-            extra=None, abs_storage=None, plain_timing=None):
+            extra=None, abs_storage=None, plain_timing=None, round_bf16=False):
     """K1 against its plain version on set 0; kernel, plain and library
     times cycling through all sets; bound from set 0's data (each distinct
     kept row read once, every id and mask byte, the output).  int8
@@ -349,10 +367,13 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, pat
     checks allow :func:`order_slack` past KERNEL_TOL, for long bags.
     ``plain_timing``: ``device_ms``'s calls and runs for the plain version
     and the library call (default 10 and 20; fewer where a call takes
-    tens of ms)."""
+    tens of ms).  ``round_bf16``: the small set's instance, each row
+    rounded to bf16, held bitwise against the plain version at L=1; its
+    library call pools a bf16 copy of the rows (rounded outside the
+    timing)."""
     ids, mask = id_sets[0]
     bags = ids.numel() // pooling
-    kw = dict(pooling=pooling, batch_size=bags, scale=scale)
+    kw = dict(pooling=pooling, batch_size=bags, scale=scale, round_bf16=round_bf16)
     got = embedding_bag_fixedl(storage, d, ids, mask=mask, **kw)
     want = embedding_bag_fixedl_reference(storage, d, ids, mask=mask, **kw)
     slack = None if abs_storage is None else order_slack(
@@ -360,6 +381,8 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, pat
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check_kernel(got, want, slack)
+    if round_bf16 and pooling == 1 and not torch.equal(got, want):
+        raise AssertionError(f"{name}: single-hot bags differ from the plain version")
 
     int8 = storage.dtype == torch.int8
     kernel = lambda i, m: embedding_bag_fixedl(storage, d, i, mask=m, **kw)  # noqa: E731
@@ -382,6 +405,8 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, pat
     weight = f32_weight if int8 else storage
     if weight is not None:
         weight = weight.view(-1, d)
+        if round_bf16:
+            weight = weight.to(torch.bfloat16)
         offsets = torch.arange(0, ids.numel(), pooling, dtype=torch.int32, device=DEV)
         lib_sets = [(i, m.to(weight.dtype)) for i, m in id_sets]
         embedding_bag_ms = device_ms(
@@ -396,7 +421,8 @@ def k1_case(name, storage, d, pooling, id_sets, scale=None, f32_weight=None, pat
         + ids.numel() * 5  # int32 id + 1-byte mask per entry
         + bags * d * 4,  # f32 output
         active * d * (1 + (scale is not None)))  # an add (and a multiply) per value
-    row = dict(case=name, dtype=str(storage.dtype).replace("torch.", ""),
+    row = dict(case=name, dtype=str(storage.dtype).replace("torch.", "")
+               + (" rounded to bf16" if round_bf16 else ""),
                bags=bags, pooling=pooling, d=d, active_entries=active,
                distinct_rows=rows, max_abs_err=err, kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                plain_ms=plain_ms, library_ms=None if int8 else embedding_bag_ms,
@@ -1356,8 +1382,11 @@ def _int8_serve_stats(fn, reqs):
     counters = (embedding_bag_fixedl, embedding_bag_csr_packed)
     for c in counters:
         c.launches = c.int8_launches = c.int8_row_launches = 0
+    zero_k1()
     outs, times, _ = serve(fn, reqs[:REQUESTS])
+    k1 = take_k1()[0]  # the small set's (f32 rows) apart
     launched = [(c.launches, c.int8_launches, c.int8_row_launches) for c in counters]
+    launched[0] = (k1,) + launched[0][1:]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for out in outs:
         if out.shape != (BATCH,) or not torch.isfinite(out).all():
@@ -1606,7 +1635,8 @@ def train_phase(gen):
         losses = [run(batches[0]).item()]  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        embedding_bag_fixedl.launches = embedding_bag_csr_packed.launches = 0
+        zero_k1()
+        embedding_bag_csr_packed.launches = 0
         times = []
         for batch in batches[1 : 1 + TRAIN_STEPS]:
             t0 = time.perf_counter()
@@ -1614,12 +1644,12 @@ def train_phase(gen):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss.item())
-        k1, k2 = embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches
+        (k1, small), k2 = take_k1(), embedding_bag_csr_packed.launches
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = (TRAIN_STEPS, 0) if wire == "dense" else (0, TRAIN_STEPS)
-        if (k1, k2) != want:
-            raise AssertionError(f"{name}: K1, K2 launched {(k1, k2)} times in "
-                                 f"{TRAIN_STEPS} steps, not {want}")
+        want = (TRAIN_STEPS, TRAIN_STEPS, 0) if wire == "dense" else (0, 0, TRAIN_STEPS)
+        if (k1, small, k2) != want:
+            raise AssertionError(f"{name}: K1, the small set's K1, K2 launched "
+                                 f"{(k1, small, k2)} times in {TRAIN_STEPS} steps, not {want}")
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"{name}: non-finite loss {losses}")
         launches["K1"] += k1
@@ -1806,14 +1836,17 @@ def _mesh_1(gen, mesh):
         for wire, name, fn in paths:
             fn(*reqs[wire][-1])  # warm-up
             torch.cuda.synchronize()
-            embedding_bag_fixedl.launches = 0
+            zero_k1()
             embedding_bag_csr_packed.launches = embedding_bag_csr_packed.masked_launches = 0
             outs, times, _ = serve(fn, reqs[wire][:REQUESTS])
-            launched = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches,
+            k1, small = take_k1()
+            launched = (k1, embedding_bag_csr_packed.launches,
                         embedding_bag_csr_packed.masked_launches)
-            if launched != want_launches.get((wire, name), (0, 0, 0)):
+            if (launched != want_launches.get((wire, name), (0, 0, 0))
+                    or small != (REQUESTS if wire == "dense" else 0)):
                 raise AssertionError(f"mesh_1 {wire} {name}: K1, K2, masked K2 launched "
-                                     f"{launched} times for {REQUESTS} requests")
+                                     f"{launched} times and the small set's K1 {small} for "
+                                     f"{REQUESTS} requests")
             if name == "ROW_HASH broadcast":
                 masked["K1" if wire == "dense" else "K2"] += launched[0] + launched[2]
             for out in outs:
@@ -1852,17 +1885,17 @@ def _mesh_1(gen, mesh):
 
         # timed, as a trainer runs it
         acc, step = trainer()
-        embedding_bag_fixedl.launches = 0
+        zero_k1()
         times = []
         for batch in batches:
             t0 = time.perf_counter()
             acc, loss = step(acc, *batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        k1 = embedding_bag_fixedl.launches
-        if k1 != (0 if is_routed else len(batches)):
-            raise AssertionError(f"mesh_1 train {name}: K1 launched {k1} times in "
-                                 f"{len(batches)} steps")
+        k1, small = take_k1()
+        if k1 != (0 if is_routed else len(batches)) or small != len(batches):
+            raise AssertionError(f"mesh_1 train {name}: K1 launched {k1} times and the small "
+                                 f"set's K1 {small} in {len(batches)} steps")
         if name == "ROW_HASH broadcast":
             masked["K1"] += k1
         ops_count = aten_ops(lambda: step(acc, *batches[0]))
@@ -1997,19 +2030,19 @@ def _mesh_1_autodiff(gen, config, rep, rh, init):
         step(*batches[0])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        embedding_bag_fixedl.launches = 0
+        zero_k1()
         times = []
         for batch in batches[1:]:
             t0 = time.perf_counter()
             step(*batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        if embedding_bag_fixedl.launches != len(batches) - 1:
-            raise AssertionError(f"mesh_1 autodiff {name}: K1 launched "
-                                 f"{embedding_bag_fixedl.launches} times in "
-                                 f"{len(batches) - 1} steps")
+        launched = take_k1()
+        if launched != (len(batches) - 1,) * 2:
+            raise AssertionError(f"mesh_1 autodiff {name}: K1 and the small set's K1 launched "
+                                 f"{launched} times in {len(batches) - 1} steps")
         if name != "REPLICATE":
-            k1 += embedding_bag_fixedl.launches
+            k1 += launched[0]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         dev = device_ms(lambda b_: step(*b_), [(b,) for b in batches[1:]], calls=1)
         ops_count = aten_ops(lambda: step(*batches[1]))
@@ -2591,11 +2624,12 @@ def multihost_worker(out):
         with torch.no_grad():
             want = [rep(*r) for r in reqs[:REQUESTS]]
             serve_pod(*reqs[-1])  # warm-up
-            embedding_bag_fixedl.launches = 0
+            zero_k1()
             outs, times, _ = serve(serve_pod, reqs[:REQUESTS])
-        k1 = embedding_bag_fixedl.launches
-        if k1 != REQUESTS:
-            raise AssertionError(f"multihost_1: K1 launched {k1} times for {REQUESTS} requests")
+        k1, small = take_k1()
+        if (k1, small) != (REQUESTS, REQUESTS):
+            raise AssertionError(f"multihost_1: K1 launched {k1} times and the small set's "
+                                 f"K1 {small} for {REQUESTS} requests")
         for o, w in zip(outs, want):
             if o.shape != (BATCH,) or not torch.isfinite(o).all():
                 raise AssertionError("multihost_1: bad logits")
@@ -2699,11 +2733,12 @@ def native_phase(coll, emb, idx, off, pooled):
             times.append((time.perf_counter() - t0) * 1e3)
         pack_ms[impl] = statistics.median(times)
     same_pack(packs["native"], packs["numpy"])
-    embedding_bag_fixedl.launches = embedding_bag_csr_packed.launches = 0
+    zero_k1()
+    embedding_bag_csr_packed.launches = 0
     with torch.no_grad():
         got = lookup_csr_bucketed(coll, emb, packs["native"])
     torch.cuda.synchronize()
-    launched = (embedding_bag_fixedl.launches, embedding_bag_csr_packed.launches)
+    launched = (take_k1()[0], embedding_bag_csr_packed.launches)
     if launched[0] < 1 or (plan.tail_bags and launched[1] < 1):
         raise AssertionError(f"bucketed dispatch launched K1, K2 {launched}")
     err = (got - pooled).abs().max().item()
@@ -2824,20 +2859,20 @@ def cli_phase():
     args = CLI[3:] + ["--optimizer=adagrad", "--print-time"]
     try:
         out = io.StringIO()
-        embedding_bag_fixedl.launches = 0
+        zero_k1()
         t0 = time.perf_counter()
         with profiling.trace(tmp) as prof, contextlib.redirect_stdout(out):
             cli.main(args + ["--num-batches=3"])
         secs = time.perf_counter() - t0
-        k1 = embedding_bag_fixedl.launches
+        k1, small = take_k1()
         with open(os.path.join(tmp, "trace.json")) as f:
             names_k1 = "fixedl_pool_kernel" in f.read()
         trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if k1 != 3 or not names_k1:
-        raise AssertionError(f"traced CLI: K1 launches {k1} for 3 steps, "
-                             f"trace names fixedl_pool_kernel: {names_k1}")
+    if (k1, small) != (3, 3) or not names_k1:
+        raise AssertionError(f"traced CLI: K1 launches {k1} and the small set's {small} for "
+                             f"3 steps, trace names fixedl_pool_kernel: {names_k1}")
     step3 = cli_phases(out.getvalue())["train_step"]
     one = io.StringIO()
     with contextlib.redirect_stdout(one):
@@ -3315,7 +3350,9 @@ def surface_fuzz(mesh):
                     for row, n in counts.items():
                         if not n:
                             continue
-                        inst = f"{row} masked" if masked and row != "K2 masked" else row
+                        inst = (f"{row} masked" if masked and row not in ("K2 masked",
+                                                                        "K1 small set")
+                                else row)
                         cases[inst] = cases.get(inst, 0) + 1
                         worst[inst] = max(worst.get(inst, 0.0), err)
                         key = "K1 masked" if masked and row == "K1" else row
@@ -3613,6 +3650,12 @@ def main(argv) -> int:
                        model.emb_big, 16, 1, main_sets)
     big_bf16 = model.emb_big.to(torch.bfloat16)
     k1_case("main path, bf16 storage", big_bf16, 16, 1, main_sets)
+    small = model.collection.small  # the benchmark's Kaggle cells' small-set shape
+    small_sets = [kaggle_ids(small, gen, SMALL_SET_BATCH, 1, 1.0) for _ in range(ID_SETS)]
+    small_f32 = k1_case(f"small set ({len(small.layout.table_rows)} tables x "
+                        f"B={SMALL_SET_BATCH}, L=1, f32 rows rounded to bf16)",
+                        model.emb_small, 16, 1, small_sets, round_bf16=True)
+    del small_sets
     multi_sets = [kaggle_ids(big, gen, 2048, 8, 0.7) for _ in range(ID_SETS)]
     k1_case("multi-hot (10 tables x B=2048, L=8, mask 0.7)", model.emb_big, 16, 8,
             multi_sets)
@@ -3632,16 +3675,17 @@ def main(argv) -> int:
         model(*requests[-1])  # warm-up (cuBLAS handles, allocator)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        embedding_bag_fixedl.launches = 0
+        zero_k1()
         logits, times, allocs = serve(model, requests[:REQUESTS])
-        k1_launches = embedding_bag_fixedl.launches
+        k1_launches, small_launches = take_k1()
         _, again, allocs_again = serve(model, requests[:REQUESTS])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for out in logits:
         if out.shape != (BATCH,) or not torch.isfinite(out).all():
             raise AssertionError(f"bad logits: shape {tuple(out.shape)}")
-    if k1_launches != REQUESTS:
-        raise AssertionError(f"K1 launched {k1_launches} times for {REQUESTS} requests")
+    if (k1_launches, small_launches) != (REQUESTS, REQUESTS):
+        raise AssertionError(f"K1 launched {k1_launches} times and the small set's K1 "
+                             f"{small_launches} for {REQUESTS} requests")
     with torch.no_grad(), mock.patch.object(
         collection_mod, "embedding_bag_fixedl", embedding_bag_fixedl_reference
     ):
@@ -3650,7 +3694,8 @@ def main(argv) -> int:
     med = statistics.median(times)
     print(f"main path: {REQUESTS} requests of B={BATCH}: ms/request "
           f"{[round(t, 4) for t in times]}, median {med:.4f} ms, "
-          f"{BATCH / med * 1e3:.0f} samples/s, K1 launches {k1_launches}, "
+          f"{BATCH / med * 1e3:.0f} samples/s, K1 launches {k1_launches} and the small "
+          f"set's {small_launches}, "
           f"peak memory {peak_gb:.3f} GB, cudaMalloc calls {allocs}; logits "
           "finite and equal to the plain-pooled forward (atol 1e-4); the same "
           f"requests again: ms/request {[round(t, 4) for t in again]}, "
@@ -3665,9 +3710,8 @@ def main(argv) -> int:
     with torch.no_grad():
         pooled = coll.lookup(emb, idx, mask, batch_size=BATCH)
         fns = {
-            "small_set_onehot_bmm": lambda: _mxu_pooled_lookup(
-                emb["small"], coll.buckets, idx[sel_s], mask[sel_s],
-                batch_size=BATCH),
+            "small_set_k1": lambda: _small_pooled_lookup(
+                coll.small, emb["small"], idx[sel_s], mask[sel_s], batch_size=BATCH),
             "big_set_lookup": lambda: coll.big.lookup(
                 emb["big"], idx[sel_b], mask[sel_b], batch_size=BATCH),
             "dense_half": lambda: model.apply_from_pooled(dense, pooled),
@@ -3885,15 +3929,17 @@ def main(argv) -> int:
     src = "pim_embedding_lookup_tpu_torch/csrc/"
     pallas = "pim_embedding_lookup_tpu/ops/pallas_lookup.py:"
 
-    def entry(name, source, replaces, launches, row):
+    def entry(name, source, replaces, launches, row, replaced=None):
         return {"name": name, "route": "cuda", "source": src + source,
-                "replaces": pallas + replaces, "launches": launches,
+                "replaces": replaced or pallas + replaces, "launches": launches,
                 "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     int8_mesh = masked_launches["int8"]
-    print("kernels: K1, K2, K3, K4 forward, K4 backward; K1 and K2 launches over "
+    print("kernels: K1, K2, K3, K4 forward, K4 backward; the small set's K1 (bf16-rounded, "
+          "f32 rows) in a row of its own, its launches over every phase that counts them; "
+          "K1 and K2 launches over "
           "the served requests, the timed train steps, the bucketed dispatch on the native "
           f"pack {list(native_launches)} and (K1) the traced CLI's {cli_k1} steps; "
           "masked K1, K2 and K4 backward: "
@@ -3921,6 +3967,11 @@ def main(argv) -> int:
         entry("K1 embedding_bag_fixedl (fixed-L gather+pool)", "gather_pool.cu", "272",
               k1_launches + train_launches["K1"] + native_launches[0] + cli_k1
               + phases["K1"], main_f32),
+        entry("K1 small set embedding_bag_fixedl(round_bf16=True) (the hybrid's small set, "
+              "f32 rows rounded to bf16)", "gather_pool.cu", "", SMALL_SET_K1[0]
+              + phases.get("K1 small set", 0), small_f32,
+              replaced="pim_embedding_lookup_tpu/parallel/hybrid.py:496 _bucket_entry_rows "
+                       "(the bf16 one-hot einsum, not a Pallas kernel)"),
         entry("K2 embedding_bag_csr_packed (CSR gather+pool, d=16 packed)", "csr_pool.cu",
               "92", k2_launches + train_launches["K2"] + native_launches[1] + phases["K2"],
               k2_f32),

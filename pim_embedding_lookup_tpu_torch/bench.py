@@ -339,11 +339,11 @@ def parse_args(argv=None):
     ap.add_argument("--cpu-iters", type=int, default=10)
     ap.add_argument("--no-baseline", action="store_true")
     ap.add_argument("--no-hybrid", action="store_true",
-                    help="disable the one-hot small-table path")
+                    help="disable the small-table (bf16-pooled) path")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["float32", "bfloat16", "int8"],
                     help="table storage dtype (accumulation is always f32); "
-                         "int8 = capacity mode (hybrid: one-hot small set + "
+                         "int8 = capacity mode (hybrid: bf16-pooled small set + "
                          "int8 big set)")
     ap.add_argument("--no-packed", action="store_true",
                     help="disable lane-packed storage for dim<128 tables")
@@ -367,7 +367,7 @@ def parse_args(argv=None):
                          "beside its row)")
     ap.add_argument("--tables-filter", default="",
                     choices=["", "small", "big"],
-                    help="bench only the tables below/above the one-hot "
+                    help="bench only the tables below/above the small-set "
                          "threshold (cost-split diagnostic)")
     common.add_device_arg(ap)
     args = ap.parse_args(argv)

@@ -125,8 +125,9 @@ def cmd_train(argv):
     p.add_argument("--load-model", default="")
     p.add_argument("--print-time", action="store_true")
     p.add_argument("--hybrid", action="store_true",
-                   help="hybrid embedding collection: one-hot matmuls for small "
-                        "tables, lane-packed gather for big tables")
+                   help="hybrid embedding collection: small tables pooled in bf16 "
+                        "(on the CSR wire as one-hot matmuls), lane-packed gather "
+                        "for big tables")
     p.add_argument("--routed", action="store_true",
                    help="all-to-all id routing for the sharded lookup and "
                         "scatter update (needs a rowish sharding and >1 process)")

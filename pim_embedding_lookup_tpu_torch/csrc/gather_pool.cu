@@ -45,6 +45,21 @@
 // of 24-28 bytes at U=8 "table"); scalar 40/32, 40/48, 48/40, 48/48, 48/48,
 // 60/64 (spills of 20-32 bytes in "row" U=1 and "table" U=2 by group).
 //
+// The hybrid's small set has an f32 instance of its own (ROUND_BF16,
+// pel_gather_pool_f32_bf16r): each loaded element is rounded to bf16
+// (nearest, ties to even) and widened before its add, so an entry adds
+// f32(bf16(w[id])), what the TPU design's bf16 one-hot product gives; at L=1
+// the pooled row is that product's row bit for bit.  It replaces the one-hot
+// product, which on the H100 wrote a zeroed [G, B, rows] bf16 operand (2.1 GB
+// at Kaggle's B=65536) to pool rows that a gather reads in 64 bytes each.
+// The walk and the loads are the f32 instance's; off, the flag compiles to
+// the same code.  ptxas (CUDA 12.8, sm_90a), registers of its instances at
+// U = 1 / 2 / 4 / 8 by window, then U = 2 / 4 by group (first masked walk;
+// compacted): vector 39 / 48 / 60 / 80, 56 / 64; 58 / 63; scalar 40 / 40 /
+// 40 / 40, 40 / 64; 40 / 48.  Spills of 16-32 bytes at vector U = 8 and U = 4
+// by group, scalar U = 8 and U = 2 compacted; none on the single-hot path
+// (the unflagged f32 instance spills 16 bytes there).
+//
 // Design (pool_common.cuh has the walk, shared with csr_pool.cu).  The first
 // kernel ran one thread per (bag, lane), ~5 waves at the main shape, each
 // thread waiting on mask and id before a 4-byte piece of the row.  Now:
@@ -104,7 +119,7 @@
 
 namespace {
 
-template <typename T, int LOAD, int U, bool BY_GROUP, bool SCALED, bool COMPACT>
+template <typename T, int LOAD, int U, bool BY_GROUP, bool SCALED, bool COMPACT, bool ROUND>
 __global__ void __launch_bounds__(pel::kBlock)
 fixedl_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
                    const int* __restrict__ indices, const unsigned char* __restrict__ mask,
@@ -128,12 +143,12 @@ fixedl_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scal
     tile.s = bag ? g * pooling : 0;
     tile.e = bag ? (g + 1) * pooling : 0;
     tile.dst = bag ? out + (b0 + g) * d : nullptr;
-    pel::pool_tile<T, LOAD, true, U, BY_GROUP, SCALED, COMPACT>(storage, scale, d, group,
-                                                                 tile);
+    pel::pool_tile<T, LOAD, true, U, BY_GROUP, SCALED, COMPACT, ROUND>(storage, scale, d,
+                                                                        group, tile);
   }
 }
 
-template <typename T, bool SCALED, int LOAD, int U, bool BY_GROUP, bool COMPACT>
+template <typename T, bool SCALED, bool ROUND, int LOAD, int U, bool BY_GROUP, bool COMPACT>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int device,
            void* stream) {
@@ -144,10 +159,10 @@ int launch(const void* storage, const void* scale, const void* indices, const vo
   const long long tiles = (bags + bags_per_tile - 1) / bags_per_tile;
   const int warps_per_block = pel::kBlock / 32;
   const int grid =
-      pel::wave_blocks<&fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED, COMPACT>>(
+      pel::wave_blocks<&fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED, COMPACT, ROUND>>(
           device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED, COMPACT>
+  fixedl_pool_kernel<T, LOAD, U, BY_GROUP, SCALED, COMPACT, ROUND>
       <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
           (const T*)storage, (const float*)scale, (const int*)indices,
           (const unsigned char*)mask, (float*)out, bags, pooling, d, group);
@@ -163,47 +178,48 @@ int launch(const void* storage, const void* scale, const void* indices, const vo
 // H100 (PERF.md section 6) it was 1.38x slower than the first walk at f32
 // d=128, L=8, 1 entry in 4 kept, and 2-3 % slower at L=32; nothing measured
 // gained.  The compacted by-window walk serves masked K2, whose bags vary.
-template <typename T, bool SCALED, int LOAD, bool COMPACT>
+template <typename T, bool SCALED, bool ROUND, int LOAD, bool COMPACT>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int by_group,
            int device, void* stream) {
   using Launch = int (*)(const void*, const void*, const void*, const void*, void*,
                          long long, int, int, int, int, void*);
   const Launch chosen =
-      pooling == 1   ? launch<T, SCALED, LOAD, 1, false, false>
-      : pooling == 2 ? (by_group ? launch<T, SCALED, LOAD, 2, true, COMPACT>
-                                 : launch<T, SCALED, LOAD, 2, false, false>)
-      : by_group     ? launch<T, SCALED, LOAD, 4, true, COMPACT>
-      : pooling <= 4 ? launch<T, SCALED, LOAD, 4, false, false>
-                     : launch<T, SCALED, LOAD, 8, false, false>;
+      pooling == 1   ? launch<T, SCALED, ROUND, LOAD, 1, false, false>
+      : pooling == 2 ? (by_group ? launch<T, SCALED, ROUND, LOAD, 2, true, COMPACT>
+                                 : launch<T, SCALED, ROUND, LOAD, 2, false, false>)
+      : by_group     ? launch<T, SCALED, ROUND, LOAD, 4, true, COMPACT>
+      : pooling <= 4 ? launch<T, SCALED, ROUND, LOAD, 4, false, false>
+                     : launch<T, SCALED, ROUND, LOAD, 8, false, false>;
   return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, device, stream);
 }
 
 // compact: the masked entries dropped before the row loads (the wrapper's
 // walk), or carried as flags through it (the first masked walk, a pin)
-template <typename T, bool SCALED, int LOAD>
+template <typename T, bool SCALED, bool ROUND, int LOAD>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int group, int by_group,
            int compact, int device, void* stream) {
-  const auto chosen = compact ? launch<T, SCALED, LOAD, true> : launch<T, SCALED, LOAD, false>;
+  const auto chosen =
+      compact ? launch<T, SCALED, ROUND, LOAD, true> : launch<T, SCALED, ROUND, LOAD, false>;
   return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, by_group, device,
                 stream);
 }
 
 // load: the bytes a lane loads from a row at once (16; for int8 also 8 and
 // 4), or 0 for one element
-template <typename T, bool SCALED>
+template <typename T, bool SCALED, bool ROUND = false>
 int launch(const void* storage, const void* scale, const void* indices, const void* mask,
            void* out, long long bags, int pooling, int d, int load, int group,
            int by_group, int compact, int device, void* stream) {
   using Launch = int (*)(const void*, const void*, const void*, const void*, void*,
                          long long, int, int, int, int, int, int, void*);
   Launch chosen = nullptr;
-  if (load == 16) chosen = launch<T, SCALED, 16>;
-  if (load == 0) chosen = launch<T, SCALED, 0>;
+  if (load == 16) chosen = launch<T, SCALED, ROUND, 16>;
+  if (load == 0) chosen = launch<T, SCALED, ROUND, 0>;
   if constexpr (std::is_same_v<T, int8_t>) {
-    if (load == 8) chosen = launch<T, SCALED, 8>;
-    if (load == 4) chosen = launch<T, SCALED, 4>;
+    if (load == 8) chosen = launch<T, SCALED, ROUND, 8>;
+    if (load == 4) chosen = launch<T, SCALED, ROUND, 4>;
   }
   if (chosen == nullptr) return (int)cudaErrorInvalidValue;
   return chosen(storage, scale, indices, mask, out, bags, pooling, d, group, by_group,
@@ -220,6 +236,16 @@ int pel_gather_pool_f32(const void* storage, const void* indices,
                         int compact, int device, void* stream) {
   return launch<float, false>(storage, nullptr, indices, mask, out, bags, pooling, d, load,
                               group, by_group, compact, device, stream);
+}
+
+// f32 rows, each element rounded to bf16 (nearest, ties to even) and
+// widened before it is added: the hybrid's small set
+int pel_gather_pool_f32_bf16r(const void* storage, const void* indices,
+                              const void* mask, void* out, long long bags,
+                              int pooling, int d, int load, int group, int by_group,
+                              int compact, int device, void* stream) {
+  return launch<float, false, true>(storage, nullptr, indices, mask, out, bags, pooling, d,
+                                    load, group, by_group, compact, device, stream);
 }
 
 int pel_gather_pool_bf16(const void* storage, const void* indices,

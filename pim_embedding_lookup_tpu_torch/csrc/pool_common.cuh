@@ -13,7 +13,9 @@
 // mode's codes) are converted to f32 as they are added; where a 1-D f32
 // scale array is given (SCALED, the "row" scale mode), each entry adds code *
 // scale[id], its scale loaded beside its row, in the same batch of U loads,
-// so that it puts no second dependent load on the chain.  Thread g of a group
+// so that it puts no second dependent load on the chain.  f32 rows may be
+// rounded to bf16 as they are added (ROUND_BF16, K1's instance for the
+// hybrid's small set, Bf16Rounded).  Thread g of a group
 // reads chunks g, g+G, g+2G, ... of each row; a row of more than 32 chunks
 // takes several rounds, each walking the bag's entries again.  A lane writes
 // its chunk's f32 sums as float4 stores: one at LOAD = 16 f32 and at LOAD =
@@ -65,6 +67,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace pel {
 
@@ -213,6 +216,27 @@ struct Chunk<int8_t, 8> {
   }
 };
 
+// f32 rows rounded to bf16 as they are added (ROUND_BF16, K1's instance
+// for the hybrid's small set): each element is rounded to the nearest bf16,
+// ties to even, then widened and added in f32, so that an entry adds
+// f32(bf16(w)), the value of the TPU design's one-hot product over bf16
+// weights, whose output row has one nonzero term.  Loads as Chunk<float>.
+template <int LOAD>
+struct Bf16Rounded : Chunk<float, LOAD> {
+  using Base = Chunk<float, LOAD>;
+  __device__ static float rn(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+  __device__ static void add(float (&acc)[Base::P], const typename Base::Raw& v) {
+    if constexpr (LOAD == 0) {
+      acc[0] += rn(v);
+    } else {
+      acc[0] += rn(__uint_as_float(v.x));
+      acc[1] += rn(__uint_as_float(v.y));
+      acc[2] += rn(__uint_as_float(v.z));
+      acc[3] += rn(__uint_as_float(v.w));
+    }
+  }
+};
+
 // Adds one loaded chunk, times its entry's scale where SCALED.
 template <typename C, bool SCALED>
 __device__ __forceinline__ void add_chunk(float (&acc)[C::P], const typename C::Raw& raw,
@@ -293,12 +317,16 @@ __device__ __forceinline__ void read_ids(const int* p, int (&id)[U]) {
 
 // SCALED: ``scale`` holds one f32 a row, indexed by the row's id.  COMPACT
 // (with MASKED): masked entries are dropped before the row loads.
+// ROUND_BF16 (f32 rows only): each element is added as f32(bf16(w))
+// (Bf16Rounded); off, the walk is the same code as without the flag.
 template <typename T, int LOAD, bool MASKED, int U, bool BY_GROUP, bool SCALED,
-          bool COMPACT = false>
+          bool COMPACT = false, bool ROUND_BF16 = false>
 __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
                                           const float* __restrict__ scale, int d,
                                           int group, const Tile& tile) {
-  using C = Chunk<T, LOAD>;
+  static_assert(!ROUND_BF16 || (std::is_same_v<T, float> && !SCALED),
+                "bf16 rounding is an instance of unscaled f32 rows");
+  using C = std::conditional_t<ROUND_BF16, Bf16Rounded<LOAD>, Chunk<T, LOAD>>;
   constexpr int P = C::P;
   constexpr bool kCompact = MASKED && COMPACT;
   const int lane = threadIdx.x & 31;

@@ -46,6 +46,16 @@ call, the backward the transpose of the gather, an ``index_add_`` of each
 kept entry's bag gradient at its row (XLA's work in the JAX package, not a
 Pallas kernel).  Without grad no autograd node is made; int8 storage
 cannot require grad, and its scale gets no gradient.
+
+``round_bf16`` gives the hybrid's small set its values: each entry adds
+f32(bf16(w[id])), what the JAX package's bf16 one-hot product gives (one
+nonzero term an output row), so at L=1 a pooled row is the product's bit
+for bit.  f32 storage launches an instance of its own, which rounds each
+loaded element to bf16 (nearest, ties to even) before its add
+(``bf16_round_launches`` counts it); bf16 storage needs no rounding and
+launches the bf16 instance.  Under grad the storage gradient is the
+product's: each entry's cotangent rounded to bf16, the sums a row gets
+rounded to bf16.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ _LOADS = {torch.float32: (16,), torch.bfloat16: (16,), torch.int8: (4, 8, 16)}
 _WARP = 32
 _SIGNATURES = {
     "pel_gather_pool_f32": (_LAUNCH_ARGS, ctypes.c_int),
+    "pel_gather_pool_f32_bf16r": (_LAUNCH_ARGS, ctypes.c_int),
     "pel_gather_pool_bf16": (_LAUNCH_ARGS, ctypes.c_int),
     # int8: the scale pointer (or NULL) after the storage's
     "pel_gather_pool_i8": ([ctypes.c_void_p] + _LAUNCH_ARGS, ctypes.c_int),
@@ -237,7 +248,7 @@ def gather_rows(storage: torch.Tensor, d: int, ids: torch.Tensor,
 def embedding_bag_fixedl_reference(
     storage: torch.Tensor, d: int, indices: torch.Tensor, *,
     pooling: int, batch_size: int, mask: torch.Tensor | None = None,
-    scale: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None, round_bf16: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: [batch_size, d] f32."""
     ids = indices.long()
@@ -245,6 +256,8 @@ def embedding_bag_fixedl_reference(
         keep = mask.bool()
         ids = torch.where(keep, ids, 0)  # masked entries are not read
     rows = gather_rows(storage, d, ids, scale)
+    if round_bf16:
+        rows = rows.to(torch.bfloat16).float()
     if mask is not None:
         rows = torch.where(keep[:, None], rows, 0.0)
     return rows.reshape(batch_size, pooling, d).sum(dim=1)
@@ -260,17 +273,24 @@ def embedding_bag_fixedl(
     mask: torch.Tensor | None = None,  # [B*L] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
     path: tuple | None = None,  # pinned KernelPath (load, group, by_group[, compact])
+    round_bf16: bool = False,  # each entry adds f32(bf16(w)): f32 or bf16 storage
 ) -> torch.Tensor:  # [B, d] f32
     """SUM-pooled fixed-L embedding bag over fused storage.  Unmasked ids
     must lie in [0, rows).  ``scale``: int8 storage's per-row scale.
-    ``path``: the kernel path to launch (:func:`kernel_path`), CUDA only."""
+    ``path``: the kernel path to launch (:func:`kernel_path`), CUDA only.
+    ``round_bf16``: rows rounded to bf16 as they are added (the module
+    docstring)."""
     _check(storage, d, indices, pooling, batch_size, mask, scale)
+    if round_bf16 and storage.dtype == torch.int8:
+        raise TypeError("round_bf16 rounds float rows: int8 storage has codes")
     if storage.requires_grad and torch.is_grad_enabled():
-        return _FixedLBagSum.apply(storage, d, indices, pooling, batch_size, mask, path)
-    return _pool(storage, d, indices, pooling, batch_size, mask, scale, path)
+        return _FixedLBagSum.apply(storage, d, indices, pooling, batch_size, mask, path,
+                                   round_bf16)
+    return _pool(storage, d, indices, pooling, batch_size, mask, scale, path, round_bf16)
 
 
-def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None):
+def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None,
+          round_bf16=False):
     """Checked K1 body: the plain version for CPU tensors, else one launch
     on ``path`` (:func:`kernel_path`)."""
     if path is not None and path[2] and pooling == 1:
@@ -279,7 +299,7 @@ def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None)
     if storage.device.type == "cpu":
         return embedding_bag_fixedl_reference(
             storage, d, indices, pooling=pooling, batch_size=batch_size,
-            mask=mask, scale=scale,
+            mask=mask, scale=scale, round_bf16=round_bf16,
         )
     if storage.device.type != "cuda":
         raise ValueError(f"no kernel for device {storage.device}")
@@ -287,7 +307,9 @@ def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None)
     if batch_size == 0:
         return out
     lib = _build.load("gather_pool", _SIGNATURES)
-    fn = getattr(lib, f"pel_gather_pool_{_STORAGE_DTYPES[storage.dtype]}")
+    rounds = round_bf16 and storage.dtype == torch.float32  # bf16 rows need no rounding
+    fn = getattr(lib, f"pel_gather_pool_{_STORAGE_DTYPES[storage.dtype]}"
+                      + ("_bf16r" if rounds else ""))
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     int8 = storage.dtype == torch.int8
     lead = (storage.data_ptr(),) + ((_ptr(scale),) if int8 else ())
@@ -301,12 +323,14 @@ def _pool(storage, d, indices, pooling, batch_size, mask, scale=None, path=None)
     embedding_bag_fixedl.launches += 1
     embedding_bag_fixedl.int8_launches += int8
     embedding_bag_fixedl.int8_row_launches += scale is not None
+    embedding_bag_fixedl.bf16_round_launches += rounds
     return out
 
 
 embedding_bag_fixedl.launches = 0
 embedding_bag_fixedl.int8_launches = 0  # int8 storage, either scale mode
 embedding_bag_fixedl.int8_row_launches = 0  # int8 storage with a per-row scale
+embedding_bag_fixedl.bf16_round_launches = 0  # f32 storage rounded to bf16 (round_bf16)
 
 
 def embedding_bag_fixedl_grad(
@@ -314,12 +338,16 @@ def embedding_bag_fixedl_grad(
     indices: torch.Tensor,  # [B*L] int32 fused row ids, bag-major
     mask: torch.Tensor | None,  # [B*L] bool/uint8
     num_rows: int,
+    round_bf16: bool = False,
 ) -> torch.Tensor:  # [num_rows, d] f32
     """The transpose of K1's gather: ``g[bag(e)] * mask[e]`` added at row
     ``indices[e]`` of a zeroed f32 gradient.  Masked entries add an exact
-    zero at row 0, so their ids are never used."""
+    zero at row 0, so their ids are never used.  ``round_bf16``: the bf16
+    one-hot product's transpose, each entry's cotangent rounded to bf16
+    and each row's f32 sum rounded to bf16."""
     b, d = g.shape
     pooling = indices.numel() // max(b, 1)
+    g = g.to(torch.bfloat16) if round_bf16 else g
     g_e = g.float()[:, None, :].expand(b, pooling, d).reshape(-1, d)  # [B*L, d]
     ids = indices.long()
     if mask is not None:
@@ -327,21 +355,23 @@ def embedding_bag_fixedl_grad(
         g_e = g_e * keep[:, None]
         ids = torch.where(keep, ids, 0)
     dtable = torch.zeros(num_rows, d, dtype=torch.float32, device=g.device)
-    return dtable.index_add_(0, ids, g_e)
+    dtable.index_add_(0, ids, g_e)
+    return dtable.to(torch.bfloat16).float() if round_bf16 else dtable
 
 
 class _FixedLBagSum(torch.autograd.Function):
     """K1 with its gradient w.r.t. the storage only."""
 
     @staticmethod
-    def forward(ctx, storage, d, indices, pooling, batch_size, mask, path):
+    def forward(ctx, storage, d, indices, pooling, batch_size, mask, path, round_bf16):
         ctx.save_for_backward(indices, mask)
-        ctx.shape, ctx.dtype = storage.shape, storage.dtype
-        return _pool(storage, d, indices, pooling, batch_size, mask, path=path)
+        ctx.shape, ctx.dtype, ctx.round_bf16 = storage.shape, storage.dtype, round_bf16
+        return _pool(storage, d, indices, pooling, batch_size, mask, path=path,
+                     round_bf16=round_bf16)
 
     @staticmethod
     def backward(ctx, g):
         indices, mask = ctx.saved_tensors
         rows = ctx.shape.numel() // g.shape[1]
-        dtable = embedding_bag_fixedl_grad(g, indices, mask, rows)
-        return dtable.to(ctx.dtype).view(ctx.shape), None, None, None, None, None, None
+        dtable = embedding_bag_fixedl_grad(g, indices, mask, rows, ctx.round_bf16)
+        return (dtable.to(ctx.dtype).view(ctx.shape),) + (None,) * 7

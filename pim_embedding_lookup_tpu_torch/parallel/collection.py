@@ -476,17 +476,20 @@ class EmbeddingCollection:
 # -- per-shard bodies ---------------------------------------------------------------
 
 
-def _local_pooled_lookup(storage, d, g_idx, keep, pooling, combiner):
+def _local_pooled_lookup(storage, d, g_idx, keep, pooling, combiner, round_bf16=False):
     """[T, B*L] ids and kept entries -> [B, T, d] f32: K1 for SUM/MEAN
     (the SUM), MAX in plain PyTorch with -3e38 for bags with nothing kept
-    (finished by _finish_combiner).  Dropped entries are never read."""
+    (finished by _finish_combiner).  Dropped entries are never read.
+    ``round_bf16`` (float storage: the hybrid's small set): each row is
+    rounded to bf16 (``embedding_bag_fixedl``'s keyword)."""
     t, c = g_idx.shape
     b = c // pooling
     if combiner == "max":
-        return _max_pool_raw(storage, d, g_idx, keep, pooling)
+        return _max_pool_raw(storage, d, g_idx, keep, pooling, round_bf16)
     rows, scale = _parts(storage)
     out = embedding_bag_fixedl(rows, d, g_idx.reshape(-1), pooling=pooling,
-                               batch_size=t * b, mask=keep.reshape(-1), scale=scale)
+                               batch_size=t * b, mask=keep.reshape(-1), scale=scale,
+                               round_bf16=round_bf16)
     return out.reshape(t, b, d).transpose(0, 1)
 
 
@@ -502,12 +505,18 @@ def _rowshard_pooled_lookup(storage, d, g_idx, mask, pooling, combiner, *, shard
     return _local_pooled_lookup(storage, d, local, owned, pooling, combiner)
 
 
-def _max_pool_raw(storage, d, g_idx, keep, pooling):
+def _max_pool_raw(storage, d, g_idx, keep, pooling, round_bf16=False):
     """Masked MAX over each bag, one table at a time so that the gathered
-    rows never exceed [B*L, d]; bags with nothing kept hold -3e38."""
+    rows never exceed [B*L, d]; bags with nothing kept hold -3e38.
+    ``round_bf16``: the rows come from K1 at L=1 rounding them to bf16, so
+    that under grad the storage gets K1's rounded gradient."""
     per_table = []
     for ids, kp in zip(g_idx, keep):
-        rows = _gather_rows(storage, d, torch.where(kp, ids, 0).long())
+        if round_bf16:
+            rows = embedding_bag_fixedl(storage, d, ids, pooling=1, batch_size=ids.numel(),
+                                        mask=kp, round_bf16=True)
+        else:
+            rows = _gather_rows(storage, d, torch.where(kp, ids, 0).long())
         rows = torch.where(kp[:, None], rows, _NEG_INF)
         per_table.append(rows.reshape(-1, pooling, d).amax(dim=1))
     return torch.stack(per_table, dim=1)  # [B, T, d]

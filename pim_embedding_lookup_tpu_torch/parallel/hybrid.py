@@ -1,15 +1,21 @@
-"""Hybrid embedding collection: one-hot matmuls for small tables, fused
-gather+pool for big ones.
+"""Hybrid embedding collection: small tables pooled in bf16, big ones in
+their storage's precision, both by the fused gather+pool kernel.
 
 The counterpart of ``pim_embedding_lookup_tpu.parallel.hybrid``: lookups and
 the sparse optimizer step, on one device or on a mesh, with routed big-set
 lookups and updates and the hot-row cache.  Tables with at most
 ``mxu_threshold`` rows (``create``'s argument, default ``MXU_THRESHOLD``)
-form the small set: each is padded to a power-of-two bucket, equal buckets
-lie side by side, and each bucket pools as one batched product of a
-bf16 one-hot with the bf16 weights, accumulated in f32, as in the JAX
-package.  The rest form the big set, an EmbeddingCollection whose lookup
-runs the gather+pool kernel on the card.  On a mesh the small set is
+form the small set: each is padded to a power-of-two bucket and equal
+buckets lie side by side, the JAX package's layout.  The JAX package pools
+each bucket as one batched product of a bf16 one-hot with the bf16
+weights, accumulated in f32, built for the TPU's matrix unit; each output
+row of it has one nonzero term, so an entry adds f32(bf16(w[id])).  On the
+dense wire the port pools the small set with K1 over its fused rows, each
+element rounded to bf16 as it is added (``round_bf16``): the same values,
+bit for bit at L=1, with the product's gradient under autograd, and no
+[G, B*L, rows] one-hot written.  The CSR wire still pools each bucket's
+one-hot product.  The rest form the big set, an EmbeddingCollection whose
+lookup runs the gather+pool kernel on the card.  On a mesh the small set is
 planned over the model axis but replicated on every process; the big set is
 sharded by its policy, and ``routed``, ``capacity_factor``, ``hot_cache``,
 ``return_stats`` and ``data_sharded`` pass through to it.  Both sets are
@@ -41,7 +47,13 @@ from ..config import ShardingPolicy, TableConfig
 from ..device import resolve_device
 from ..ops.ragged import segment_ids_from_offsets
 from ..utils.profiling import span
-from .collection import _NEG_INF, EmbeddingCollection, _csr_counts, _finish_combiner
+from .collection import (
+    _NEG_INF,
+    EmbeddingCollection,
+    _csr_counts,
+    _finish_combiner,
+    _local_pooled_lookup,
+)
 from .mesh import DATA_AXIS, PortMesh
 from .planner import FusedLayout
 from .quantized_collection import QuantizedEmbeddingCollection
@@ -238,10 +250,9 @@ class HybridEmbeddingCollection:
             if self.small is not None:
                 with span("pel.lookup.small"):
                     sel = self._index["small_ids"]
-                    parts.append(_mxu_pooled_lookup(
-                        self.small._lookup_input("lookup", params["small"]), self.buckets,
-                        indices[sel], mask[sel],
-                        batch_size=batch_size, combiner=combiner,
+                    parts.append(_small_pooled_lookup(
+                        self.small, self.small._lookup_input("lookup", params["small"]),
+                        indices[sel], mask[sel], batch_size=batch_size, combiner=combiner,
                     ))
             if self.big is not None:
                 with span("pel.lookup.big"):
@@ -331,23 +342,14 @@ def _bucket_entry_rows(fused, bucket, indices, mask):
     return torch.bmm(oh, w).float(), mk
 
 
-def _mxu_pooled_lookup(fused, buckets, indices, mask, *, batch_size,
-                       combiner="sum"):
-    """Bucketed one-hot x weights batched products, one per distinct bucket
-    size.  Returns [B, Ts, D] f32."""
-    t, c = indices.shape
-    pooling = c // batch_size
-    outs = []
-    for bucket in buckets:
-        rows, mk = _bucket_entry_rows(fused, bucket, indices, mask)
-        g, _, d = rows.shape
-        rows = rows.reshape(g, batch_size, pooling, d)
-        if combiner == "max":
-            rows = torch.where(mk.reshape(g, batch_size, pooling, 1), rows, _NEG_INF)
-            outs.append(rows.amax(dim=2))
-        else:
-            outs.append(rows.sum(dim=2))
-    pooled = torch.cat(outs, dim=0).transpose(0, 1)  # [B, Ts, D]
+def _small_pooled_lookup(small, fused, indices, mask, *, batch_size, combiner="sum"):
+    """The small set's dense-wire lookup: ids globalized by its padded row
+    offsets, then K1 over its fused rows with each element rounded to bf16
+    (SUM/MEAN), or MAX over the same rounded rows.  Returns [B, Ts, D] f32."""
+    pooling = indices.shape[1] // batch_size
+    g_idx = small.globalize(indices.to(torch.int32))
+    pooled = _local_pooled_lookup(fused, small.layout.dim, g_idx, mask, pooling, combiner,
+                                  round_bf16=True)
     if combiner == "sum":
         return pooled
     return _finish_combiner(combiner, pooling, pooled, mask)

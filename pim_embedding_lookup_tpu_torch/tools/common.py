@@ -54,6 +54,7 @@ def zero_kernel_launches() -> None:
     """Sets every launch counter of the pool kernels' wrappers to 0."""
     for fn in (embedding_bag_fixedl, embedding_bag_csr_packed):
         fn.launches = fn.int8_launches = fn.int8_row_launches = 0
+    embedding_bag_fixedl.bf16_round_launches = 0
     embedding_bag_csr_packed.masked_launches = embedding_bag_csr_packed.masked_int8_launches = 0
     embedding_bag_csr_sum.launches = 0
     embedding_bag_csr_grad.launches = embedding_bag_csr_grad.masked_launches = 0
@@ -61,7 +62,8 @@ def zero_kernel_launches() -> None:
 
 def kernel_launches(full_width: bool = False) -> dict:
     """The pool kernels' launches, by row of the kernel table (PERF.md):
-    K1 and K2 on float storage, K2 without an ownership mask (K3's row with
+    K1 and K2 on float storage, K1's bf16-rounding instance (the hybrid's
+    small set over f32 rows), K2 without an ownership mask (K3's row with
     ``full_width``: the caller's K2 launches were at d % 128 == 0), their
     int8 instances in each scale mode, masked K2 on float storage, K4's
     forward, its backward and its masked backward.  Each launch counts in
@@ -70,7 +72,8 @@ def kernel_launches(full_width: bool = False) -> dict:
     k1, k2, grad = embedding_bag_fixedl, embedding_bag_csr_packed, embedding_bag_csr_grad
     masked = k2.masked_launches - k2.masked_int8_launches
     return {
-        "K1": k1.launches - k1.int8_launches,
+        "K1": k1.launches - k1.int8_launches - k1.bf16_round_launches,
+        "K1 small set": k1.bf16_round_launches,
         "K1 int8 table": k1.int8_launches - k1.int8_row_launches,
         "K1 int8 row": k1.int8_row_launches,
         "K3" if full_width else "K2": k2.launches - k2.int8_launches - masked,

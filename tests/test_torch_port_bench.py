@@ -421,8 +421,10 @@ def test_kernel_launches_partition_the_counters(monkeypatch, full_width):
     from pim_embedding_lookup_tpu_torch.ops.gather_pool import embedding_bag_fixedl
     from pim_embedding_lookup_tpu_torch.tools import common
 
-    counters = {  # 9 K1 (2 int8, 1 of them "row"); 20 K2 (6 int8, 4 "row"; 5 masked, 3 int8)
-        embedding_bag_fixedl: dict(launches=9, int8_launches=2, int8_row_launches=1),
+    counters = {  # 9 K1 (2 int8, 1 of them "row"; 3 bf16-rounded); 20 K2 (6 int8, 4 "row";
+        # 5 masked, 3 int8)
+        embedding_bag_fixedl: dict(launches=9, int8_launches=2, int8_row_launches=1,
+                                   bf16_round_launches=3),
         embedding_bag_csr_packed: dict(launches=20, int8_launches=6, int8_row_launches=4,
                                        masked_launches=5, masked_int8_launches=3),
         embedding_bag_csr_sum: dict(launches=7),
@@ -433,7 +435,8 @@ def test_kernel_launches_partition_the_counters(monkeypatch, full_width):
             monkeypatch.setattr(fn, name, v)
     k2 = "K3" if full_width else "K2"
     assert common.kernel_launches(full_width) == {
-        "K1": 7, "K1 int8 table": 1, "K1 int8 row": 1, k2: 12, "K2 int8 table": 2,
-        "K2 int8 row": 4, "K2 masked": 2, "K4 fwd": 7, "K4 bwd": 6, "K4 bwd masked": 2}
+        "K1": 4, "K1 small set": 3, "K1 int8 table": 1, "K1 int8 row": 1, k2: 12,
+        "K2 int8 table": 2, "K2 int8 row": 4, "K2 masked": 2, "K4 fwd": 7, "K4 bwd": 6,
+        "K4 bwd masked": 2}
     common.zero_kernel_launches()
     assert not any(common.kernel_launches().values())

@@ -43,6 +43,7 @@ from pim_embedding_lookup_tpu_torch.models.sparse_train import (
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
 from pim_embedding_lookup_tpu_torch.parallel.collection import EmbeddingCollection
+from pim_embedding_lookup_tpu_torch.parallel.hybrid import HybridEmbeddingCollection
 from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
     init_accumulator,
@@ -57,9 +58,11 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_sum,
 )
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
+    KernelPath,
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
     fitted_path,
+    group_size,
     kernel_path,
     walks_by_group,
 )
@@ -298,6 +301,127 @@ def test_pinned_paths_match_plain(cuda, dtype, d, path):
         unaligned = _edge_storage(cuda, dtype, d, "unaligned")
         with pytest.raises(ValueError, match="16-byte"):
             embedding_bag_csr_packed(unaligned, d, idx, off, batch_size=EDGE_BAGS, path=path)
+
+
+# -- the hybrid's small set: K1 over f32 rows rounded to bf16 -----------------------
+
+
+def _ties(storage_rows):
+    """f32 rows whose first 64 hold bf16 ties (the low 16 bits 0x8000, both
+    parities of the kept bit), so that round-to-nearest-even shows."""
+    bits = storage_rows.view(torch.int32)
+    bits[:64] = (bits[:64] & ~0xFFFF) | 0x8000
+    return storage_rows
+
+
+def _in_entry_order(rows, mask, pooling):
+    """Bag sums of [B*L, d] f32 rows in entry order from 0, the kernel's
+    order; a masked entry adds nothing."""
+    if mask is not None:
+        rows = torch.where(mask[:, None], rows, 0.0)
+    rows = rows.view(-1, pooling, rows.shape[1])
+    acc = torch.zeros_like(rows[:, 0])
+    for k in range(pooling):
+        acc = acc + rows[:, k]
+    return acc
+
+
+# (d, layout, row load, by group, L): both row paths (16-byte loads and the
+# scalar path, which an unaligned view takes), both walks (by group only
+# where a tile holds more than one window's worth: not at L=1)
+SMALL_CASES = [
+    (d, layout, load, by_group, pooling)
+    for d, layout in ((16, "packed"), (128, "unpacked"), (16, "unaligned"))
+    for load in ((0,) if layout == "unaligned" else (16, 0))
+    for pooling in (1, 4)
+    for by_group in ((False,) if pooling == 1 else (False, True))
+]
+
+
+@pytest.mark.parametrize("masking", ["none", "random"])
+@pytest.mark.parametrize("d,layout,load,by_group,pooling", SMALL_CASES)
+def test_bf16_rounding_instance_is_bitwise_plain(cuda, d, layout, load, by_group, pooling,
+                                                 masking):
+    """K1's ``round_bf16`` instance (the hybrid's small set over f32 rows)
+    on both row paths and both walks: bitwise the plain version at L=1, and
+    at L=4 bitwise its rows rounded to bf16 summed in entry order; the
+    unflagged f32 instance on the same path bitwise the unrounded rows.
+    Ties round to even; masked ids are never read."""
+    storage = _edge_storage(cuda, torch.float32, d, layout)
+    _ties(storage.view(-1, d))
+    path = KernelPath(load, group_size(storage, d, load), by_group)
+    rng = np.random.default_rng(d + pooling)
+    n = EDGE_BAGS * pooling
+    ids = torch.from_numpy(rng.integers(0, EDGE_ROWS, size=n).astype(np.int32)).to(cuda)
+    ids[:32] = torch.arange(32, device=cuda, dtype=torch.int32)  # rows with ties
+    mask = None if masking == "none" else torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    read = ids if mask is None else torch.where(mask, ids, NEVER_READ)
+    kw = dict(pooling=pooling, batch_size=EDGE_BAGS, mask=mask, path=path)
+    rows = storage.reshape(-1, d)[ids.long()]
+    got = {}
+    for rounded in (True, False):
+        before = (embedding_bag_fixedl.launches, embedding_bag_fixedl.bf16_round_launches)
+        got[rounded] = embedding_bag_fixedl(storage, d, read, round_bf16=rounded, **kw)
+        torch.cuda.synchronize()
+        assert (embedding_bag_fixedl.launches, embedding_bag_fixedl.bf16_round_launches) == (
+            before[0] + 1, before[1] + rounded)
+        want = _in_entry_order(rows.to(torch.bfloat16).float() if rounded else rows, mask,
+                               pooling)
+        assert torch.equal(got[rounded], want)
+        if pooling == 1:
+            plain = embedding_bag_fixedl_reference(storage, d, ids, pooling=1,
+                                                   batch_size=EDGE_BAGS, mask=mask,
+                                                   round_bf16=rounded)
+            assert torch.equal(got[rounded], plain)
+    assert not torch.equal(got[True], got[False])
+
+
+def test_bf16_rounding_of_bf16_rows_is_the_bf16_instance(cuda):
+    """bf16 rows need no rounding: ``round_bf16`` launches the bf16
+    instance, bitwise the same, and counts no rounding launch; int8 codes
+    are refused."""
+    storage = _edge_storage(cuda, torch.bfloat16, 16, "packed")
+    ids = torch.randint(0, EDGE_ROWS, (EDGE_BAGS * 3,), device=cuda, dtype=torch.int32)
+    kw = dict(pooling=3, batch_size=EDGE_BAGS)
+    before = embedding_bag_fixedl.bf16_round_launches
+    got = embedding_bag_fixedl(storage, 16, ids, round_bf16=True, **kw)
+    assert torch.equal(got, embedding_bag_fixedl(storage, 16, ids, **kw))
+    assert embedding_bag_fixedl.bf16_round_launches == before
+    codes = torch.zeros(EDGE_ROWS, 16, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError, match="round_bf16"):
+        embedding_bag_fixedl(codes, 16, ids, round_bf16=True, **kw)
+
+
+@pytest.mark.parametrize("l", [1, 3])
+def test_hybrid_small_set_on_card_matches_cpu(cuda, l):
+    """The hybrid's dense-wire lookup on the card against the CPU: the small
+    set through the rounding instance, once a lookup, its pooled rows
+    bitwise the CPU's at L=1; its storage gradient (each entry's cotangent
+    and each row's sum rounded to bf16) within a bf16 unit."""
+    rows = (3, 24, 583, 1460, 9000, 20000)
+    tables = tuple(TableConfig(num_rows=n, dim=16, name=f"t{i}") for i, n in enumerate(rows))
+    rng = np.random.default_rng(l)
+    host = [rng.standard_normal((n, 16)).astype(np.float32) for n in rows]
+    idx = np.stack([rng.integers(0, n, size=64 * l) for n in rows]).astype(np.int32)
+    mask = rng.random(idx.shape) < 0.7
+    g = torch.from_numpy(rng.standard_normal((64, len(rows), 16)).astype(np.float32))
+    out, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        coll = HybridEmbeddingCollection.create(tables, ShardingPolicy.REPLICATE, device=dev)
+        params = coll.device_put_tables(host)
+        params["small"].requires_grad_(True)
+        before = embedding_bag_fixedl.bf16_round_launches
+        pooled = coll.lookup(params, torch.from_numpy(idx).to(dev),
+                             torch.from_numpy(mask).to(dev), batch_size=64)
+        assert embedding_bag_fixedl.bf16_round_launches == before + (dev.type == "cuda")
+        (pooled * g.to(dev)).sum().backward()
+        out.append(pooled.detach().cpu())
+        grads.append(params["small"].grad.cpu())
+    small = list(coll.small_ids)
+    if l == 1:
+        assert torch.equal(out[0][:, small], out[1][:, small])
+    torch.testing.assert_close(out[0], out[1], **TOL)
+    torch.testing.assert_close(grads[0], grads[1], rtol=2.0 ** -7, atol=1e-6)
 
 
 # -- the training path ------------------------------------------------------------
