@@ -4,9 +4,10 @@ reference.
 
 Each entry returns a ``Run``: what was attempted and failed, the window's
 end-to-end numbers, what the per-layer readers read, and the numbers the
-check compared.  ``control`` puts the reference in the program's place,
-computed with TF32 on; ``fault`` plants one of the faults the check has to
-catch in the program's timed path.
+check compared.  ``dense`` is the family's module of ``dense/``, whose
+``DenseHalf`` the reference runs.  ``control`` puts the reference in the
+program's place, computed with TF32 on; ``fault`` plants one of the faults
+the check has to catch in the program's timed path.
 """
 
 from __future__ import annotations
@@ -45,8 +46,21 @@ def _peak(device) -> int:
 def _pool(cfg, traffic, seed, device, stream=0):
     return [gen.batch(seed, i, table_rows_=tuple(cfg["tables"]), batch_size=traffic["batch_size"],
                       pooling=traffic["pooling"], dense_dim=cfg["dense_dim"], device=device,
-                      stream=stream)
+                      stream=stream, wire=traffic["wire"])
             for i in range(traffic["pool_batches"])]
+
+
+def _flops_per_sample(dense, cfg, traffic) -> int:
+    return dense.flops_per_sample(cfg, gen.lengths(traffic["pooling"], len(cfg["tables"])))
+
+
+def _pool_bytes(cfg, b) -> int:
+    """Bytes a pool kernel must move for batch ``b`` on the dense wire, the
+    small set's and the big set's tables alike: each distinct kept row once,
+    every id and mask byte once, and the f32 output once."""
+    t, bsz = len(cfg["tables"]), b["dense"].shape[0]
+    return (yardstick.pool_bytes(b["ids"], b["mask"], cfg["dim"])
+            + yardstick.pool_out_bytes(t, bsz, cfg["dim"]))
 
 
 def _closed_loop(fn, items, seconds, in_flight, device, first=0, keep=None, per_second=None):
@@ -83,10 +97,11 @@ def _closed_loop(fn, items, seconds, in_flight, device, first=0, keep=None, per_
 # -- score --------------------------------------------------------------------
 
 
-def score(system, cfg, traffic, seed, seconds, device, *, trace, control, fault):
+def score(system, dense, cfg, traffic, seed, seconds, device, *, trace, control, fault):
     run = Run()
     pool = _pool(cfg, traffic, seed, device)
-    predict = plant(fault, "predict", _control(cfg, seed, device) if control else system.predict)
+    predict = plant(fault, "predict",
+                    _control(dense, cfg, seed, device) if control else system.predict)
     for _ in range(2):  # every shape of the cell, twice
         for b in pool:
             predict(b)
@@ -100,23 +115,21 @@ def score(system, cfg, traffic, seed, seconds, device, *, trace, control, fault)
     run.attempted = calls
     run.e2e["score_samples_per_s"] = calls * bsz / window
     run.context.update(samples=calls * bsz, window_s=window,
-                       flops_per_sample=yardstick.forward_flops_per_sample(cfg, traffic["pooling"]))
+                       flops_per_sample=_flops_per_sample(dense, cfg, traffic))
     if trace and not control:
-        system.spanned()
         with tracing.traced(device) as tr:
             n, _ = _closed_loop(system.predict, pool, traffic["trace_seconds"],
                                 traffic["in_flight"], device)
         run.trace = tr["trace"]
-        big = [k for k, r in enumerate(cfg["tables"]) if r > cfg["small_set_max_rows"]]
-        per_batch = [yardstick.pool_bytes(b["ids"][big], b["mask"][big], cfg["dim"])
-                     + yardstick.pool_out_bytes(len(big), bsz, cfg["dim"]) for b in pool]
-        run.context["pool_bytes"] = sum(per_batch[k % len(pool)] for k in range(n))
+        if traffic["wire"] == "dense":
+            per_batch = [_pool_bytes(cfg, b) for b in pool]
+            run.context["pool_bytes"] = sum(per_batch[k % len(pool)] for k in range(n))
         run.context["traced_batches"] = n
     run.peak_bytes = _peak(device)
     got = {k: v.float().cpu() for k, v in outs.items()}
     system.free()
     yield "window_done"
-    dense_half = reference.DenseHalf(cfg, seed, device)
+    dense_half = dense.DenseHalf(cfg, seed, device)
     err = 0.0
     for k, p in got.items():
         want = reference.probabilities(cfg, seed, dense_half, pool[k]).cpu()
@@ -125,9 +138,9 @@ def score(system, cfg, traffic, seed, seconds, device, *, trace, control, fault)
     yield run
 
 
-def _control(cfg, seed, device):
+def _control(dense, cfg, seed, device):
     """The reference's probabilities with TF32 on, in the program's place."""
-    dense_half = reference.DenseHalf(cfg, seed, device)
+    dense_half = dense.DenseHalf(cfg, seed, device)
     return lambda b: reference.probabilities(cfg, seed, dense_half, b, tf32=True)
 
 
@@ -137,7 +150,7 @@ def _control(cfg, seed, device):
 CHECK_STEPS = 3
 
 
-def train(system, cfg, traffic, seed, seconds, device, *, trace, control, fault):
+def train(system, dense, cfg, traffic, seed, seconds, device, *, trace, control, fault):
     run = Run()
     pool = _pool(cfg, traffic, seed, device, stream=1)
     if len(pool) <= CHECK_STEPS:
@@ -146,7 +159,7 @@ def train(system, cfg, traffic, seed, seconds, device, *, trace, control, fault)
     first = pool[:CHECK_STEPS]
     uniq = [torch.unique(torch.cat([b["ids"][k].long() for b in first])) for k in range(t)]
     if control:
-        snap = _control_readings(cfg, seed, first, traffic, device)
+        snap = _control_readings(dense, cfg, seed, first, traffic, device)
     else:
         system.make_train(traffic)
         step = plant(fault, "train_step", system.train_step, system=system)
@@ -171,8 +184,7 @@ def train(system, cfg, traffic, seed, seconds, device, *, trace, control, fault)
         run.attempted = calls
         run.e2e["train_samples_per_s"] = calls * bsz / window
         run.context.update(samples=calls * bsz, window_s=window,
-                           flops_per_sample=3 * yardstick.forward_flops_per_sample(
-                               cfg, traffic["pooling"]))
+                           flops_per_sample=3 * _flops_per_sample(dense, cfg, traffic))
         if trace:
             def spanned(b):
                 with tracing.span("train_step"):
@@ -185,21 +197,25 @@ def train(system, cfg, traffic, seed, seconds, device, *, trace, control, fault)
     run.peak_bytes = _peak(device)
     system.free()
     yield "window_done"
-    ref = reference.Trainer(cfg, seed, first, lr=lr, optimizer=traffic["optimizer"],
-                            eps=traffic["eps"], device=device)
+    ref = reference.Trainer(cfg, seed, first, dense_half=dense.DenseHalf(cfg, seed, device),
+                            lr=lr, optimizer=traffic["optimizer"], eps=traffic["eps"],
+                            device=device)
     for k in range(t):
         if not torch.equal(ref.uniq[k], uniq[k]):
             raise RuntimeError("the reference's touched rows differ from the harness's")
     w0 = {f"emb.{k}": r.clone() for k, r in enumerate(ref.rows)}
     p0 = {n: p.detach().clone() for n, p in ref.dense.leaves().items()}
-    steps = [ref.step(i, b) for i, b in enumerate(first)]
+    steps, ref_snap = [], {}
+    for i, b in enumerate(first):
+        steps.append(ref.step(i, b))
+        if i == 0:
+            ref_snap = {"p1": {n: p.detach().clone() for n, p in ref.dense.leaves().items()},
+                        "w1": [r.clone() for r in ref.rows], "acc1": [a.clone() for a in ref.acc]}
     ref_g = steps[0]["grads"]
-    prog_g = {n: (p0[n] - snap["p1"][n]) / lr for n in p0}
-    for k in range(t):
-        dw = w0[f"emb.{k}"] - snap["w1"][k]
-        if traffic["optimizer"] == "row_adagrad":
-            dw = dw * torch.sqrt(snap["acc1"][k] + traffic["eps"])[:, None]
-        prog_g[f"emb.{k}"] = dw / lr
+    # both sides' first gradient read back from their state after one step,
+    # so that the readout's rounding, ulp(w0) / lr, falls on both alike
+    prog_g = _first_grads(p0, w0, snap, lr=lr, traffic=traffic)
+    ref_read = _first_grads(p0, w0, ref_snap, lr=lr, traffic=traffic)
     ref_d = {n: p.detach() - p0[n] for n, p in ref.dense.leaves().items()}
     ref_d.update({f"emb.{k}": r - w0[f"emb.{k}"] for k, r in enumerate(ref.rows)})
     prog_d = {n: snap["p3"][n] - p0[n] for n in p0}
@@ -210,11 +226,24 @@ def train(system, cfg, traffic, seed, seconds, device, *, trace, control, fault)
     med = statistics.median(norms.values())
     moving = [n for n, v in norms.items() if v >= 1e-3 * med]
     worst = {}
-    run.checks["grad_gap"], worst["grad_gap"] = _worst_leaf(prog_g, ref_g, list(norms))
+    run.checks["grad_gap"], worst["grad_gap"] = _worst_leaf(prog_g, ref_read, list(norms))
     run.checks["change_gap"], worst["change_gap"] = _worst_leaf(prog_d, ref_d, moving)
     run.context["worst_leaf"] = worst
     run.context["leaves_left_out"] = sorted(set(norms) - set(moving))
     yield run
+
+
+def _first_grads(p0: dict, w0: dict, snap: dict, *, lr: float, traffic: dict) -> dict:
+    """The first gradient as the optimizer got it, worked out from the state
+    after one step: (w0 - w1) / lr, on rows under row-AdaGrad times
+    sqrt(acc1 + eps)."""
+    g = {n: (p0[n] - snap["p1"][n]) / lr for n in p0}
+    for k, w1 in enumerate(snap["w1"]):
+        dw = w0[f"emb.{k}"] - w1
+        if traffic["optimizer"] == "row_adagrad":
+            dw = dw * torch.sqrt(snap["acc1"][k] + traffic["eps"])[:, None]
+        g[f"emb.{k}"] = dw / lr
+    return g
 
 
 def _worst_leaf(prog: dict, ref: dict, names) -> tuple[float, str]:
@@ -226,9 +255,10 @@ def _worst_leaf(prog: dict, ref: dict, names) -> tuple[float, str]:
     return max((abs(float(prog[n].norm()) - ref_n[n]) / max(ref_n[n], med), n) for n in names)
 
 
-def _control_readings(cfg, seed, first, traffic, device) -> dict:
+def _control_readings(dense, cfg, seed, first, traffic, device) -> dict:
     """The reference with TF32 on, read as the program's state is read."""
-    ctl = reference.Trainer(cfg, seed, first, lr=traffic["lr"], optimizer=traffic["optimizer"],
+    ctl = reference.Trainer(cfg, seed, first, dense_half=dense.DenseHalf(cfg, seed, device),
+                            lr=traffic["lr"], optimizer=traffic["optimizer"],
                             eps=traffic["eps"], device=device, tf32=True)
     snap = {"loss": []}
     for i, b in enumerate(first):

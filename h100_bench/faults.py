@@ -27,9 +27,16 @@ def plant(fault: str | None, where: str, fn, system=None):
     if fault == "half" and where == "train_step":
         def half(b):
             h = b["dense"].shape[0] // 2
-            c = b["ids"].shape[1] // b["dense"].shape[0] * h
-            return fn({"dense": b["dense"][:h], "ids": b["ids"][:, :c].contiguous(),
-                       "mask": b["mask"][:, :c].contiguous(), "labels": b["labels"][:h]})
+            out = {"dense": b["dense"][:h], "labels": b["labels"][:h]}
+            if "offsets" in b:  # the CSR wire: the first h bags of each table
+                off = b["offsets"][:, :h + 1].contiguous()
+                c = int(off[:, -1].max())
+                out.update(ids=b["ids"][:, :c].contiguous(), offsets=off)
+            else:
+                c = b["ids"].shape[1] // b["dense"].shape[0] * h
+                out.update(ids=b["ids"][:, :c].contiguous(),
+                           mask=b["mask"][:, :c].contiguous())
+            return fn(out)
         return half
     if fault == "state" and where == "train_step":
         def unchanged(b):

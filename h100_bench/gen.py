@@ -141,17 +141,46 @@ def mlp_weights(seed: int, sizes, device, which: int) -> list[tuple[torch.Tensor
     return out
 
 
-def batch(seed: int, index: int, *, table_rows_: tuple, batch_size: int, pooling: int,
-          dense_dim: int, device, stream: int = 0) -> dict:
-    """Batch ``index`` of a stream: dense [B, dense_dim] f32 in [0, 1), ids
-    [T, B*L] int32 uniform over each table's rows (bag-major), every entry
-    kept, and labels [B] f32 in {0, 1}."""
+def lengths(pooling, tables: int) -> list[int]:
+    """A traffic's ``pooling`` as one bag length a table: an int for every
+    table, or a list of one a table."""
+    if isinstance(pooling, int):
+        return [pooling] * tables
+    if len(pooling) != tables:
+        raise ValueError(f"pooling lists {len(pooling)} bag lengths for {tables} tables")
+    return list(pooling)
+
+
+def batch(seed: int, index: int, *, table_rows_: tuple, batch_size: int, pooling,
+          dense_dim: int, device, stream: int = 0, wire: str = "dense") -> dict:
+    """Batch ``index`` of a stream: dense [B, dense_dim] f32 in [0, 1), the
+    B bags of each table, of its bag length L_t (``pooling``: an int or a
+    list of one a table), ids uniform over the table's rows, and labels [B]
+    f32 in {0, 1}.
+
+    The dense wire gives ``ids`` and ``mask`` [T, B * max L] (bag-major,
+    table t's slots past its L_t masked off, their ids 0); the CSR wire
+    gives ``ids`` [T, B * max L] and ``offsets`` [T, B+1], bag b of table t
+    being ``ids[t, offsets[t, b]:offsets[t, b+1]]`` and the ids past
+    ``offsets[t, B]`` padding (0).  Both wires draw the same ids."""
     g = generator(seed, device, 4, stream, index)
     dense = torch.rand(batch_size, dense_dim, generator=g, device=device)
-    n = batch_size * pooling
-    ids = torch.stack([torch.randint(0, rows, (n,), generator=g, device=device,
-                                     dtype=torch.int64)
-                       for rows in table_rows_]).to(torch.int32)
+    lens = lengths(pooling, len(table_rows_))
+    drawn = [torch.randint(0, rows, (batch_size * n,), generator=g, device=device,
+                           dtype=torch.int64)
+             for rows, n in zip(table_rows_, lens)]
     labels = torch.randint(0, 2, (batch_size,), generator=g, device=device).float()
-    mask = torch.ones(ids.shape, dtype=torch.bool, device=device)
-    return {"dense": dense, "ids": ids, "mask": mask, "labels": labels}
+    t, width = len(lens), max(lens)
+    ids = torch.zeros(t, batch_size, width, dtype=torch.int32, device=device)
+    mask = torch.zeros(ids.shape, dtype=torch.bool, device=device)
+    if wire == "csr":
+        ids = ids.view(t, -1)
+        for k, d in enumerate(drawn):
+            ids[k, :d.numel()] = d
+        offsets = torch.stack([torch.arange(batch_size + 1, device=device) * n for n in lens])
+        return {"dense": dense, "ids": ids, "offsets": offsets.to(torch.int32),
+                "labels": labels}
+    for k, (d, n) in enumerate(zip(drawn, lens)):
+        ids[k, :, :n] = d.view(batch_size, n)
+        mask[k, :, :n] = True
+    return {"dense": dense, "ids": ids.view(t, -1), "mask": mask.view(t, -1), "labels": labels}

@@ -4,8 +4,11 @@ A cell (an entry of ``workloads``) names a configuration, found in
 ``configs/<config>.json``, and a traffic mix, found in
 ``traffic/<traffic>.json``; the limits of its check are in
 ``workloads/<cell>.json``.  A per-layer metric is read by
-``metrics/<metric>.py``.  A new cell, configuration, mix or metric is a new
-file and an entry in ``BENCHMARK.json``: nothing here changes.
+``metrics/<metric>.py``.  A configuration's model family is named by its
+``interaction``: ``dense/<interaction>.py`` holds the reference's dense half
+and the keys the family adds, ``systems/<interaction>.py`` the port's model.
+A new cell, configuration, family, mix or metric is a new file and an entry
+in ``BENCHMARK.json``: nothing here changes.
 """
 
 from __future__ import annotations
@@ -20,18 +23,23 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
+FAMILY = re.compile(r"^[a-z][a-z0-9_]{0,63}$")
+
+
 # Every key a configuration or a traffic mix may hold, with the values the
 # harness implements: a tuple of the values it takes, or the type of a free
 # value.  A file with any other key or value is refused, so that no cell
-# reports what it declares and does not run.
+# reports what it declares and does not run.  A configuration holds these
+# and the ``CONFIG_KEYS`` of its family's ``dense/<interaction>.py``.
 CONFIG_KEYS = {
     "name": str, "source": str, "tables": list, "dim": int, "dtype": ("float32",),
-    "dense_dim": int, "mlp_bot": list, "mlp_top": list, "interaction": ("dot",),
+    "dense_dim": int, "interaction": str,
     "collection": ("hybrid",), "small_set_max_rows": int, "sharding": ("replicate",),
     "mesh": ({"data": 1, "model": 1},), "reduced": list, "assumed": dict,
 }
-_BATCHES = {"batch_size": int, "pooling": int, "pool_batches": int, "in_flight": int,
-            "ids": ("uniform",), "wire": ("dense",), "trace_seconds": (int, float),
+# ``pooling``: one bag length for every table, or a list of one a table
+_BATCHES = {"batch_size": int, "pooling": (int, list), "pool_batches": int, "in_flight": int,
+            "ids": ("uniform",), "wire": ("dense", "csr"), "trace_seconds": (int, float),
             "about": str}
 TRAFFIC_KEYS = {
     "score": {"entry": ("score",), **_BATCHES},
@@ -79,15 +87,47 @@ class Manifest:
         return self._named("workloads", name)
 
     def config(self, cell: dict) -> dict:
+        what = f"configuration {cell['config']}"
         data = json.loads(self._file("configs", cell["config"], ".json").read_text())
-        return check_keys(f"configuration {cell['config']}", data, CONFIG_KEYS)
+        family = self._family("dense", what, data.get("interaction"))
+        return check_keys(what, data, {**CONFIG_KEYS, **family.CONFIG_KEYS})
+
+    def dense(self, cfg: dict):
+        """The module ``dense/<interaction>.py``: the reference's dense half
+        of the configuration's family."""
+        return self._family("dense", f"configuration {cfg['name']}", cfg["interaction"])
+
+    def system(self, cfg: dict):
+        """The module ``systems/<interaction>.py``: the port's model of the
+        configuration's family."""
+        return self._family("systems", f"configuration {cfg['name']}", cfg["interaction"])
+
+    def _family(self, folder: str, what: str, value):
+        """A family's module; a family is implemented where both of its
+        files exist."""
+        ok = isinstance(value, str) and FAMILY.match(value)
+        if not ok or not all((self.here / f / f"{value}.py").is_file()
+                             for f in ("dense", "systems")):
+            raise ValueError(f"{what}: interaction = {value!r} is not implemented "
+                             f"(no dense/<it>.py and systems/<it>.py)")
+        return _load(f"h100_bench.{folder}.{value}", self.here / folder / f"{value}.py")
 
     def traffic(self, cell: dict) -> dict:
+        what = f"traffic {cell['traffic']}"
         data = json.loads(self._file("traffic", cell["traffic"], ".json").read_text())
         keys = TRAFFIC_KEYS.get(data.get("entry"))
         if keys is None:
-            raise ValueError(f"traffic {cell['traffic']}: no entry {data.get('entry')!r}")
-        return check_keys(f"traffic {cell['traffic']}", data, keys)
+            raise ValueError(f"{what}: no entry {data.get('entry')!r}")
+        check_keys(what, data, keys)
+        pooling = data["pooling"]
+        tables = len(json.loads(self._file("configs", cell["config"], ".json").read_text())
+                     ["tables"])
+        lengths = pooling if isinstance(pooling, list) else [pooling] * tables
+        if len(lengths) != tables or not all(
+                isinstance(n, int) and not isinstance(n, bool) and n >= 1 for n in lengths):
+            raise ValueError(f"{what}: pooling = {pooling!r} is neither a bag length >= 1 "
+                             f"nor a list of one for each of the {tables} tables")
+        return data
 
     def limits(self, cell: dict) -> dict:
         path = self._file("workloads", cell["name"], ".json")
@@ -108,9 +148,12 @@ class Manifest:
     def reader(self, metric: str):
         """The module ``metrics/<metric>.py``: its ``read(run)`` gives the
         metric's value, or None where the run holds nothing to read."""
-        path = self._file("metrics", metric, ".py")
-        spec = importlib.util.spec_from_file_location(
-            "h100_bench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+        return _load("h100_bench_metric_" + metric.replace(".", "_").replace("-", "_"),
+                     self._file("metrics", metric, ".py"))
+
+
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -1,5 +1,6 @@
-"""Device ms a batch of the kernels launched inside the harness's
-``dense_half`` span: ``DLRM.apply_from_pooled`` (``models/dlrm.py``)."""
+"""Device ms a batch of the activities launched inside the port's
+``pel.forward`` span less those inside its ``pel.lookup``: the dense half,
+``DLRM.apply_from_pooled`` (``models/dlrm.py``)."""
 
 from h100_bench import readers
 
@@ -7,4 +8,4 @@ UNIT = "ms"
 
 
 def read(run):
-    return readers.span_device_ms(run, "dense_half")
+    return readers.span_device_ms(run, "pel.forward", less="pel.lookup")

@@ -1,5 +1,6 @@
-"""Device ms a batch of the kernels launched inside the harness's ``lookup``
-span: the embedding collection (``parallel/hybrid.py``, ``parallel/collection.py``)."""
+"""Device ms a batch of the activities launched inside the port's
+``pel.lookup`` span: the embedding collection, both sets
+(``parallel/hybrid.py`` ``HybridEmbeddingCollection.lookup``)."""
 
 from h100_bench import readers
 
@@ -7,4 +8,4 @@ UNIT = "ms"
 
 
 def read(run):
-    return readers.span_device_ms(run, "lookup")
+    return readers.span_device_ms(run, "pel.lookup")

@@ -15,15 +15,19 @@ def traced(run):
     return run.trace if on_card(run) and run.trace is not None else None
 
 
-def span_device_ms(run, span: str):
-    """Device ms of the activities launched inside ``span``, per span."""
+def span_device_ms(run, span: str, less: str | None = None):
+    """Device ms of the activities launched inside ``span``, per span;
+    with ``less``, those launched inside the span ``less`` (one nested in
+    ``span``) left out."""
     tr = traced(run)
-    if tr is None or not tr.count(span):
+    if tr is None or not tr.count(span) or (less is not None and not tr.count(less)):
         return None
     acts = tr.device_in(span)
-    if not acts:
+    inner = tr.device_in(less) if less is not None else []
+    if len(acts) <= len(inner):
         return None
-    return sum(e - s for _, s, e in acts) / tr.count(span) * 1e3
+    seconds = sum(e - s for _, s, e in acts) - sum(e - s for _, s, e in inner)
+    return seconds / tr.count(span) * 1e3
 
 
 def idle_share(run):
@@ -44,8 +48,9 @@ def mfu(run):
 
 
 def roofline(run, kernel: str, bytes_key: str):
-    """Per cent of the HBM bound: the bytes the kernel must move over the
-    card's bandwidth, over its summed time in the trace."""
+    """Per cent of the HBM bound: the bytes the kernel's launches must move
+    over the card's bandwidth, over the summed time of every activity whose
+    name holds ``kernel`` in the trace."""
     tr = traced(run)
     moved = run.context.get(bytes_key)
     if tr is None or not moved:

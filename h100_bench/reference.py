@@ -2,7 +2,8 @@
 row-wise AdaGrad steps, made from the seed alone.
 
 Embedding bags pool by a gather and a sum over rows that ``gen`` makes
-again from (seed, table, row); the MLPs and the dot interaction run in f32
+again from (seed, table, row), on either wire and at any bag length a
+table; the dense half is the family's (``dense/<interaction>.py``), in f32
 with TF32 off, unless ``tf32`` asks for the control's lower precision.
 
 It imports nothing of the program and takes none of its tensors: its
@@ -42,78 +43,71 @@ def mlp(layers, x, *, last_linear: bool):
     return x
 
 
-def interact(bot: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
-    """[B, D] and [B, T, D] -> [B, D + npairs]: the dense vector, then the
-    dots of each pair of the 1+T features below the diagonal, row by row."""
-    z = torch.cat([bot[:, None, :], pooled], dim=1)
-    nf = z.shape[1]
-    li, lj = torch.tril_indices(nf, nf, -1, device=z.device)
-    dots = (z[:, li, :] * z[:, lj, :]).sum(-1)
-    return torch.cat([bot, dots], dim=1)
+def bags(b: dict, k: int, batch_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each entry's bag in table ``k`` of batch ``b``, and whether it is
+    kept: [C] int64 and [C] bool.  The dense wire's entries are bag-major,
+    C / B slots a bag, kept by the mask; the CSR wire's entry p is in the
+    bag b with offsets[k, b] <= p < offsets[k, b+1], and kept below
+    offsets[k, B]."""
+    c = b["ids"].shape[1]
+    pos = torch.arange(c, device=b["ids"].device)
+    if "offsets" not in b:
+        return pos // (c // batch_size), b["mask"][k]
+    off = b["offsets"][k].long()
+    bag = torch.searchsorted(off, pos, right=True) - 1
+    return bag.clamp(max=batch_size - 1), pos < off[-1]
 
 
-def pooled(cfg: dict, seed: int, ids: torch.Tensor, mask: torch.Tensor,
-           batch_size: int) -> torch.Tensor:
-    """[T, B*L] ids and mask -> [B, T, D] f32 bag sums."""
-    t, c = ids.shape
-    d = cfg["dim"]
-    out = torch.zeros(batch_size, t, d, dtype=torch.float32, device=ids.device)
-    pooling = c // batch_size
-    step = max(pooling, IDS_A_BLOCK // pooling * pooling)
+def sum_bags(out: torch.Tensor, rows: torch.Tensor, bag: torch.Tensor, b: dict,
+             lo: int = 0) -> None:
+    """Sums ``rows`` [N, D], the rows of a table's entries lo .. lo+N (the
+    kept ones; zeros for the others), into their bags' rows of ``out`` [B,
+    D], zeros before the first block.  On the dense wire a block holds
+    whole bags, each summed along its slots."""
+    if "offsets" in b:
+        out.index_add_(0, bag[lo:lo + rows.shape[0]], rows)
+        return
+    width = b["ids"].shape[1] // out.shape[0]
+    n = rows.shape[0] // width
+    out[lo // width:lo // width + n] = rows.view(n, width, rows.shape[1]).sum(1)
+
+
+def pooled(cfg: dict, seed: int, b: dict, batch_size: int) -> torch.Tensor:
+    """Batch ``b``'s [B, T, D] f32 bag sums."""
+    t, c = b["ids"].shape
+    out = torch.zeros(batch_size, t, cfg["dim"], dtype=torch.float32, device=b["ids"].device)
+    width = c // batch_size
+    step = max(width, IDS_A_BLOCK // width * width)
     for k in range(t):
+        bag, keep = bags(b, k, batch_size)
         for lo in range(0, c, step):
-            part = gen.table_rows(seed, cfg, k, ids[k, lo:lo + step].long())
-            part = part * mask[k, lo:lo + step, None]
-            bags = part.shape[0] // pooling
-            out[lo // pooling:lo // pooling + bags, k] = part.view(bags, pooling, d).sum(1)
+            part = gen.table_rows(seed, cfg, k, b["ids"][k, lo:lo + step].long())
+            sum_bags(out[:, k], part * keep[lo:lo + step, None], bag, b, lo)
     return out
 
 
-class DenseHalf:
-    """The bottom and top MLPs from the seed, as tensors of their own."""
-
-    def __init__(self, cfg: dict, seed: int, device):
-        self.bot = gen.mlp_weights(seed, [cfg["dense_dim"], *cfg["mlp_bot"]], device, 0)
-        self.top = gen.mlp_weights(seed, [top_in(cfg), *cfg["mlp_top"]], device, 1)
-
-    def leaves(self) -> dict:
-        out = {}
-        for side in ("bot", "top"):
-            for i, (w, b) in enumerate(getattr(self, side)):
-                out[f"{side}.{i}.weight"], out[f"{side}.{i}.bias"] = w, b
-        return out
-
-    def logits(self, dense: torch.Tensor, pooled_: torch.Tensor) -> torch.Tensor:
-        z = interact(mlp(self.bot, dense, last_linear=False), pooled_)
-        return mlp(self.top, z, last_linear=True)[:, 0]
-
-
-def top_in(cfg: dict) -> int:
-    nf = len(cfg["tables"]) + 1
-    return cfg["dim"] + nf * (nf - 1) // 2
-
-
-def probabilities(cfg: dict, seed: int, dense_half: DenseHalf, b: dict, *,
+def probabilities(cfg: dict, seed: int, dense_half, b: dict, *,
                   tf32: bool = False) -> torch.Tensor:
-    """Click probabilities [B] of one batch."""
+    """Click probabilities [B] of one batch, through ``dense_half`` (the
+    family's ``DenseHalf``)."""
     with torch.no_grad(), precision(tf32):
-        p = pooled(cfg, seed, b["ids"], b["mask"], b["dense"].shape[0])
+        p = pooled(cfg, seed, b, b["dense"].shape[0])
         return torch.sigmoid(dense_half.logits(b["dense"], p))
 
 
 class Trainer:
     """Sparse train steps from the seed over the rows that ``batches``
-    touch: each table held as its touched rows alone, the MLPs whole; SGD
-    on the MLPs, SGD or row-wise AdaGrad on the rows, as the traffic
-    states.  Row AdaGrad adds every entry's mean_d(g^2) to its row's
-    accumulator, then steps the row by -lr * rsqrt(acc + eps) * (sum of its
-    entries' g)."""
+    touch: each table held as its touched rows alone, the dense half
+    (``dense_half``, the family's ``DenseHalf``) whole; SGD on its leaves,
+    SGD or row-wise AdaGrad on the rows, as the traffic states.  Row
+    AdaGrad adds every kept entry's mean_d(g^2) to its row's accumulator,
+    then steps the row by -lr * rsqrt(acc + eps) * (sum of its entries' g)."""
 
-    def __init__(self, cfg: dict, seed: int, batches: list[dict], *, lr: float,
+    def __init__(self, cfg: dict, seed: int, batches: list[dict], *, dense_half, lr: float,
                  optimizer: str, eps: float, device, tf32: bool = False):
         self.cfg, self.seed, self.lr, self.eps, self.tf32 = cfg, seed, lr, eps, tf32
         self.optimizer = optimizer
-        self.dense = DenseHalf(cfg, seed, device)
+        self.dense = dense_half
         for w in self.dense.leaves().values():
             w.requires_grad_(True)
         t = len(cfg["tables"])
@@ -129,15 +123,14 @@ class Trainer:
     def step(self, i: int, b: dict) -> dict:
         """Step over batch ``i`` of the constructor's list; returns its loss
         and each leaf's gradient (a table's on its touched rows)."""
-        cfg, d = self.cfg, self.cfg["dim"]
+        d = self.cfg["dim"]
         bsz = b["dense"].shape[0]
-        t, c = b["ids"].shape
-        pooling = c // bsz
+        t = b["ids"].shape[0]
+        entries = [bags(b, k, bsz) for k in range(t)]
         with torch.no_grad():
             pl = torch.zeros(bsz, t, d, device=b["dense"].device)
-            for k in range(t):
-                r = self.rows[k][self.inv[k][i]]
-                pl[:, k] = (r * b["mask"][k, :, None]).view(bsz, pooling, d).sum(1)
+            for k, (bag, keep) in enumerate(entries):
+                sum_bags(pl[:, k], self.rows[k][self.inv[k][i]] * keep[:, None], bag, b)
         pl.requires_grad_(True)
         leaves = self.dense.leaves()
         with precision(self.tf32):
@@ -150,10 +143,9 @@ class Trainer:
                 out["grads"][name] = g.clone()
                 w -= self.lr * g
             g_pooled = grads[-1]
-            for k in range(t):
+            for k, (bag, keep) in enumerate(entries):
                 inv = self.inv[k][i]
-                g_e = g_pooled[:, k, None, :].expand(bsz, pooling, d).reshape(c, d)
-                g_e = g_e * b["mask"][k, :, None]
+                g_e = g_pooled[:, k][bag] * keep[:, None]
                 g_row = torch.zeros_like(self.rows[k]).index_add_(0, inv, g_e)
                 out["grads"][f"emb.{k}"] = g_row
                 if self.optimizer == "row_adagrad":

@@ -2,9 +2,9 @@
 
     python3 h100_bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Runs one cell of ``BENCHMARK.json``: builds the port's DLRM from the cell's
-configuration with weights made from the seed, warms up every shape the
-cell's traffic uses, drives the cell's entry (``score`` or ``train``) for
+Runs one cell of ``BENCHMARK.json``: builds the port's model of the cell's
+configuration (``systems/<interaction>.py``) with weights made from the
+seed, warms up every shape the cell's traffic uses, drives the cell's entry (``score`` or ``train``) for
 ``--seconds``, then checks what the timed path produced
 against the plain reference.  With ``--trace 0`` the result holds the
 cell's end-to-end metrics; with ``--trace 1`` a traced segment follows the
@@ -93,12 +93,12 @@ def main(argv=None) -> int:
         torch.cuda.set_device(device)
         torch.cuda.reset_peak_memory_stats(device)
     from h100_bench import entries
-    from h100_bench.system import PortSystem
 
-    system = _Absent() if args.control else PortSystem(cfg, args.seed, device)
+    system = (_Absent() if args.control
+              else man.system(cfg).PortSystem(cfg, args.seed, device))
     kw = dict(trace=bool(args.trace), control=args.control is not None, fault=args.fault)
-    steps = entries.ENTRIES[traffic["entry"]](system, cfg, traffic, args.seed, args.seconds,
-                                             device, **kw)
+    steps = entries.ENTRIES[traffic["entry"]](system, man.dense(cfg), cfg, traffic, args.seed,
+                                             args.seconds, device, **kw)
     next(steps)
     setup_s = time.time() - START
     next(steps)

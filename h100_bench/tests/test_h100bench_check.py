@@ -1,10 +1,14 @@
-"""The check: the plain reference against the port's CPU path, each fault
-the check has to catch caught, and the yardstick's counts by hand."""
+"""The check: the plain reference against the port's CPU path on both
+wires and at a bag length a table, each fault the check has to catch
+caught, the inputs made from the seed as before, the yardstick's counts and
+the per-layer readers by hand."""
 
 from __future__ import annotations
 
+import hashlib
 import statistics
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -15,28 +19,100 @@ sys.path.insert(0, str(HERE))
 import toy  # noqa: E402
 
 sys.path.insert(0, str(toy.REPO))
-from h100_bench import gen, reference, yardstick  # noqa: E402
+from h100_bench import gen, readers, reference, yardstick  # noqa: E402
+from h100_bench.dense import dot  # noqa: E402
+from h100_bench.manifest import Manifest  # noqa: E402
+from h100_bench.tracing import Trace  # noqa: E402
 
 CPU = torch.device("cpu")
 
 
 def _system(cfg, seed):
-    from h100_bench.system import PortSystem
+    from h100_bench.systems.dot import PortSystem
 
     return PortSystem(cfg, seed, CPU)
 
 
-@pytest.mark.parametrize("pooling", [1, 3])
-def test_reference_against_port(pooling):
+def _batch(cfg, seed, i, pooling, wire="dense", batch_size=40, stream=0):
+    return gen.batch(seed, i, table_rows_=tuple(cfg["tables"]), batch_size=batch_size,
+                     pooling=pooling, dense_dim=cfg["dense_dim"], device=CPU, stream=stream,
+                     wire=wire)
+
+
+@pytest.mark.parametrize("pooling,wire", [(1, "dense"), (3, "dense"), ([2, 1, 4, 3], "dense"),
+                                          ([2, 1, 4, 3], "csr"), (3, "csr")])
+def test_reference_against_port(pooling, wire):
     cfg, seed = toy.TOY, 11
     s = _system(cfg, seed)
-    dh = reference.DenseHalf(cfg, seed, CPU)
+    dh = dot.DenseHalf(cfg, seed, CPU)
     for i in range(3):
-        b = gen.batch(seed, i, table_rows_=tuple(cfg["tables"]), batch_size=40, pooling=pooling,
-                      dense_dim=cfg["dense_dim"], device=CPU)
+        b = _batch(cfg, seed, i, pooling, wire)
         got = s.predict(b)
         want = reference.probabilities(cfg, seed, dh, b)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+# sha256 of dense, ids, mask and labels of gen.batch(seed, index, stream=...)
+# as the harness made them before a bag length a table and the CSR wire
+# came in (int pooling, dense wire): (seed, index, stream, rows, B, L, dense_dim)
+PARENT_BATCHES = [
+    ((7, 0, 0, (50, 20000, 300, 9000), 64, 1, 4),
+     "624f4a59ca5ead7e372d1ac450486310ea5aed483214904c51ca60a6cb26e17d"),
+    ((2**33 + 5, 2, 1, (50, 20000, 300, 9000), 32, 3, 4),
+     "9a79706de97f71a29799f59e12783059aa18aa6a20c51da21387ce7f599c6373"),
+    ((3000000019, 1, 0, (10, 1000, 8192, 500000), 16, 120, 13),
+     "fa270a4ea93e78218c3037e8b2f8c231eed490963e398e45a9f7059122e0e7a7"),
+]
+
+
+def _digest(b):
+    h = hashlib.sha256()
+    for k in ("dense", "ids", "mask", "labels"):
+        h.update(k.encode())
+        h.update(b[k].contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("args,want", PARENT_BATCHES, ids=["l1", "l3-stream1", "l120"])
+def test_int_pooling_batches_as_before(args, want):
+    seed, index, stream, rows, bsz, pooling, dd = args
+    kw = dict(table_rows_=rows, batch_size=bsz, dense_dim=dd, device=CPU, stream=stream)
+    b = gen.batch(seed, index, pooling=pooling, **kw)
+    assert b["ids"].dtype == torch.int32 and b["mask"].all()
+    assert _digest(b) == want
+    # a list of one equal length a table is the same batch
+    same = gen.batch(seed, index, pooling=[pooling] * len(rows), **kw)
+    assert all(torch.equal(b[k], same[k]) for k in b)
+
+
+def test_equal_lengths_pool_alike_on_both_wires():
+    cfg, seed = toy.TOY, 2**31 + 7
+    t = len(cfg["tables"])
+    want = reference.pooled(cfg, seed, _batch(cfg, seed, 1, 3), 40)
+    for pooling, wire in (([3] * t, "dense"), (3, "csr"), ([3] * t, "csr")):
+        got = reference.pooled(cfg, seed, _batch(cfg, seed, 1, pooling, wire), 40)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_bag_lengths_by_table():
+    """Table t's bags hold L_t ids on either wire, the same ids on both; on
+    the dense wire the slots past L_t are masked off."""
+    cfg, lengths, bsz = toy.TOY, [2, 1, 4, 3], 5
+    dense = _batch(cfg, 9, 0, lengths, batch_size=bsz)
+    csr = _batch(cfg, 9, 0, lengths, "csr", batch_size=bsz)
+    assert dense["ids"].shape == csr["ids"].shape == (4, bsz * 4)
+    assert torch.equal(dense["dense"], csr["dense"]) and torch.equal(dense["labels"],
+                                                                     csr["labels"])
+    for k, n in enumerate(lengths):
+        assert torch.equal(csr["offsets"][k], torch.arange(bsz + 1, dtype=torch.int32) * n)
+        slots = dense["mask"][k].view(bsz, 4)
+        assert slots[:, :n].all() and not slots[:, n:].any()
+        assert torch.equal(dense["ids"][k].view(bsz, 4)[:, :n].reshape(-1),
+                           csr["ids"][k, :bsz * n])
+        assert not csr["ids"][k, bsz * n:].any()
+        assert int(csr["ids"][k].max()) < cfg["tables"][k]
+    with pytest.raises(ValueError, match="bag lengths"):
+        _batch(cfg, 9, 0, [1, 2])
 
 
 def test_port_storage_holds_the_generated_rows():
@@ -48,19 +124,21 @@ def test_port_storage_holds_the_generated_rows():
                                    rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("wire", ["dense", "csr"])
 @pytest.mark.parametrize("optimizer", ["sgd", "row_adagrad"])
 @pytest.mark.parametrize("cfg,steps", [(toy.TOY, 1), (toy.TOY_BIG, 2)],
                          ids=["small-set-first-step", "no-small-set"])
-def test_trainer_against_port_step(optimizer, cfg, steps):
+def test_trainer_against_port_step(optimizer, cfg, steps, wire):
     """The first step over bf16-valued small tables, and later steps
     without a small set, whose rows the port pools in f32 as the reference
     does."""
     seed = 7
     s = _system(cfg, seed)
-    s.make_train({"optimizer": optimizer, "lr": 0.1, "eps": 1e-8})
-    bs = [gen.batch(seed, i, table_rows_=tuple(cfg["tables"]), batch_size=32, pooling=2,
-                    dense_dim=cfg["dense_dim"], device=CPU, stream=1) for i in range(steps)]
-    ref = reference.Trainer(cfg, seed, bs, lr=0.1, optimizer=optimizer, eps=1e-8, device=CPU)
+    s.make_train({"optimizer": optimizer, "lr": 0.1, "eps": 1e-8, "wire": wire})
+    pooling = [2, 1, 3, 2][:len(cfg["tables"])] if wire == "csr" else 2
+    bs = [_batch(cfg, seed, i, pooling, wire, batch_size=32, stream=1) for i in range(steps)]
+    ref = reference.Trainer(cfg, seed, bs, dense_half=dot.DenseHalf(cfg, seed, CPU), lr=0.1,
+                            optimizer=optimizer, eps=1e-8, device=CPU)
     for i, b in enumerate(bs):
         loss = float(s.train_step(b))
         assert loss == pytest.approx(ref.step(i, b)["loss"], rel=1e-6)
@@ -118,9 +196,11 @@ def test_flop_model_by_hand():
     bot = 13 * 512 + 512 * 256 + 256 * 64 + 64 * 16
     pairs = 27 * 26 // 2
     top = (16 + pairs) * 512 + 512 * 256 + 256
-    assert yardstick.forward_flops_per_sample(cfg, 1) == 2 * (bot + pairs * 16 + top)
-    assert (yardstick.forward_flops_per_sample(cfg, 5)
-            == 2 * (bot + pairs * 16 + top) + 26 * 4 * 16)
+    assert dot.flops_per_sample(cfg, [1] * 26) == 2 * (bot + pairs * 16 + top)
+    assert dot.flops_per_sample(cfg, [5] * 26) == 2 * (bot + pairs * 16 + top) + 26 * 4 * 16
+    lengths = [1, 3] * 13
+    assert (dot.flops_per_sample(cfg, lengths)
+            == 2 * (bot + pairs * 16 + top) + 13 * 2 * 16)
 
 
 def test_spread():
@@ -130,9 +210,10 @@ def test_spread():
 
 
 @pytest.mark.parametrize("traffic,fault", [
-    ("toy-score", "answer"), ("toy-score-l4", "answer"),
+    ("toy-score", "answer"), ("toy-score-l4", "answer"), ("toy-score-csr", "answer"),
     ("toy-train", "half"), ("toy-train", "state"),
-    ("toy-train-sgd", "half"), ("toy-train-sgd", "state")])
+    ("toy-train-sgd", "half"), ("toy-train-sgd", "state"),
+    ("toy-train-csr", "half"), ("toy-train-csr", "state")])
 def test_fault_caught(tmp_path, traffic, fault):
     """A run with the timed path broken underneath, the look for a card
     skipped: ``correct`` comes out false."""
@@ -141,3 +222,84 @@ def test_fault_caught(tmp_path, traffic, fault):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert result["correct"] is False
     assert any(c["value"] > c["limit"] for c in result["checks"].values())
+
+
+# -- the per-layer readers by hand ----------------------------------------------
+
+
+def _span(name, lo, hi):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "ts": lo, "dur": hi - lo}
+
+
+def _activities(launches):
+    """A runtime launch at host time ``t`` and its device activity ``name``
+    of ``dur`` microseconds, tied by a correlation id."""
+    out = []
+    for corr, (t, dur, name) in enumerate(launches, start=1):
+        out.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": t,
+                    "dur": 2, "args": {"correlation": corr}})
+        out.append({"ph": "X", "cat": "kernel", "name": name, "ts": 5000 + 100 * corr,
+                    "dur": dur, "args": {"correlation": corr}})
+    return out
+
+
+# two forward calls: the lookup launches the small set's K1 (30, 40 us), a
+# fill (5) and the big set's K1 (10, 12); the dense half 20 + 7 and 25 us;
+# one kernel outside the calls
+SCORE_EVENTS = [
+    _span("window", 0, 1000),
+    _span("pel.forward", 100, 200), _span("pel.lookup", 110, 170),
+    _span("pel.forward", 500, 640), _span("pel.lookup", 510, 600),
+    *_activities([(120, 30, "fixedl_pool_kernel<float, 16, 4, true>"), (130, 5, "fill"),
+                  (150, 10, "fixedl_pool_kernel<float, 16, 4, false>"), (180, 20, "gemm"),
+                  (190, 7, "relu"), (520, 40, "fixedl_pool_kernel<float, 16, 4, true>"),
+                  (575, 12, "fixedl_pool_kernel<float, 16, 4, false>"), (610, 25, "gemm"),
+                  (700, 50, "other")]),
+]
+READINGS = [
+    ("lookup_ms.score", (30 + 5 + 10 + 40 + 12) / 2 * 1e-3),
+    ("lookup_ms.longbag", (30 + 5 + 10 + 40 + 12) / 2 * 1e-3),
+    ("dense_half_ms.score", (20 + 7 + 25) / 2 * 1e-3),
+    ("dense_half_ms.longbag", (20 + 7 + 25) / 2 * 1e-3),
+    # 3.35e6 bytes in both calls: 1 us at the HBM peak, over K1's 92 us
+    ("pool_roofline.score", 1.0 / 92 * 100),
+    ("pool_roofline.longbag", 1.0 / 92 * 100),
+]
+
+
+@pytest.mark.parametrize("metric,want", READINGS, ids=[r[0] for r in READINGS])
+def test_reader_by_hand(metric, want):
+    """Each reader on a made-up on-card trace; None off the card, and None
+    on a trace without the port's spans or K1."""
+    reader = Manifest(toy.REPO).reader(metric)
+
+    def run(events, platform="gpu"):
+        return types.SimpleNamespace(context={"platform": platform, "pool_bytes": 3.35e6},
+                                     trace=Trace(events))
+
+    assert reader.read(run(SCORE_EVENTS)) == pytest.approx(want, rel=1e-9)
+    assert reader.read(run(SCORE_EVENTS, "cpu")) is None
+    bare = [e for e in SCORE_EVENTS
+            if not e["name"].startswith(("pel.", "fixedl"))]
+    assert reader.read(run(bare)) is None
+
+
+def test_dense_half_needs_the_lookup_span():
+    """Without ``pel.lookup`` in the trace the dense half is not read as
+    the whole forward."""
+    no_lookup = [e for e in SCORE_EVENTS if e["name"] != "pel.lookup"]
+    run = types.SimpleNamespace(context={"platform": "gpu"}, trace=Trace(no_lookup))
+    assert readers.span_device_ms(run, "pel.forward") == pytest.approx(149 / 2 * 1e-3)
+    assert readers.span_device_ms(run, "pel.forward", less="pel.lookup") is None
+
+
+def test_pool_bytes_cover_both_sets():
+    """``pool_roofline.score``'s bytes: every table of a batch, the small
+    set's and the big set's, as the yardstick counts one pool launch."""
+    from h100_bench import entries
+
+    cfg = toy.TOY
+    b = _batch(cfg, 4, 0, [2, 1, 3, 1], batch_size=8)
+    want = sum(yardstick.pool_bytes(b["ids"][k:k + 1], b["mask"][k:k + 1], cfg["dim"])
+               for k in range(4)) + yardstick.pool_out_bytes(4, 8, cfg["dim"])
+    assert entries._pool_bytes(cfg, b) == want

@@ -1,9 +1,10 @@
 """What the harness loads: never JAX or the JAX package (compared by whole
 top-level name, since the port's name begins with the JAX package's), and
-in the reference nothing of the port."""
+nothing of the port outside ``systems/``."""
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import shutil
@@ -15,7 +16,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[2]
 YARDSTICK = ["gen", "reference", "yardstick", "tracing", "manifest", "readers",
-             "faults"]
+             "faults", "spans", "dense.dot"]
+PORT = "pim_embedding_lookup_tpu_torch"
+JAX = {"jax", "jaxlib", "flax", "pim_embedding_lookup_tpu"}
 
 
 def _loaded(code: str) -> set[str]:
@@ -32,11 +35,34 @@ def test_yardstick_loads_nothing_of_the_program():
 
 
 def test_harness_loads_the_port_and_no_jax():
-    top = _loaded("import h100_bench.system, h100_bench.entries\n"
+    top = _loaded("import h100_bench.systems.dot, h100_bench.entries\n"
                   "from h100_bench import run\n"
                   "assert not run.forbidden_modules()")
     assert "pim_embedding_lookup_tpu_torch" in top
     assert not top & {"jax", "jaxlib", "flax", "pim_embedding_lookup_tpu"}
+
+
+def _imported(path: Path) -> set[str]:
+    """Top-level names of the modules a source file imports."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+def test_only_systems_import_the_program():
+    """No module of the benchmark outside ``systems/`` and ``tests/``
+    imports the port, and none imports JAX."""
+    bench = REPO / "h100_bench"
+    for path in bench.rglob("*.py"):
+        part = path.relative_to(bench).parts[0]
+        names = _imported(path)
+        assert not names & JAX, path
+        if part not in ("systems", "tests"):
+            assert PORT not in names, path
 
 
 def test_forbidden_names_compared_whole():

@@ -1,10 +1,13 @@
 """BENCHMARK.json against the contract's limits, every file it names found
-by name, and a cell added as data files alone run end to end on the CPU."""
+by name, a cell added as data files alone and a model family added as files
+alone run end to end on the CPU, and what the harness does not implement
+refused."""
 
 from __future__ import annotations
 
 import json
 import re
+import shutil
 import sys
 from pathlib import Path
 
@@ -125,8 +128,10 @@ def test_traced_run(tmp_path, traffic):
     assert result["metrics"] == {}
 
 
-@pytest.mark.parametrize("key,value", [("ids", "zipf"), ("wire", "csr"), ("hot_rows", 64),
-                                       ("batch_size", 8.5), ("optimizer", "adam")])
+@pytest.mark.parametrize("key,value", [("ids", "zipf"), ("wire", "grpc"), ("hot_rows", 64),
+                                       ("batch_size", 8.5), ("optimizer", "adam"),
+                                       ("pooling", 0), ("pooling", [1, 2]),
+                                       ("pooling", [1, 0, 2]), ("pooling", 2.0)])
 def test_traffic_the_harness_does_not_implement_is_refused(tmp_path, key, value):
     """A mix that declares ids, a wire or a key the generator does not
     implement is refused before anything runs, never run as something else."""
@@ -171,3 +176,95 @@ def test_qualified_end_to_end_metric_reads_its_quantity(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert result["metrics"]["score_samples_per_s.toy"]["value"] > 0
     assert "score_samples_per_s" not in result["metrics"]
+
+
+# the check's numbers of the toy cells at seed 3 on the CPU (one thread), as
+# the harness read them before a second family, a bag length a table and
+# the CSR wire came in; grad_gap as read since the reference's first
+# gradient is read back from its state as the program's is
+TOY_READINGS = {
+    "toy-score": {"prob_err": 0.0},
+    "toy-score-l4": {"prob_err": 0.0},
+    "toy-train": {"loss_gap": 1.59177409351052e-07, "grad_gap": 4.5366517912878865e-07,
+                  "change_gap": 2.9802337145128673e-07},
+    "toy-train-sgd": {"loss_gap": 0.0, "grad_gap": 9.654934942344977e-09,
+                      "change_gap": 8.839979834238003e-08},
+}
+
+
+@pytest.mark.parametrize("traffic", list(TOY_READINGS))
+def test_toy_cells_read_as_before(tmp_path, traffic):
+    root = toy.make(tmp_path, (traffic,))
+    result, proc = toy.run(root, f"{traffic}-cell")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert {k: c["value"] for k, c in result["checks"].items()} == TOY_READINGS[traffic]
+
+
+NEW_MIXES = ["toy-score-lists", "toy-score-csr", "toy-train-lists", "toy-train-csr"]
+
+
+@pytest.mark.parametrize("traffic", NEW_MIXES)
+def test_family_added_as_files_alone(tmp_path, traffic):
+    """A second interaction (``tests/toy_family``: ``dense/toycat.py`` and
+    ``systems/toycat.py`` copied in, no file of the harness edited) runs
+    score and train cells on both wires at a bag length a table, and is
+    correct."""
+    root = toy.make(tmp_path, (traffic,), family="toycat")
+    result, proc = toy.run(root, f"{traffic}-cell")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert result["correct"] is True, result
+    assert result["attempted"] > 0 and result["failed"] == 0
+
+
+@pytest.mark.parametrize("traffic,fault", [
+    ("toy-score-lists", "answer"), ("toy-score-csr", "answer"),
+    ("toy-train-lists", "half"), ("toy-train-csr", "half"),
+    ("toy-train-lists", "state"), ("toy-train-csr", "state")])
+def test_family_added_as_files_alone_catches_faults(tmp_path, traffic, fault):
+    root = toy.make(tmp_path, (traffic,), family="toycat")
+    result, proc = toy.run(root, f"{traffic}-cell", "--fault", fault)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert result["correct"] is False
+    assert any(c["value"] > c["limit"] for c in result["checks"].values())
+
+
+@pytest.mark.parametrize("value,files", [("cross", ()), ("toycat", ("dense",)),
+                                         ("toycat", ("systems",)), ("Dot", ()),
+                                         ("../dot", ()), (3, ())])
+def test_interaction_without_its_files_is_refused(tmp_path, value, files):
+    """An interaction is implemented where both of its files exist."""
+    root = toy.make(tmp_path, ("toy-score",))
+    for folder in files:
+        shutil.copy(toy.FAMILY_FILES / f"{folder}_toycat.py",
+                    root / "h100_bench" / folder / "toycat.py")
+    path = root / "h100_bench" / "configs" / "toy-dlrm.json"
+    cfg = json.loads(path.read_text())
+    cfg["interaction"] = value
+    path.write_text(json.dumps(cfg))
+    man = Manifest(root, root / "h100_bench")
+    with pytest.raises(ValueError, match="interaction"):
+        man.config(man.cell("toy-score-cell"))
+
+
+@pytest.mark.parametrize("family,key,value", [("dot", "concat_scale", 0.5),
+                                              ("dot", "cross_layers", 3),
+                                              ("toycat", "concat_scale", None),
+                                              ("toycat", "concat_scale", "half")])
+def test_key_its_family_does_not_declare_is_refused(tmp_path, family, key, value):
+    """A configuration holds the common keys and its family's own: a key
+    that its interaction's module does not declare, or one it declares
+    left out (None) or of another type, is refused."""
+    root = toy.make(tmp_path, ("toy-score",), family=family)
+    name = toy.FAMILIES[family][0]["name"]
+    path = root / "h100_bench" / "configs" / f"{name}.json"
+    cfg = json.loads(path.read_text())
+    if value is None:
+        del cfg[key]
+    else:
+        cfg[key] = value
+    path.write_text(json.dumps(cfg))
+    man = Manifest(root, root / "h100_bench")
+    with pytest.raises(ValueError, match=key):
+        man.config(man.cell("toy-score-cell"))
+    result, proc = toy.run(root, "toy-score-cell")
+    assert proc.returncode != 0 and result is None

@@ -3,8 +3,9 @@ operation count, the pool kernel's bytes, and the quartile spread.
 
 The byte model is ``chip_smoke.py``'s: a pool kernel must read each
 distinct kept row once, every id (int32) and mask byte once, and write its
-f32 output once.  Operations count 2 per multiply-add of the MLPs and of
-the interaction's pairs, and one add per pooled entry past a bag's first.
+f32 output once.  Operations count 2 per multiply-add of the dense half
+(each family's ``flops_per_sample`` in ``dense/``), and one add per pooled
+entry past a bag's first.
 """
 
 from __future__ import annotations
@@ -37,18 +38,15 @@ def pool_out_bytes(tables: int, batch_size: int, dim: int) -> int:
     return tables * batch_size * dim * 4
 
 
-def forward_flops_per_sample(cfg: dict, pooling: int) -> int:
-    """Model operations of one sample's forward: the MLPs' and the
-    interaction's multiply-adds twice, and the pooling's adds."""
-    def macs(sizes):
-        return sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+def macs(sizes) -> int:
+    """Multiply-adds of one sample through linear layers of ``sizes``."""
+    return sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
 
-    t, d = len(cfg["tables"]), cfg["dim"]
-    nf = t + 1
-    top_in = d + nf * (nf - 1) // 2
-    mac = (macs([cfg["dense_dim"], *cfg["mlp_bot"]]) + nf * (nf - 1) // 2 * d
-           + macs([top_in, *cfg["mlp_top"]]))
-    return 2 * mac + t * (pooling - 1) * d
+
+def pooling_adds(cfg: dict, lengths) -> int:
+    """Adds of one sample's pooling: one a pooled entry past a bag's first,
+    over bags of ``lengths`` (one a table)."""
+    return sum(n - 1 for n in lengths) * cfg["dim"]
 
 
 def spread(values) -> float:
