@@ -16,6 +16,7 @@ from .config import (
     TableConfig,
     kaggle_config,
     loadgen_config,
+    mlperf_dcnv2_config,
     random_config,
     toy_config,
 )
@@ -45,7 +46,7 @@ from .parallel import (
 __all__ = [
     "KAGGLE_TABLE_ROWS", "Combiner", "DLRMConfig", "LookupImpl", "MeshConfig",
     "QueryConfig", "ShardingPolicy", "TableConfig", "kaggle_config",
-    "loadgen_config", "random_config", "toy_config", "params_from_jax",
+    "loadgen_config", "mlperf_dcnv2_config", "random_config", "toy_config", "params_from_jax",
     "train_state_from_jax", "quantized_params_from_jax", "resolve_device", "entry",
     "DLRM", "bce_loss",
     "interact_dot", "fit", "make_optimizer", "make_train_step",

@@ -84,9 +84,18 @@ class MeshConfig:
         return self.data * self.model
 
 
+INTERACTIONS = ("dot", "dcn")
+
+
 @dataclasses.dataclass(frozen=True)
 class DLRMConfig:
-    """Full DLRM architecture (dense + sparse halves)."""
+    """Full DLRM architecture (dense + sparse halves).
+
+    ``interaction``: ``"dot"``, the pairwise dots of the dense vector and
+    the pooled vectors (dlrm's ``--arch-interaction-op=dot``), or ``"dcn"``,
+    a low-rank cross network of ``dcn_num_layers`` layers at rank
+    ``dcn_low_rank_dim`` over their concatenation (torchrec's
+    ``InteractionDCNArch``, MLPerf DLRM-DCNv2)."""
 
     dense_dim: int
     mlp_bot: Sequence[int]
@@ -95,12 +104,23 @@ class DLRMConfig:
     interaction: str = "dot"
     interact_itself: bool = False
     sigmoid_top: bool = True
+    dcn_num_layers: int = 0
+    dcn_low_rank_dim: int = 0
+
+    def __post_init__(self):
+        if self.interaction not in INTERACTIONS:
+            raise ValueError(f"interaction must be one of {INTERACTIONS}, "
+                             f"got {self.interaction!r}")
+        if self.interaction == "dcn" and (self.dcn_num_layers < 1 or self.dcn_low_rank_dim < 1):
+            raise ValueError("a dcn interaction needs dcn_num_layers >= 1 and "
+                             f"dcn_low_rank_dim >= 1, got {self.dcn_num_layers} "
+                             f"and {self.dcn_low_rank_dim}")
 
     @property
     def sparse_dim(self) -> int:
         dims = {t.dim for t in self.tables}
         if len(dims) != 1:
-            raise ValueError(f"DLRM dot interaction needs equal dims, got {dims}")
+            raise ValueError(f"DLRM needs tables of one dim, got {dims}")
         return next(iter(dims))
 
     @property
@@ -145,6 +165,43 @@ def random_config(
         mlp_bot=(512, 256, dim),
         mlp_top=(512, 256, 1),
         tables=tables,
+    )
+
+
+# MLPerf DLRM-DCNv2 (mlcommons/training recommendation_v2/torchrec_dlrm):
+# the Criteo 1TB tables with ids hashed to at most 40,000,000 rows, and the
+# fixed multi-hot bag length of each table (its synthetic multi-hot set)
+DCNV2_TABLE_ROWS = (
+    40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000,
+    3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14, 40000000,
+    40000000, 40000000, 590152, 12973, 108, 36,
+)
+DCNV2_BAG_LENGTHS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27,
+                     10, 3, 1, 1)
+DCNV2_MAX_ROWS = 40_000_000
+
+
+def mlperf_dcnv2_config(row_shards: int = 1) -> DLRMConfig:
+    """MLPerf DLRM-DCNv2: 26 tables of dim 128, bot 13-512-256-128, 3
+    low-rank cross layers at rank 512 over the 27 x 128 concatenation, top
+    1024-1024-512-256-1.  ``row_shards``: the cards that split each
+    40,000,000-row table by rows; the tables hold one card's share of those
+    rows (the others stay whole)."""
+    if row_shards < 1 or DCNV2_MAX_ROWS % row_shards:
+        raise ValueError(f"row_shards must divide {DCNV2_MAX_ROWS}, got {row_shards}")
+    tables = tuple(
+        TableConfig(num_rows=n // row_shards if n == DCNV2_MAX_ROWS else n, dim=128,
+                    name=f"cat_{i}")
+        for i, n in enumerate(DCNV2_TABLE_ROWS)
+    )
+    return DLRMConfig(
+        dense_dim=13,
+        mlp_bot=(512, 256, 128),
+        mlp_top=(1024, 1024, 512, 256, 1),
+        tables=tables,
+        interaction="dcn",
+        dcn_num_layers=3,
+        dcn_low_rank_dim=512,
     )
 
 

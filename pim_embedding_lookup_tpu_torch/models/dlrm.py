@@ -1,9 +1,11 @@
-"""DLRM: bottom MLP over dense features, pooled embedding lookups, pairwise
-dot interaction, top MLP to one logit.
+"""DLRM: bottom MLP over dense features, pooled embedding lookups, an
+interaction, top MLP to one logit.  The interaction is the pairwise dot one
+or a low-rank cross network (DLRM-DCNv2).
 
 The counterpart of ``pim_embedding_lookup_tpu.models.dlrm`` as an
-``nn.Module``.  The embedding storage is held as buffers in the fused
-layout of its collection; the MLPs are ``nn.Linear`` layers in f32.
+``nn.Module`` (whose interaction is the dot one).  The embedding storage is
+held as buffers in the fused layout of its collection; the MLPs and the
+cross layers are ``nn.Linear`` layers in f32.
 """
 
 from __future__ import annotations
@@ -63,6 +65,49 @@ def interact_dot(bot_out: torch.Tensor, pooled: torch.Tensor, *,
     return torch.cat([bot_out, zz[:, li, lj]], dim=1)
 
 
+class LowRankCrossNet(nn.ModuleList):
+    """torchrec's ``LowRankCrossNet``: layer l maps x_l to
+
+        x_{l+1} = x0 * (W_l (V_l x_l) + b_l) + x_l
+
+    with V_l a bias-free [rank, width] ``nn.Linear`` and W_l a [width, rank]
+    one with its bias b_l; layer l is ``self[l]``, its parts ``"V"`` and
+    ``"W"``.  V_l and W_l are drawn normal(0, sqrt(2 / (width + rank)))
+    (torchrec's ``xavier_normal_``), b_l is zero."""
+
+    def __init__(self, width: int, num_layers: int, rank: int, generator: torch.Generator,
+                 device: torch.device):
+        std = float(np.sqrt(2.0 / (width + rank)))
+        layers = []
+        for _ in range(num_layers):
+            layer = nn.ModuleDict({
+                "V": nn.Linear(width, rank, bias=False, device="meta"),
+                "W": nn.Linear(rank, width, device="meta"),
+            }).to_empty(device=device)
+            with torch.no_grad():
+                layer["V"].weight.normal_(0.0, std, generator=generator)
+                layer["W"].weight.normal_(0.0, std, generator=generator)
+                layer["W"].bias.zero_()
+            layers.append(layer)
+        super().__init__(layers)
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for layer in self:
+            # x + x0 * y in one pass
+            x = torch.addcmul(x, x0, layer["W"](layer["V"](x)))
+        return x
+
+
+def interact_dcn(bot_out: torch.Tensor, pooled: torch.Tensor,
+                 cross: LowRankCrossNet) -> torch.Tensor:
+    """The DCNv2 interaction: bot_out [B, D] and pooled [B, T, D] flattened
+    into x0 [B, (1+T) D], the dense vector first, then the cross network."""
+    x0 = torch.cat([bot_out[:, None, :], pooled], dim=1).flatten(1)
+    with span("pel.cross"):
+        return cross(x0)
+
+
 class DLRM(nn.Module):
     """DLRM over an embedding collection (hybrid or plain).
 
@@ -106,8 +151,11 @@ class DLRM(nn.Module):
                 f"bot MLP must end at sparse dim {d}, got {config.mlp_bot[-1]}"
             )
         nf = config.num_tables + 1
-        npairs = nf * (nf + 1) // 2 if config.interact_itself else nf * (nf - 1) // 2
-        top_in = d + npairs
+        if config.interaction == "dcn":
+            top_in = nf * d
+        else:
+            npairs = nf * (nf + 1) // 2 if config.interact_itself else nf * (nf - 1) // 2
+            top_in = d + npairs
         emb = self.collection.init(generator)
         if hybrid:
             self.register_buffer("emb_small", emb["small"])
@@ -116,6 +164,9 @@ class DLRM(nn.Module):
             self.register_buffer("emb", emb)
         self.bot = _init_mlp([config.dense_dim, *config.mlp_bot], generator, device)
         self.top = _init_mlp([top_in, *config.mlp_top], generator, device)
+        if config.interaction == "dcn":
+            self.cross = LowRankCrossNet(top_in, config.dcn_num_layers,
+                                         config.dcn_low_rank_dim, generator, device)
 
     def emb_params(self):
         """The embedding storage in the form its collection's lookup takes."""
@@ -127,8 +178,11 @@ class DLRM(nn.Module):
                           pooled: torch.Tensor) -> torch.Tensor:
         """Dense half only: bot MLP -> interaction -> top MLP -> [B] logits."""
         bot_out = _apply_mlp(self.bot, dense, sigmoid_last=False)
-        zi = interact_dot(bot_out, pooled,
-                          self_interaction=self.config.interact_itself)
+        if self.config.interaction == "dcn":
+            zi = interact_dcn(bot_out, pooled, self.cross)
+        else:
+            zi = interact_dot(bot_out, pooled,
+                              self_interaction=self.config.interact_itself)
         return _apply_mlp(self.top, zi, sigmoid_last=True)[:, 0]
 
     def forward(self, dense: torch.Tensor, indices: torch.Tensor,

@@ -67,8 +67,9 @@ def _apply_sparse_csr(coll, emb, acc, indices, offsets, g_pooled, *, lr,
 
 
 def dense_params(model: DLRM) -> list[torch.Tensor]:
-    """The dense tower's params: the bot and top MLPs."""
-    return [*model.bot.parameters(), *model.top.parameters()]
+    """The dense tower's params: the bot and top MLPs and, in a DCNv2
+    model, the cross layers (the tables are buffers)."""
+    return list(model.parameters())
 
 
 def make_sparse_train_state(

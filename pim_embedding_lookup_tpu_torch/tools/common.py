@@ -27,12 +27,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import ShardingPolicy, kaggle_config, random_config, toy_config
+from ..config import (
+    ShardingPolicy,
+    kaggle_config,
+    mlperf_dcnv2_config,
+    random_config,
+    toy_config,
+)
 from ..device import resolve_device
 from ..ops.csr_pool import embedding_bag_csr_grad, embedding_bag_csr_packed, embedding_bag_csr_sum
 from ..ops.gather_pool import embedding_bag_fixedl
 
-CONFIGS = {"kaggle": kaggle_config, "random": random_config, "toy": toy_config}
+CONFIGS = {"kaggle": kaggle_config, "random": random_config, "toy": toy_config,
+           "dcnv2": mlperf_dcnv2_config}
 REPO = Path(__file__).resolve().parents[2]  # the checkout holding the package
 
 

@@ -61,7 +61,7 @@ from . import common
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="serving_bench")
-    ap.add_argument("--config", default="kaggle", choices=["kaggle", "random", "toy"])
+    ap.add_argument("--config", default="kaggle", choices=list(common.CONFIGS))
     ap.add_argument("--batch", type=int, default=256, help="queries per request")
     ap.add_argument("--pooling", type=int, default=1)
     ap.add_argument("--qps", type=float, default=100.0, help="request arrivals/s")

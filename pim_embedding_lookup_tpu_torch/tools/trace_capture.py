@@ -37,7 +37,7 @@ from . import common
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="trace_capture")
-    ap.add_argument("--config", default="kaggle", choices=["kaggle", "random", "toy"])
+    ap.add_argument("--config", default="kaggle", choices=list(common.CONFIGS))
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--pooling", type=int, default=1)
     ap.add_argument("--iters", type=int, default=3)

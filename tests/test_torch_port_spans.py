@@ -37,13 +37,19 @@ TRAIN = {"pel.train_step": None, "pel.lookup": "pel.train_step",
          "pel.lookup.small": "pel.lookup", "pel.lookup.big": "pel.lookup",
          "pel.train.dense": "pel.train_step", "pel.sparse_update": "pel.train_step"}
 SIBLINGS = [("pel.lookup.small", "pel.lookup.big"), ("pel.lookup", "pel.train.dense"),
-            ("pel.train.dense", "pel.sparse_update"), ("pel.lookup", "pel.sparse_update")]
+            ("pel.train.dense", "pel.sparse_update"), ("pel.lookup", "pel.sparse_update"),
+            ("pel.lookup", "pel.cross")]
+# a DCNv2 model's cross network: inside the forward, and inside the train
+# step's dense half
+FORWARD_DCN = dict(FORWARD, **{"pel.cross": "pel.forward"})
+TRAIN_DCN = dict(TRAIN, **{"pel.cross": "pel.train.dense"})
+DCN = dict(interaction="dcn", dcn_num_layers=2, dcn_low_rank_dim=4)
 
 
-def _model(rows, seed=0):
+def _model(rows, seed=0, **dcn):
     cfg = tcfg.DLRMConfig(dense_dim=5, mlp_bot=(16, 8), mlp_top=(16, 1),
                           tables=tuple(tcfg.TableConfig(num_rows=n, dim=8, name=f"t{i}")
-                                       for i, n in enumerate(rows)))
+                                       for i, n in enumerate(rows)), **dcn)
     return DLRM(cfg, tcfg.ShardingPolicy.REPLICATE, hybrid=True, device="cpu",
                 generator=torch.Generator().manual_seed(seed))
 
@@ -73,10 +79,11 @@ def _annotations(prof, tmp_path) -> tuple[list[dict], dict]:
     return events, {k: sorted(v) for k, v in spans.items()}
 
 
-def _run(kind, rows, optimizer="row_adagrad", *, traced, tmp_path=None):
-    """``CALLS`` forward calls or sparse train steps on a fresh model; with
-    ``traced``, under ``torch.profiler``.  Returns (results, events, spans)."""
-    model = _model(rows)
+def _run(kind, rows, optimizer="row_adagrad", *, traced, tmp_path=None, dcn=False):
+    """``CALLS`` forward calls or sparse train steps on a fresh model (a
+    DCNv2 one with ``dcn``); with ``traced``, under ``torch.profiler``.
+    Returns (results, events, spans)."""
+    model = _model(rows, **(DCN if dcn else {}))
     batches = _batches(rows)
     if kind == "forward":
         def call(b):
@@ -147,6 +154,23 @@ def test_span_off_is_one_shared_noop(monkeypatch):
     assert made[-1] == "pel.a"
 
 
+def test_span_off_is_free_in_a_dcn_model(monkeypatch):
+    """The same of a DCNv2 model: its ``pel.cross`` too makes no
+    ``record_function`` while no profiler records."""
+    made = []
+    real = torch.autograd.profiler.record_function
+
+    def counted(name, *args):
+        made.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counted)
+    _run("forward", MIXED_ROWS, traced=False, dcn=True)
+    _run("train", MIXED_ROWS, traced=False, dcn=True)
+    assert not [n for n in made if n.startswith("pel.")], made
+
+
 def test_forward_spans_once_a_call_nested(tmp_path):
     outs, _, spans = _run("forward", MIXED_ROWS, traced=True, tmp_path=tmp_path)
     _check_tree(spans, FORWARD, CALLS)
@@ -156,6 +180,24 @@ def test_forward_spans_once_a_call_nested(tmp_path):
 def test_train_spans_once_a_step_nested(tmp_path, optimizer):
     _, _, spans = _run("train", MIXED_ROWS, optimizer, traced=True, tmp_path=tmp_path)
     _check_tree(spans, TRAIN, CALLS)
+
+
+@pytest.mark.parametrize("kind,tree", [("forward", FORWARD_DCN), ("train", TRAIN_DCN)],
+                         ids=["forward", "train"])
+def test_dcn_cross_span_once_a_call_nested(tmp_path, kind, tree):
+    """``pel.cross`` once a call, inside ``pel.forward``, and inside a train
+    step's ``pel.train.dense``."""
+    _, _, spans = _run(kind, MIXED_ROWS, traced=True, tmp_path=tmp_path, dcn=True)
+    _check_tree(spans, tree, CALLS)
+
+
+@pytest.mark.parametrize("kind", ["forward", "train"])
+def test_dcn_traced_results_bit_identical(tmp_path, kind):
+    plain, _, _ = _run(kind, MIXED_ROWS, traced=False, dcn=True)
+    traced, _, _ = _run(kind, MIXED_ROWS, traced=True, tmp_path=tmp_path, dcn=True)
+    assert len(plain) == len(traced)
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kind", ["forward", "train"])
@@ -259,6 +301,24 @@ TRAIN_EVENTS = [
                   (1020, 30, "kernel"), (1100, 140, "kernel"), (1300, 40, "kernel"),
                   (1305, 2, "gpu_memset"), (1500, 99, "kernel")]),
 ]
+# the DCNv2 cell's two forward calls: as SCORE_EVENTS, with the cross
+# network launching 20 + 8 and 30 us and the top MLP 5 us after it
+DCN_EVENTS = [
+    _span("window", 0, 1000),
+    _span("pel.forward", 100, 200), _span("pel.lookup", 110, 170),
+    _span("pel.lookup.small", 115, 140), _span("pel.lookup.big", 145, 165),
+    _span("pel.cross", 172, 190),
+    _span("pel.forward", 500, 640), _span("pel.lookup", 510, 600),
+    _span("pel.lookup.small", 515, 550), _span("pel.lookup.big", 560, 590),
+    _span("pel.cross", 605, 630),
+    *_activities([(120, 30, "kernel"), (130, 10, "kernel"), (150, 6, "kernel"),
+                  (175, 20, "kernel"), (185, 8, "kernel"), (195, 5, "kernel"),
+                  (520, 40, "kernel"), (570, 4, "gpu_memset"), (575, 10, "kernel"),
+                  (610, 30, "kernel"), (700, 50, "kernel")]),
+]
+# cross_flops_per_sample of mlperf-dcnv2 (2 x 3 layers x 2 x 3456 x 512)
+# times its batch, over 29 us a call, over 67 TFLOP/s
+DCN_CROSS_FLOPS = 2 * 3 * 2 * 3456 * 512 * 65536
 READINGS = [
     ("small_set_ms.score", SCORE_EVENTS, (30 + 10 + 40) / 2 * 1e-3),
     ("big_set_ms.score", SCORE_EVENTS, (6 + 4 + 10) / 2 * 1e-3),
@@ -271,6 +331,11 @@ READINGS = [
     ("sparse_update_ms.train", TRAIN_EVENTS, (30 + 40 + 2) / 2 * 1e-3),
     ("host_ms.train", TRAIN_EVENTS, (300 + 350) / 2 * 1e-3),
     ("launches.train", TRAIN_EVENTS, 10 / 2),
+    ("cross_ms.dcn", DCN_EVENTS, (20 + 8 + 30) / 2 * 1e-3),
+    ("cross_roofline.dcn", DCN_EVENTS, DCN_CROSS_FLOPS / 29e-6 / 67e12 * 100),
+    ("dense_half_ms.dcn", DCN_EVENTS, (20 + 8 + 5 + 30) / 2 * 1e-3),
+    ("lookup_ms.dcn", DCN_EVENTS, (30 + 10 + 6 + 40 + 4 + 10) / 2 * 1e-3),
+    ("launches.dcn", DCN_EVENTS, 10 / 2),
 ]
 
 
