@@ -50,6 +50,28 @@ def _apply_mlp(layers: nn.ModuleList, x: torch.Tensor, *,
     return x
 
 
+class _TrilPairs(torch.autograd.Function):
+    """``zz[:, li, lj]`` whose backward writes the cotangent into zeros.
+
+    The (li, lj) pairs are distinct, so no entry of the gradient takes two
+    values and a plain write gives the sum that the indexing's own backward,
+    an accumulating ``index_put_`` (on CUDA a sort of every entry), gives."""
+
+    @staticmethod
+    def forward(ctx, zz, li, lj):
+        ctx.save_for_backward(li, lj)
+        ctx.zz_shape = zz.shape
+        return zz[:, li, lj]
+
+    @staticmethod
+    def backward(ctx, g):
+        li, lj = ctx.saved_tensors
+        with span("pel.interact.backward"):
+            gz = g.new_zeros(ctx.zz_shape)
+            gz[:, li, lj] = g
+        return gz, None, None
+
+
 def interact_dot(bot_out: torch.Tensor, pooled: torch.Tensor, *,
                  self_interaction: bool) -> torch.Tensor:
     """Pairwise dot-product interaction.
@@ -62,7 +84,7 @@ def interact_dot(bot_out: torch.Tensor, pooled: torch.Tensor, *,
     nf = z.shape[1]
     li, lj = torch.tril_indices(nf, nf, 0 if self_interaction else -1,
                                 device=zz.device)
-    return torch.cat([bot_out, zz[:, li, lj]], dim=1)
+    return torch.cat([bot_out, _TrilPairs.apply(zz, li, lj)], dim=1)
 
 
 class LowRankCrossNet(nn.ModuleList):

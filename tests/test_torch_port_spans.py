@@ -35,14 +35,16 @@ FORWARD = {"pel.forward": None, "pel.lookup": "pel.forward",
            "pel.lookup.small": "pel.lookup", "pel.lookup.big": "pel.lookup"}
 TRAIN = {"pel.train_step": None, "pel.lookup": "pel.train_step",
          "pel.lookup.small": "pel.lookup", "pel.lookup.big": "pel.lookup",
-         "pel.train.dense": "pel.train_step", "pel.sparse_update": "pel.train_step"}
+         "pel.train.dense": "pel.train_step", "pel.sparse_update": "pel.train_step",
+         "pel.interact.backward": "pel.train.dense"}
 SIBLINGS = [("pel.lookup.small", "pel.lookup.big"), ("pel.lookup", "pel.train.dense"),
             ("pel.train.dense", "pel.sparse_update"), ("pel.lookup", "pel.sparse_update"),
             ("pel.lookup", "pel.cross")]
 # a DCNv2 model's cross network: inside the forward, and inside the train
-# step's dense half
+# step's dense half; it has no dot interaction, so no backward of one
 FORWARD_DCN = dict(FORWARD, **{"pel.cross": "pel.forward"})
-TRAIN_DCN = dict(TRAIN, **{"pel.cross": "pel.train.dense"})
+TRAIN_DCN = {**{k: v for k, v in TRAIN.items() if k != "pel.interact.backward"},
+             "pel.cross": "pel.train.dense"}
 DCN = dict(interaction="dcn", dcn_num_layers=2, dcn_low_rank_dim=4)
 
 
@@ -198,6 +200,23 @@ def test_dcn_traced_results_bit_identical(tmp_path, kind):
     assert len(plain) == len(traced)
     for a, b in zip(plain, traced):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,optimizer,dcn,want", [
+    ("train", "sgd", False, CALLS), ("train", "row_adagrad", False, CALLS),
+    ("forward", None, False, 0), ("forward", None, True, 0), ("train", "row_adagrad", True, 0)],
+    ids=["dot-train-sgd", "dot-train-row_adagrad", "dot-score", "dcn-score", "dcn-train"])
+def test_interact_backward_span_once_a_dot_train_step(tmp_path, kind, optimizer, dcn, want):
+    """``pel.interact.backward`` (the dot interaction's gather backward) once
+    a sparse train step of a dot model, inside its ``pel.train.dense``; never
+    in a score forward, and never in a DCNv2 model, which has no such
+    gather."""
+    kw = {} if optimizer is None else {"optimizer": optimizer}
+    _, _, spans = _run(kind, MIXED_ROWS, traced=True, tmp_path=tmp_path, dcn=dcn, **kw)
+    got = spans.get("pel.interact.backward", [])
+    assert len(got) == want
+    for iv in got:
+        assert sum(_inside(iv, p) for p in spans["pel.train.dense"]) == 1
 
 
 @pytest.mark.parametrize("kind", ["forward", "train"])
