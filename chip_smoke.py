@@ -37,8 +37,8 @@ job of one), ``shards_4`` (the four shards of each policy in one process:
 the masked K1, K2 and K4-backward launches against their plain versions,
 timed), ``masked`` (the masked walk at a row shard's per-rank shapes of
 ``cli bench``'s random and bigtable configurations and of Kaggle, 1 in 4
-kept and all kept: the compacted walk timed in turns against the first
-masked walk pinned, bitwise equal), ``cli`` (the training entry point ``python -m
+kept and all kept: the chosen walk timed beside its bound, bitwise the sum
+of each bag's kept entries in entry order), ``cli`` (the training entry point ``python -m
 pim_embedding_lookup_tpu_torch.cli train`` at full Kaggle width in
 subprocesses: sparse row-AdaGrad training with reports and a full-state
 save, its resume, inference from it, and dense-autodiff ``fit``; in this
@@ -141,7 +141,6 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_sum,
 )
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
-    KernelPath,
     embedding_bag_fixedl,
     embedding_bag_fixedl_reference,
     fitted_path,
@@ -304,11 +303,11 @@ def in_turns(fns, id_sets) -> dict:
 
 
 def path_label(pin) -> str:
-    """A kernel path as the lines print it: load bytes (or scalar), G,
-    walk, and the first masked walk's flags where pinned."""
-    load, group, by_group, compact = KernelPath(*pin)
+    """A kernel path as the lines print it: load bytes (or scalar), G and
+    walk."""
+    load, group, by_group = pin
     return (f"{f'{load}-byte' if load else 'scalar'} G={group} "
-            f"{'by group' if by_group else 'by window'}{'' if compact else ', mask flags'}")
+            f"{'by group' if by_group else 'by window'}")
 
 
 def check_kernel(got, want, slack=None):
@@ -587,12 +586,14 @@ def edge_keep(lens):
 def compaction_cases(gen, storage, d, scale=None) -> int:
     """K1 and K2 over bags whose kept entries sit at the compaction's edges
     (EDGE_KEPT; bags with nothing kept; an all-false mask), on both walks
-    pinned, each compacted and with the first masked walk's flags: all
-    bitwise equal, within KERNEL_TOL of the plain version, the bags with
-    nothing kept exactly zero, repeated launches bitwise equal.  Masked and
-    padding entries hold NEVER_READ.  Returns the number of cases."""
+    pinned: each bitwise the sum of each bag's kept entries in entry order
+    (:func:`entry_order_sum`), within KERNEL_TOL of the plain version, the
+    bags with nothing kept exactly zero, repeated launches bitwise equal.
+    Masked and padding entries hold NEVER_READ.  Returns the number of
+    cases."""
     cases = 0
     lens = [EDGE_LONG] * EDGE_BAGS
+    k1_off = (torch.arange(EDGE_BAGS + 1, device=DEV, dtype=torch.int32) * EDGE_LONG)[None]
     for all_false in (False, True):
         keep = edge_keep(lens) & (not all_false)
         n = EDGE_BAGS * EDGE_LONG
@@ -604,6 +605,7 @@ def compaction_cases(gen, storage, d, scale=None) -> int:
                          lambda p: embedding_bag_fixedl(storage, d, read, path=p, **kw),
                          kernel_path(storage, d, n, EDGE_BAGS),
                          embedding_bag_fixedl_reference(storage, d, ids, **kw),
+                         entry_order_sum(storage, d, read[None], k1_off, mask[None], scale),
                          ~keep.any(dim=1))
         cases += 1
     # K2: two tables of long bags, empty bags and bags of 1, 33 and 64 entries
@@ -628,28 +630,52 @@ def compaction_cases(gen, storage, d, scale=None) -> int:
                          lambda p: embedding_bag_csr_packed(storage, d, read, off, path=p, **kw),
                          kernel_path(storage, d, cap, EDGE_BAGS),
                          embedding_bag_csr_packed_reference(storage, d, idx, off, **kw),
+                         entry_order_sum(storage, d, read, off, mask, scale),
                          torch.cat(none_kept))
         cases += 1
     return cases
 
 
-def compaction_check(what, run, chosen, want, none_kept):
+def compaction_check(what, run, chosen, want, order, none_kept):
     """One compaction case: ``run(path)`` on the wrapper's path, on each
-    walk pinned (``chosen`` by window and by group, compacted and with the
-    first masked walk's flags) and on the wrapper's path again, all bitwise
-    equal, within KERNEL_TOL of the plain ``want``, and zero where a bag
-    kept nothing."""
-    runs = [run(None)] + [run(chosen._replace(by_group=bg, compact=c))
-                          for bg in (False, True) for c in (True, False)] + [run(None)]
+    walk pinned (``chosen`` by window and by group) and on the wrapper's
+    path again, each bitwise ``order`` (the sum in entry order), within
+    KERNEL_TOL of the plain ``want``, and zero where a bag kept nothing."""
+    runs = [run(None)] + [run(chosen._replace(by_group=bg)) for bg in (False, True)] + [
+        run(None)]
     torch.cuda.synchronize()
     torch.testing.assert_close(runs[0], want, **KERNEL_TOL)
-    for i, got in enumerate(runs[1:], 1):
-        if not torch.equal(got, runs[0]):
-            raise AssertionError(f"compaction case {what}: run {i} (window/group x "
-                                 "compacted/flags, then repeated) differs bitwise from "
-                                 f"the wrapper's walk by {(got - runs[0]).abs().max().item():.3g}")
+    for i, got in enumerate(runs):
+        if not torch.equal(got, order):
+            raise AssertionError(f"compaction case {what}: run {i} (wrapper's, window, group, "
+                                 "wrapper's again) differs bitwise from the sum in entry "
+                                 f"order by {(got - order).abs().max().item():.3g}")
     if not torch.equal(runs[0][none_kept], torch.zeros_like(runs[0][none_kept])):
         raise AssertionError(f"compaction case {what}: a bag that kept nothing is not 0")
+
+
+def entry_order_sum(storage, d, idx, off, mask=None, scale=None):
+    """The pool kernels' sum in plain torch: each bag's kept entries added
+    in f32 in entry order, code times scale where ``scale`` is given.
+    [T*B, d] for [T, C] ids and [T, B+1] offsets (K1's bags: offsets 0, L,
+    2L, ...); the kernels' output bitwise.  Masked entries and padding are
+    never read."""
+    t, c = idx.shape
+    starts = (off[:, :-1].long() + torch.arange(t, device=DEV)[:, None] * c).reshape(-1)
+    lens = (off[:, 1:] - off[:, :-1]).reshape(-1)
+    flat, rows = idx.reshape(-1), storage.reshape(-1, d)
+    acc = torch.zeros(starts.numel(), d, device=DEV)
+    for k in range(int(lens.max().item()) if lens.numel() else 0):
+        live = k < lens
+        pos = torch.where(live, starts + k, 0)
+        if mask is not None:
+            live &= mask.reshape(-1)[pos].bool()
+        ids = torch.where(live, flat[pos], 0).long()
+        add = rows[ids].float()
+        if scale is not None:
+            add = add * scale[ids][:, None]
+        acc = acc + torch.where(live[:, None], add, 0.0)
+    return acc
 
 
 # -- the CSR wire ---------------------------------------------------------------
@@ -912,7 +938,7 @@ def k4_masked_case(name, storage, d, id_sets, gen):
 SCALE_MODES = ("table", "row")
 # int8 against f32 logits: the bound of tests/test_quantize_serving.py
 INT8_LOGIT_ATOL = 0.05
-# 4-byte words (16-byte loads too where d is a multiple of 16), the scalar path
+# 8-byte loads or 4-byte words where the rows take them, the scalar path
 INT8_EDGE = ((16, "packed"), (16, "unpacked"), (32, "unpacked"), (4, "unpacked"),
              (20, "unpacked"), (64, "packed"), (16, "unaligned"), (4, "unaligned"))
 # the capacity bench's width: 4 tables of 5M rows of 64 codes (1.28 GB, far
@@ -930,13 +956,11 @@ CROSS_ID_SETS = 8  # 8 x 5-42 MB of rows a shape
 
 
 def int8_paths(storage, d, entries, bags) -> dict:
-    """The int8 paths timed in turns, by name: the first int8 design (16
-    codes a lane) pinned, the wrapper's choice (8-byte loads for short
-    bags, 4-byte words for long ones), and each of those loads pinned.
-    Each falls back to the scalar path where the storage does not take its
-    load."""
-    return {"16-byte": fitted_path(storage, d, entries, bags, 16), "chosen": None,
-            "8-byte": fitted_path(storage, d, entries, bags, 8),
+    """The int8 paths timed in turns, by name: the wrapper's choice (8-byte
+    loads for short bags, 4-byte words for long ones), and each of those
+    loads pinned.  Each falls back to the scalar path where the storage
+    does not take its load."""
+    return {"chosen": None, "8-byte": fitted_path(storage, d, entries, bags, 8),
             "4-byte": fitted_path(storage, d, entries, bags, 4)}
 
 
@@ -958,59 +982,52 @@ def int8_edge_storage(gen, d, layout):
 
 def int8_edge_phase(gen):
     """int8 K1 and K2 against their plain versions at toy sizes, in both
-    scale modes, each on the wrapper's path (8-byte loads, or 4-byte words
-    for long bags and d = 4, 20: d = 4, 20, 32, 16 and 64 packed and
-    unpacked; the scalar path: d = 16 and 4 one byte into their buffers)
-    and on the first int8 design's 16-byte loads pinned (the
-    scalar path where d is not a multiple of 16); both id walks; K2
-    unmasked and with a row shard's mask; K1 at L = 1, 3, 9 with no mask, a
-    random mask and an all-false one; row 0 all zero with scale 1; on the
-    wrapper's path :func:`compaction_cases` in each scale mode.  Padding
-    and masked entries hold ids that fault if read (a read of their scales
-    would too).  Repeated launches bitwise equal, and at L = 1 equal to the
-    plain version.  Returns the number of cases."""
+    scale modes, on the wrapper's path (8-byte loads, or 4-byte words for
+    long bags and d = 4, 20: d = 4, 20, 32, 16 and 64 packed and unpacked;
+    the scalar path: d = 16 and 4 one byte into their buffers); both id
+    walks; K2 unmasked and with a row shard's mask; K1 at L = 1, 3, 9 with
+    no mask, a random mask and an all-false one; row 0 all zero with scale
+    1; :func:`compaction_cases` in each scale mode.  Padding and masked
+    entries hold ids that fault if read (a read of their scales would too).
+    Repeated launches bitwise equal, and at L = 1 equal to the plain
+    version.  Returns the number of cases."""
     cases, paths = 0, set()
-    for (d, layout), mode, design in itertools.product(INT8_EDGE, SCALE_MODES,
-                                                       ("chosen", "16-byte")):
+    for (d, layout), mode in itertools.product(INT8_EDGE, SCALE_MODES):
         storage, scale = int8_edge_storage(gen, d, layout)
         scale = scale if mode == "row" else None
-        if design == "chosen":
-            cases += compaction_cases(gen, storage, d, scale)
+        cases += compaction_cases(gen, storage, d, scale)
         for (tables, max_len, empty), masked in itertools.product(
                 ((1, 40, False), (10, 6, False), (3, 3, True), (2, 100, False)), (False, True)):
             idx, off = edge_csr(gen, tables, max_len, empty)
-            pin = None if design == "chosen" else fitted_path(
-                storage, d, idx.shape[1], EDGE_BAGS, 16)
-            used = pin or kernel_path(storage, d, idx.shape[1], EDGE_BAGS)
+            used = kernel_path(storage, d, idx.shape[1], EDGE_BAGS)
             clean = torch.where(idx == NEVER_READ, 0, idx)
             mask = torch.rand(idx.shape, generator=gen, device=DEV) < 0.5 if masked else None
             read = torch.where(mask, idx, NEVER_READ) if masked else idx
             kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
-            got = embedding_bag_csr_packed(storage, d, read, off, path=pin, **kw)
-            again = embedding_bag_csr_packed(storage, d, read, off, path=pin, **kw)
+            got = embedding_bag_csr_packed(storage, d, read, off, **kw)
+            again = embedding_bag_csr_packed(storage, d, read, off, **kw)
             want = embedding_bag_csr_packed_reference(storage, d, clean, off, **kw)
             torch.testing.assert_close(got, want, **KERNEL_TOL)
             if not torch.equal(got, again):
-                raise AssertionError(f"int8 K2 not deterministic: d={d} {layout} {mode} {design}")
+                raise AssertionError(f"int8 K2 not deterministic: d={d} {layout} {mode}")
             cases += 1
             paths.add(("K2", used.load > 0, used.by_group))
         for pooling, masking in itertools.product((1, 3, 9), ("none", "random", "false")):
             n = EDGE_BAGS * pooling
-            pin = None if design == "chosen" else fitted_path(storage, d, n, EDGE_BAGS, 16)
-            used = pin or kernel_path(storage, d, n, EDGE_BAGS)
+            used = kernel_path(storage, d, n, EDGE_BAGS)
             ids = torch.randint(0, EDGE_ROWS, (n,), generator=gen, device=DEV, dtype=torch.int32)
             mask = {"none": None,
                     "random": torch.rand(n, generator=gen, device=DEV) < 0.6,
                     "false": torch.zeros(n, dtype=torch.bool, device=DEV)}[masking]
             read = ids if mask is None else torch.where(mask, ids, NEVER_READ)
             kw = dict(pooling=pooling, batch_size=EDGE_BAGS, mask=mask, scale=scale)
-            got = embedding_bag_fixedl(storage, d, read, path=pin, **kw)
-            again = embedding_bag_fixedl(storage, d, read, path=pin, **kw)
+            got = embedding_bag_fixedl(storage, d, read, **kw)
+            again = embedding_bag_fixedl(storage, d, read, **kw)
             want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
             torch.testing.assert_close(got, want, **KERNEL_TOL)
             if not torch.equal(got, again) or (pooling == 1 and not torch.equal(got, want)):
                 raise AssertionError(f"int8 K1 not deterministic, or not exact at L=1: d={d} "
-                                     f"{layout} {mode} {design}")
+                                     f"{layout} {mode}")
             cases += 1
             paths.add(("K1", used.load > 0, used.by_group))
     torch.cuda.synchronize()
@@ -2250,7 +2267,7 @@ def shards_4_phase(gen):
     return rows_out
 
 
-# -- masked: the compacted walk against the first masked walk -------------------
+# -- masked: the masked walk at a row shard's per-rank shapes --------------------
 
 MASKED_ID_SETS = 4  # id sets cycled at the long-bag shapes: each reads >= 130 MB of rows
 # the plain version takes 3-50 ms a call at the long-bag shapes: 2 calls a run, 5 runs
@@ -2287,18 +2304,16 @@ def masked_phase(gen, card):
     d=128 is K3's path), both walked by group, at the Kaggle big set's
     (10 tables, d=16 f32, L=1 and the pooling-1 CSR mixture), and at three
     multi-hot shapes walked by window: the Kaggle big set at L=4 (G=4, U=4)
-    and ``bigtable``'s tables in f32 at L=8 and L=32 (G=32, U=8; K1 runs
-    the first walk's instance on both pins where a bag fits one batch, L <=
-    8), B=8192.  Each shape checks that K1's chosen walk is the one named.
-    Each row times the first masked walk pinned (mask flags through the
-    batches) against the wrapper's compacted walk in turns (pin, new, new,
-    pin), holds both
-    against the plain version (KERNEL_TOL) and against each other bitwise,
-    and a repeated launch bitwise, with its bound and F.embedding_bag with
-    the mask as per-sample weights.  On each shard the row-shard lookups
-    (``_rowshard_pooled_lookup``, ``_csr_rowshard_pool``) launch the same
-    kernels once each, counted, with the same bits.  Returns the rows by
-    (shape, kernel, kept)."""
+    and ``bigtable``'s tables in f32 at L=8 and L=32 (G=32, U=8; K1 carries
+    the mask as flags there, masked K2 compacts), B=8192.  Each shape
+    checks that K1's chosen walk is the one named.  Each row times the
+    chosen walk beside its bound, the plain version and F.embedding_bag
+    with the mask as per-sample weights, holds it against the plain
+    version (KERNEL_TOL) and, with a repeated launch, bitwise against the
+    sum of each bag's kept entries in entry order (:func:`entry_order_sum`).
+    On each shard the row-shard lookups (``_rowshard_pooled_lookup``,
+    ``_csr_rowshard_pool``) launch the same kernels once each, counted,
+    with the same bits.  Returns the rows by (shape, kernel, kept)."""
     config = kaggle_config()
     hyb = HybridEmbeddingCollection.create(config.tables, ShardingPolicy.REPLICATE, device=DEV)
     big = [config.tables[i] for i in hyb.big_ids]
@@ -2352,34 +2367,31 @@ def masked_phase(gen, card):
             if chosen.by_group != by_group:
                 raise AssertionError(f"masked {shape}: K1 walks {path_label(chosen)}, not "
                                      f"{'by group' if by_group else 'by window'}")
-            pin = chosen._replace(compact=False)
             k1 = k1_case(f"masked {shape} K1 ({where}; {len(tables)} tables x B={BATCH}, "
-                         f"L={pooling})", stor, d, pooling, k1_sets,
-                         paths={"pin": pin, "chosen": None}, plain_timing=quick)
-            bitwise_pin(f"{shape} K1 {kept}", pin, lambda p: embedding_bag_fixedl(
-                stor, d, ids, pooling=pooling, batch_size=bags, mask=mask, path=p))
+                         f"L={pooling})", stor, d, pooling, k1_sets, plain_timing=quick)
+            k1_off = (torch.arange(bags + 1, device=DEV, dtype=torch.int32) * pooling)[None]
+            in_entry_order(f"{shape} K1 {kept}", lambda: embedding_bag_fixedl(
+                stor, d, ids, pooling=pooling, batch_size=bags, mask=mask),
+                entry_order_sum(stor, d, ids[None], k1_off, mask[None]))
             idx, off, kmask = k2_sets[0]
-            pin2 = kernel_path(stor, d, idx.shape[1], BATCH)._replace(compact=False)
             k2 = csr_case("K2 masked", f"masked {shape} K2 ({where}; {len(tables)} tables x "
                           f"B={BATCH}, {'pooling-1 mixture' if pooling == 1 else f'L={pooling}'})",
-                          stor, d, k2_sets, paths={"pin": pin2, "chosen": None},
-                          plain_timing=quick)
-            bitwise_pin(f"{shape} K2 {kept}", pin2, lambda p: embedding_bag_csr_packed(
-                stor, d, idx, off, batch_size=BATCH, mask=kmask, path=p))
+                          stor, d, k2_sets, plain_timing=quick)
+            in_entry_order(f"{shape} K2 {kept}", lambda: embedding_bag_csr_packed(
+                stor, d, idx, off, batch_size=BATCH, mask=kmask),
+                entry_order_sum(stor, d, idx, off, kmask))
+            k1["path"] = path_label(chosen)
+            k2["path"] = path_label(kernel_path(stor, d, idx.shape[1], BATCH))
             out[(shape, "K1", kept)], out[(shape, "K2", kept)] = k1, k2
             if stor is shard:
                 via_entry_points(shape, coll, shard, d, pooling, sets[0], k1_sets[0], k2_sets[0])
         for kernel, kept in itertools.product(("K1", "K2"), ("1 in 4", "all")):
             row = out[(shape, kernel, kept)]
-            pin_ms, new_ms = statistics.mean(row["turns_ms"]["pin"]), row["kernel_ms"]
-            print(f"masked {shape} {kernel}, {kept} kept ({row['path']}): pin {pin_ms:.5f} "
-                  f"ms -> new "
-                  f"{new_ms:.5f} ms (turns pin {row['turns_ms']['pin']}, new "
-                  f"{row['turns_ms']['chosen']}), x{pin_ms / new_ms:.3f}, share of bound "
-                  f"{row['bound_ms'] / pin_ms:.3f} -> {row['bound_ms'] / new_ms:.3f} (bound "
+            print(f"masked {shape} {kernel}, {kept} kept ({row['path']}): {row['kernel_ms']:.5f} "
+                  f"ms, share of bound {row['bound_ms'] / row['kernel_ms']:.3f} (bound "
                   f"{row['bound_ms']:.5f} ms), library {row['library_ms']:.5f} ms, plain "
-                  f"{row['plain_ms']:.5f} ms; bitwise equal, max abs err vs plain "
-                  f"{row['max_abs_err']:.3g} ({card})", flush=True)
+                  f"{row['plain_ms']:.5f} ms; bitwise the sum in entry order, max abs err vs "
+                  f"plain {row['max_abs_err']:.3g} ({card})", flush=True)
         del rep, storage, shard, coll, sets, k1_sets, k2_sets, ids, mask, idx, off, kmask
         gc.collect()
         torch.cuda.empty_cache()
@@ -2399,15 +2411,14 @@ def masked_only(card):
     print(f"masked phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def bitwise_pin(what, pin, run):
-    """The first masked walk (``pin``) and the compacted one, launched on
-    the same inputs, and the compacted one again: the same bits."""
-    new, old, again = run(None), run(pin), run(None)
+def in_entry_order(what, run, order):
+    """``run()`` twice, each bitwise ``order``, the sum in entry order."""
+    got, again = run(), run()
     torch.cuda.synchronize()
-    if not (torch.equal(new, old) and torch.equal(new, again)):
-        raise AssertionError(f"masked {what}: the compacted walk differs from the pinned first "
-                             f"masked walk by {(new - old).abs().max().item():.3g}, or from "
-                             f"itself by {(new - again).abs().max().item():.3g}")
+    if not (torch.equal(got, order) and torch.equal(again, order)):
+        raise AssertionError(f"masked {what}: the kernel differs from the sum in entry order "
+                             f"by {(got - order).abs().max().item():.3g}, or from itself by "
+                             f"{(got - again).abs().max().item():.3g}")
 
 
 def via_entry_points(shape, coll, shard, d, pooling, query, k1_set, k2_set):
@@ -3894,7 +3905,7 @@ def main(argv) -> int:
     shard_rows = shards_4_phase(gen)
     print(f"shards_4 phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- 13a. masked: the compacted masked walk at the per-rank shapes ----------
+    # -- 13a. masked: the masked walk at the per-rank shapes ----------------------
     t0 = time.perf_counter()
     masked_phase(gen, card)
     print(f"masked phase: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -40,15 +40,13 @@
 // caller multiplies the pooled output by the table's scale.  A lane takes 8
 // codes (two float4 stores) where the bags are short and 4 (one float4)
 // where they are long (C / B entries a bag fill a tile of the 8-byte group
-// past 32), as gather_pool.cu says; the first design's 16 codes a lane stay
-// as a pin.  On an H100 80GB HBM3 at 700 W (the int8 redesign's results in
-// PERF_APPENDIX.md, every path timed in turns in one run): the int8 Kaggle CSR
-// "table" 7.93 -> 6.99 us, 32 tables x 64 bags of 120 at d=64 41.97 ->
-// 27.85 us.
+// past 32), as gather_pool.cu says.  On an H100 80GB HBM3 at 700 W (the
+// int8 redesign's results in PERF_APPENDIX.md, every path timed in turns in
+// one run), against 16 codes a lane: the int8 Kaggle CSR "table" 7.93 ->
+// 6.99 us, 32 tables x 64 bags of 120 at d=64 41.97 -> 27.85 us.
 // ptxas registers, unmasked "table" / "row", by window then by group:
-// 8-byte 57/64, 64/64 (24-byte spills in "row"); 4-byte 40/48, 62/62;
-// 16-byte 75/74, 79/99.  int8 storage has no backward: the capacity mode
-// serves, it does not train.
+// 8-byte 57/64, 64/64 (24-byte spills in "row"); 4-byte 40/48, 62/62.  int8
+// storage has no backward: the capacity mode serves, it does not train.
 //
 // Design of csr_pool_kernel (the forward; pool_common.cuh has the walk).
 // The first kernel ran one thread per (bag, lane): 1.31 M threads, ~5 waves
@@ -79,23 +77,21 @@
 // registers, bf16 vector 60 / 80, f32 scalar 40 / 64, bf16 scalar 48 / 64;
 // no spills.
 //
-// The MASKED instances take the compacted walk (pool_common.cuh): a row
-// shard's dropped entries leave the walk before any row load, in entry
-// order, so the sums are bitwise those of the first masked walk, which
-// carried each entry's mask as a flag through the batches and stays as a
-// pin (compact = 0).  On an H100 80GB HBM3 at 700 W (PERF.md section 6,
-// the masked rows, pin and compacted in turns; the bound counts each
-// distinct kept row once), shard 0 of a ROW_HASH cut into 4,
-// fixed-L bags: 32 x 500k x 64 bf16, B=8192, L=120 0.517 -> 0.414 ms, 38
-// -> 48 % of the bound; 8 x 2M x 128 bf16, L=32 (K3's width) 0.0778 ->
-// 0.0709 ms, 65 -> 72 %; by window, 8 x 2M x 128 f32 at L=8 and L=32
-// 0.0464 -> 0.0433 and 0.1227 -> 0.1143 ms; Kaggle's pooling-1 mixture
-// 7.48 -> 7.29 us; all kept within 2.6 % (compacted faster).  ptxas of
-// the compacted instances, by window / by group: f32 vector 60 / 76, bf16 vector 60 / 80
-// (its flagged twins 64 / 64 with spills of 32-60 bytes by group), f32
-// scalar 40 / 64, bf16 scalar 48 / 64; int8 within -16 / +12 registers of
-// the flagged twins, spills of 12-28 bytes in the scalar "table" by window
-// and "row" by group instances.
+// The MASKED instances take the compacted walk (pool_common.cuh) on both
+// walks: a row shard's dropped entries leave the walk before any row load. On
+// an H100 80GB HBM3 at 700 W (PERF.md at 81231e4, section 6, the masked rows:
+// a walk that carried each mask as a flag through the batches and the
+// compacted one in turns; the bound counts each distinct kept row once),
+// shard 0 of a ROW_HASH cut into 4, fixed-L bags: 32 x 500k x 64 bf16,
+// B=8192, L=120 0.517 -> 0.414 ms, 38 -> 48 % of the bound; 8 x 2M x 128
+// bf16, L=32 (K3's width) 0.0778 -> 0.0709 ms, 65 -> 72 %; by window, 8 x 2M
+// x 128 f32 at L=8 and L=32 0.0464 -> 0.0433 and 0.1227 -> 0.1143 ms;
+// Kaggle's pooling-1 mixture 7.48 -> 7.29 us; all kept within 2.6 %
+// (compacted faster).  ptxas of the MASKED instances, by window / by group:
+// f32 vector 60 / 76, bf16 vector 60 / 80, f32 scalar 40 / 64, bf16 scalar 48
+// / 64; int8 "table" / "row", by window then by group: 8-byte 59/62, 64/76;
+// 4-byte 40/48, 62/62; scalar 40/40, 64/48 (spills of 12-28 bytes in the
+// scalar "table" by window and "row" by group instances).
 //
 // csr_grad_kernel (K4's backward) keeps the first design: one thread per
 // (bag, lane), one f32 atomicAdd of g[bag, lane] per (entry, lane), so rows
@@ -130,7 +126,7 @@ __device__ __forceinline__ void bag_range(const int* off, int b,
 
 constexpr int kUnroll = 4;  // U: row loads of a bag issued before the adds
 
-template <typename T, int LOAD, bool BY_GROUP, bool MASKED, bool SCALED, bool COMPACT>
+template <typename T, int LOAD, bool BY_GROUP, bool MASKED, bool SCALED>
 __global__ void __launch_bounds__(pel::kBlock)
 csr_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
                 const int* __restrict__ indices,
@@ -166,8 +162,8 @@ csr_pool_kernel(const T* __restrict__ storage, const float* __restrict__ scale,
     tile.ids = indices + t * capacity;
     tile.mask = MASKED ? mask + t * capacity : nullptr;
     tile.dst = bag ? out + (t * batch + b0 + g) * (long long)d : nullptr;
-    pel::pool_tile<T, LOAD, MASKED, kUnroll, BY_GROUP, SCALED, COMPACT>(storage, scale, d,
-                                                                        group, tile);
+    constexpr pel::Mask kMask = MASKED ? pel::Mask::kDrop : pel::Mask::kNone;
+    pel::pool_tile<T, LOAD, kMask, kUnroll, BY_GROUP, SCALED>(storage, scale, d, group, tile);
   }
 }
 
@@ -202,7 +198,7 @@ unsigned int grid_of(long long bags, const dim3& block) {
   return (unsigned int)((bags + block.y - 1) / block.y);
 }
 
-template <typename T, bool SCALED, int LOAD, bool BY_GROUP, bool MASKED, bool COMPACT>
+template <typename T, bool SCALED, int LOAD, bool BY_GROUP, bool MASKED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
                 long long capacity, int d, int group, int device, void* stream) {
@@ -213,30 +209,30 @@ int launch_pool(const void* storage, const void* scale, const void* indices,
   const long long tiles = (long long)tables * ((batch + bags_per_tile - 1) / bags_per_tile);
   const int warps_per_block = pel::kBlock / 32;
   const int grid =
-      pel::wave_blocks<&csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED, COMPACT>>(
+      pel::wave_blocks<&csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED>>(
           device, (tiles + warps_per_block - 1) / warps_per_block);
   if (grid < 0) return -grid;
-  csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED, COMPACT>
+  csr_pool_kernel<T, LOAD, BY_GROUP, MASKED, SCALED>
       <<<grid, pel::kBlock, 0, (cudaStream_t)stream>>>(
           (const T*)storage, (const float*)scale, (const int*)indices, (const int*)offsets,
           (const unsigned char*)mask, (float*)out, tables, batch, capacity, d, group);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SCALED, int LOAD, bool MASKED, bool COMPACT>
+template <typename T, bool SCALED, int LOAD, bool MASKED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
                 long long capacity, int d, int group, int by_group, int device,
                 void* stream) {
-  const auto launch = by_group ? launch_pool<T, SCALED, LOAD, true, MASKED, COMPACT>
-                               : launch_pool<T, SCALED, LOAD, false, MASKED, COMPACT>;
+  const auto launch = by_group ? launch_pool<T, SCALED, LOAD, true, MASKED>
+                               : launch_pool<T, SCALED, LOAD, false, MASKED>;
   return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
                 group, device, stream);
 }
 
-// load: the bytes a lane loads from a row at once (16; for int8 also 8 and
-// 4), or 0 for one element
-template <typename T, bool SCALED, bool MASKED, bool COMPACT>
+// load: the bytes a lane loads from a row at once (16 for f32 and bf16 rows,
+// 8 or 4 for int8 rows), or 0 for one element
+template <typename T, bool SCALED, bool MASKED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
                 long long capacity, int d, int load, int group, int by_group, int device,
@@ -244,11 +240,12 @@ int launch_pool(const void* storage, const void* scale, const void* indices,
   using Launch = int (*)(const void*, const void*, const void*, const void*, const void*,
                          void*, int, int, long long, int, int, int, int, void*);
   Launch chosen = nullptr;
-  if (load == 16) chosen = launch_pool<T, SCALED, 16, MASKED, COMPACT>;
-  if (load == 0) chosen = launch_pool<T, SCALED, 0, MASKED, COMPACT>;
+  if (load == 0) chosen = launch_pool<T, SCALED, 0, MASKED>;
   if constexpr (std::is_same_v<T, int8_t>) {
-    if (load == 8) chosen = launch_pool<T, SCALED, 8, MASKED, COMPACT>;
-    if (load == 4) chosen = launch_pool<T, SCALED, 4, MASKED, COMPACT>;
+    if (load == 8) chosen = launch_pool<T, SCALED, 8, MASKED>;
+    if (load == 4) chosen = launch_pool<T, SCALED, 4, MASKED>;
+  } else {
+    if (load == 16) chosen = launch_pool<T, SCALED, 16, MASKED>;
   }
   if (chosen == nullptr) return (int)cudaErrorInvalidValue;
   return chosen(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
@@ -257,17 +254,13 @@ int launch_pool(const void* storage, const void* scale, const void* indices,
 
 // The MASKED instances run where the caller gives a mask ([T, C] bytes, an
 // entry kept where its byte is set); the others take no per-entry load.
-// compact: a mask's dropped entries leave the walk before the row loads
-// (the wrapper's walk), or ride through it as flags (the first masked walk,
-// a pin).
 template <typename T, bool SCALED>
 int launch_pool(const void* storage, const void* scale, const void* indices,
                 const void* offsets, const void* mask, void* out, int tables, int batch,
-                long long capacity, int d, int load, int group, int by_group, int compact,
-                int device, void* stream) {
-  const auto launch = mask == nullptr ? launch_pool<T, SCALED, false, false>
-                      : compact       ? launch_pool<T, SCALED, true, true>
-                                      : launch_pool<T, SCALED, true, false>;
+                long long capacity, int d, int load, int group, int by_group, int device,
+                void* stream) {
+  const auto launch =
+      mask == nullptr ? launch_pool<T, SCALED, false> : launch_pool<T, SCALED, true>;
   return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
                 load, group, by_group, device, stream);
 }
@@ -279,19 +272,18 @@ extern "C" {
 int pel_csr_pool_f32(const void* storage, const void* indices,
                      const void* offsets, const void* mask, void* out, int tables,
                      int batch, long long capacity, int d, int load, int group,
-                     int by_group, int compact, int device, void* stream) {
+                     int by_group, int device, void* stream) {
   return launch_pool<float, false>(storage, nullptr, indices, offsets, mask, out, tables,
-                                   batch, capacity, d, load, group, by_group, compact, device,
-                                   stream);
+                                   batch, capacity, d, load, group, by_group, device, stream);
 }
 
 int pel_csr_pool_bf16(const void* storage, const void* indices,
                       const void* offsets, const void* mask, void* out, int tables,
                       int batch, long long capacity, int d, int load, int group,
-                      int by_group, int compact, int device, void* stream) {
+                      int by_group, int device, void* stream) {
   return launch_pool<__nv_bfloat16, false>(storage, nullptr, indices, offsets, mask, out,
                                            tables, batch, capacity, d, load, group, by_group,
-                                           compact, device, stream);
+                                           device, stream);
 }
 
 // int8 codes; scale: one f32 a row ("row" mode), or NULL ("table" mode: the
@@ -299,11 +291,11 @@ int pel_csr_pool_bf16(const void* storage, const void* indices,
 int pel_csr_pool_i8(const void* storage, const void* scale, const void* indices,
                     const void* offsets, const void* mask, void* out, int tables,
                     int batch, long long capacity, int d, int load, int group,
-                    int by_group, int compact, int device, void* stream) {
+                    int by_group, int device, void* stream) {
   const auto launch =
       scale != nullptr ? launch_pool<int8_t, true> : launch_pool<int8_t, false>;
   return launch(storage, scale, indices, offsets, mask, out, tables, batch, capacity, d,
-                load, group, by_group, compact, device, stream);
+                load, group, by_group, device, stream);
 }
 
 // mask: [T, C] bytes, an entry kept where its byte is set; NULL: none (the

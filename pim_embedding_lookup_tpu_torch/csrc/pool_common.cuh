@@ -7,8 +7,8 @@
 // consecutive, so their entries form one contiguous range [S, E) of the ids.
 // The caller gives each lane its bag's entry range [s, e) and output row.
 //
-// A row is read in chunks of LOAD bytes a lane: 16 (one vector load; 4 f32,
-// 8 bf16 or 16 int8 lanes), and for int8 rows also 8 or 4 (8 or 4 codes);
+// A row is read in chunks of LOAD bytes a lane: 16 for f32 and bf16 rows (one
+// vector load; 4 f32 or 8 bf16 lanes), 8 or 4 for int8 rows (8 or 4 codes);
 // LOAD = 0 is the scalar path, one element a lane.  int8 rows (the capacity
 // mode's codes) are converted to f32 as they are added; where a 1-D f32
 // scale array is given (SCALED, the "row" scale mode), each entry adds code *
@@ -19,9 +19,8 @@
 // reads chunks g, g+G, g+2G, ... of each row; a row of more than 32 chunks
 // takes several rounds, each walking the bag's entries again.  A lane writes
 // its chunk's f32 sums as float4 stores: one at LOAD = 16 f32 and at LOAD =
-// 4 int8, two at 8, four at 16 (the wrapper gives int8 rows 8 where bags
-// are short, 4 where they are long; 16, the first int8 design, only where a
-// caller pins it).
+// 4 int8, two at 16 bf16 and at 8 int8 (the wrapper gives int8 rows 8 where
+// bags are short, 4 where they are long).
 //
 // Ids reach the groups in one of two walks, chosen per launch from the mean
 // entries of a tile (the wrapper's choice):
@@ -40,25 +39,26 @@
 // once: deterministic, no atomics.  Entries outside a lane's [s, e)
 // (padding, other bags) and masked entries are never read, nor their scales.
 //
-// A mask (MASKED: a row shard's ownership, or the dense wire's padding)
-// drops entries.  The compacted walk (COMPACT, the wrapper's) drops them
-// before any row load, so that each batch of U loads is U kept entries:
-// - by window: one __ballot_sync of the window's keep flags; each group
-//   takes its bag's bits of it and walks the set ones, lowest first (__ffs,
-//   then clear it), so a window takes the warp's most kept entries of a bag
-//   in steps, not its most entries;
-// - by group: a round's ids are loaded so that lane g of a group holds
-//   entries v*G + g (v < U), so the ballot of slot v holds G consecutive
-//   entries in order; each kept entry's rank is the kept count of the slots
-//   before it plus a popcount of the lanes before it, and the group writes
-//   its kept ids at their ranks into its span of a per-warp buffer in
-//   shared memory, then reads them back U at a time: ceil(kept / U)
-//   batches a round, not ceil(entries / U).
-// Both keep entry order, so the sums are bitwise those of the first masked
-// walk (!COMPACT, kept as a pin), which carries each entry's mask as a
-// flag through the walk and issues only the kept loads of each batch: on a
-// row shard of 4, about one load of U in flight.  Masked K2 runs the
-// compacted walk on both walks; K1 by group only (gather_pool.cu says why).
+// A mask (a row shard's ownership, or the dense wire's padding) drops
+// entries.  How a walk treats it (Mask) follows from the kernel and walk:
+// - kDrop, the compacted walk (masked K2 on both walks, K1 by group): the
+//   masked entries leave the walk before any row load, so that each batch
+//   of U loads is U kept entries:
+//   - by window: one __ballot_sync of the window's keep flags; each group
+//     takes its bag's bits of it and walks the set ones, lowest first
+//     (__ffs, then clear it), so a window takes the warp's most kept
+//     entries of a bag in steps, not its most entries;
+//   - by group: a round's ids are loaded so that lane g of a group holds
+//     entries v*G + g (v < U), so the ballot of slot v holds G consecutive
+//     entries in order; each kept entry's rank is the kept count of the
+//     slots before it plus a popcount of the lanes before it, and the group
+//     writes its kept ids at their ranks into its span of a per-warp buffer
+//     in shared memory, then reads them back U at a time: ceil(kept / U)
+//     batches a round, not ceil(entries / U);
+// - kFlags (K1 by window; gather_pool.cu says why): each entry's mask rides
+//   through the walk as a flag, and a batch issues only its kept loads (on
+//   a row shard of 4, about one load of U).
+// Both sum a bag's kept entries in entry order.
 
 #pragma once
 
@@ -122,6 +122,7 @@ __device__ __forceinline__ float scaled(float code, float s) { return __fmul_rn(
 // the bytes a lane loads at once, 0 for one element.
 template <typename T, int LOAD>
 struct Chunk {  // scalar path (LOAD = 0): one element
+  static_assert(LOAD == 0, "no chunk of LOAD bytes for this storage type");
   static constexpr int P = 1;
   using Raw = float;
   __device__ static Raw load(const T* p) { return ld_elem(p); }
@@ -159,26 +160,10 @@ struct Chunk<__nv_bfloat16, 16> {
   }
 };
 
-// int8: 16 codes a lane (the capacity mode's first design)
-template <>
-struct Chunk<int8_t, 16> {
-  static constexpr int P = 16;
-  using Raw = uint4;
-  __device__ static Raw load(const int8_t* p) { return ld_row(p); }
-  __device__ static float code(unsigned w, int k) {  // byte k of w, signed
-    return (float)(signed char)(w >> (8 * k));
-  }
-  __device__ static void add(float (&acc)[P], const Raw& v) {
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] += code(w[i / 4], i % 4);
-  }
-  __device__ static void add(float (&acc)[P], const Raw& v, float s) {
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] += scaled(code(w[i / 4], i % 4), s);
-  }
-};
+// Byte k of an int8 row's word w, as the signed code's f32 value.
+__device__ __forceinline__ float code(unsigned w, int k) {
+  return (float)(signed char)(w >> (8 * k));
+}
 
 // int8: 4 codes a lane, loaded as one 32-bit word: a lane owns 4 outputs
 // and writes them with one float4 store, so a group of d/4 lanes reads
@@ -190,11 +175,11 @@ struct Chunk<int8_t, 4> {
   __device__ static Raw load(const int8_t* p) { return ld_row4(p); }
   __device__ static void add(float (&acc)[P], Raw w) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] += Chunk<int8_t, 16>::code(w, i);
+    for (int i = 0; i < 4; ++i) acc[i] += code(w, i);
   }
   __device__ static void add(float (&acc)[P], Raw w, float s) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] += scaled(Chunk<int8_t, 16>::code(w, i), s);
+    for (int i = 0; i < 4; ++i) acc[i] += scaled(code(w, i), s);
   }
 };
 
@@ -207,12 +192,12 @@ struct Chunk<int8_t, 8> {
   __device__ static void add(float (&acc)[P], const Raw& v) {
     const unsigned w[2] = {v.x, v.y};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] += Chunk<int8_t, 16>::code(w[i / 4], i % 4);
+    for (int i = 0; i < 8; ++i) acc[i] += code(w[i / 4], i % 4);
   }
   __device__ static void add(float (&acc)[P], const Raw& v, float s) {
     const unsigned w[2] = {v.x, v.y};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] += scaled(Chunk<int8_t, 16>::code(w[i / 4], i % 4), s);
+    for (int i = 0; i < 8; ++i) acc[i] += scaled(code(w[i / 4], i % 4), s);
   }
 };
 
@@ -259,11 +244,16 @@ __device__ __forceinline__ void store_chunk(float* p, const float (&acc)[P]) {
   }
 }
 
+// How a walk treats a mask (the head of this file): none (no mask, no
+// per-entry load), flags through the walk (by window only), or dropped
+// before the row loads (the compacted walk).
+enum class Mask { kNone, kFlags, kDrop };
+
 // One warp tile as one lane sees it.  Positions count entries from ids
 // (and mask); S and E are the same in every lane.
 struct Tile {
   const int* ids;             // entry e's id is ids[e]
-  const unsigned char* mask;  // MASKED: entry e is kept where mask[e] != 0; nullptr: all
+  const unsigned char* mask;  // entry e kept where mask[e] != 0; nullptr: all (kNone: unread)
   int S, E;                   // entries of the tile's bags; E <= S: none
   int s, e;                   // this lane's bag; s == e where it has no entries
   float* dst;                 // this lane's output row; nullptr: write nothing
@@ -315,20 +305,19 @@ __device__ __forceinline__ void read_ids(const int* p, int (&id)[U]) {
   }
 }
 
-// SCALED: ``scale`` holds one f32 a row, indexed by the row's id.  COMPACT
-// (with MASKED): masked entries are dropped before the row loads.
+// SCALED: ``scale`` holds one f32 a row, indexed by the row's id.
 // ROUND_BF16 (f32 rows only): each element is added as f32(bf16(w))
 // (Bf16Rounded); off, the walk is the same code as without the flag.
-template <typename T, int LOAD, bool MASKED, int U, bool BY_GROUP, bool SCALED,
-          bool COMPACT = false, bool ROUND_BF16 = false>
+template <typename T, int LOAD, Mask MASK, int U, bool BY_GROUP, bool SCALED,
+          bool ROUND_BF16 = false>
 __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
                                           const float* __restrict__ scale, int d,
                                           int group, const Tile& tile) {
   static_assert(!ROUND_BF16 || (std::is_same_v<T, float> && !SCALED),
                 "bf16 rounding is an instance of unscaled f32 rows");
+  static_assert(!BY_GROUP || MASK != Mask::kFlags, "by group a mask is dropped, not flagged");
   using C = std::conditional_t<ROUND_BF16, Bf16Rounded<LOAD>, Chunk<T, LOAD>>;
   constexpr int P = C::P;
-  constexpr bool kCompact = MASKED && COMPACT;
   const int lane = threadIdx.x & 31;
   const int gl = lane & (group - 1);  // this lane's place in its group
   const int first = lane - gl;        // its group's first lane
@@ -342,7 +331,7 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
 #pragma unroll
     for (int q = 0; q < P; ++q) acc[q] = 0.0f;
 
-    if constexpr (!BY_GROUP && kCompact) {
+    if constexpr (!BY_GROUP && MASK == Mask::kDrop) {
       for (int base = tile.S; base < tile.E; base += 32) {  // windows of 32 entries
         const int pos = base + lane;
         const bool in = pos < tile.E;
@@ -371,7 +360,7 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
             if (ok[u]) add_chunk<C, SCALED>(acc, raw[u], SCALED ? sc[u] : 1.0f);
         }
       }
-    } else if constexpr (BY_GROUP && kCompact) {
+    } else if constexpr (BY_GROUP && MASK == Mask::kDrop) {
       int* const kept = kept_ids<U>() + first * U;  // this group's span
       const unsigned mine = group == 32 ? kFull : ((1u << group) - 1u) << first;
       const unsigned before_me = mine & ((1u << lane) - 1u);  // its lanes before this one
@@ -415,7 +404,7 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
         const bool in = pos < tile.E;
         const int ids = in ? __ldg(tile.ids + pos) : 0;
         unsigned keep = 1u;
-        if constexpr (MASKED)
+        if constexpr (MASK == Mask::kFlags)
           keep = in && (tile.mask == nullptr || __ldg(tile.mask + pos) != 0);
         const int lo = max(tile.s, base) - base;           // this bag's first entry here
         const int n = min(tile.e, base + 32) - base - lo;  // its entries here (<= 0: none)
@@ -429,7 +418,7 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
             const int src = (lo + k + u) & 31;
             const int id = __shfl_sync(kFull, ids, src);
             bool take = on && k + u < n;
-            if constexpr (MASKED) take = __shfl_sync(kFull, keep, src) != 0u && take;
+            if constexpr (MASK == Mask::kFlags) take = __shfl_sync(kFull, keep, src) != 0u && take;
             ok[u] = take;
             if (take) {
               raw[u] = C::load(column + (long long)id * d);
@@ -450,14 +439,10 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
         const int cursor = tile.s + r * span;
         const int n = min(tile.e - cursor, span);  // entries this round (<= 0: none)
         int ids[U];
-        unsigned keep[U];
 #pragma unroll
         for (int v = 0; v < U; ++v) {  // lane gl holds entries gl*U .. gl*U+U-1
           const int j = gl * U + v;
           ids[v] = j < n ? __ldg(tile.ids + cursor + j) : 0;
-          keep[v] = 1u;
-          if constexpr (MASKED)
-            keep[v] = j < n && (tile.mask == nullptr || __ldg(tile.mask + cursor + j) != 0);
         }
         const int batches =
             (int)__reduce_max_sync(kFull, n > 0 ? (unsigned)((n + U - 1) / U) : 0u);
@@ -468,8 +453,6 @@ __device__ __forceinline__ void pool_tile(const T* __restrict__ storage,
           for (int v = 0; v < U; ++v) {
             id[v] = __shfl_sync(kFull, ids[v], first + q);
             take[v] = on && q * U + v < n;
-            if constexpr (MASKED)
-              take[v] = __shfl_sync(kFull, keep[v], first + q) != 0u && take[v];
           }
           gather_add<C, U, SCALED>(acc, column, scale, d, id, take);
         }

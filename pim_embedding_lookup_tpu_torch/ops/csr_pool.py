@@ -59,12 +59,12 @@ from .ragged import segment_ids_from_offsets
 
 # (source, indices, offsets, mask or NULL, out, tables, batch, capacity, d,
 # device, stream); the pool kernels also take the row path and the walk
-# after d: load, group, by_group and compact
+# after d: load, group and by_group
 _LAUNCH_ARGS = [ctypes.c_void_p] * 5 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
-_POOL_ARGS = _LAUNCH_ARGS[:9] + [ctypes.c_int] * 4 + _LAUNCH_ARGS[9:]
+_POOL_ARGS = _LAUNCH_ARGS[:9] + [ctypes.c_int] * 3 + _LAUNCH_ARGS[9:]
 _SIGNATURES = {
     "pel_csr_pool_f32": (_POOL_ARGS, ctypes.c_int),
     "pel_csr_pool_bf16": (_POOL_ARGS, ctypes.c_int),
@@ -103,7 +103,7 @@ def _launch(fn_name, src, indices, offsets, out, batch_size, d, *path, mask=None
             lead=()):
     """One launch of a csr_pool.cu kernel over [T, C] ids and [T, B+1]
     offsets (and the [T, C] mask, if any) on ``src``'s device and current
-    stream; ``path`` is the pool kernels' (load, group, by_group, compact),
+    stream; ``path`` is the pool kernels' (load, group, by_group),
     ``lead`` the pointers the int8 entry takes after the source's (its
     scale)."""
     if src.device.type != "cuda":
@@ -185,7 +185,7 @@ def embedding_bag_csr_packed(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [C] or [T, C] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
-    path: tuple | None = None,  # pinned KernelPath (load, group, by_group[, compact])
+    path: tuple | None = None,  # pinned KernelPath (load, group, by_group)
 ) -> torch.Tensor:  # [B, d] or [T*B, d] f32
     """SUM-pooled CSR embedding bag over fused storage (K2; K3 at d=128).
     Row t*B + b of the result pools bag b of table t.  ``mask`` keeps the

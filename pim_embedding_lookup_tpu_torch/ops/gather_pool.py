@@ -14,18 +14,17 @@ entries without reading them.  A group of threads pools each bag and a
 warp several bags: :func:`row_load` picks how many bytes of a row a lane
 loads at once (16; for int8 rows 8, or 4 for long bags; 0: one element a
 thread) and :func:`group_size` the threads a bag, from the storage pointer
-and d; :func:`walks_by_group` picks how ids reach the groups from L.  The
-kernel drops masked entries before it issues row loads, so that each batch
-of loads in flight is kept entries (the compacted walk; by group, since a
-tile that walks by window holds bags of at most 32 entries, where the card
-measured no gain, and there the kernel runs the first walk on either pin);
-the first masked walk, which carried each entry's mask as a flag through
-the batches, stays reachable as a pin (``compact=False``) to be measured
-against, and sums bitwise alike.  A caller may pin all four with ``path=(load, group,
-by_group, compact)`` (a :class:`KernelPath`, the counterpart of the Pallas
-kernels' ``tile_b``/``nbuf``; ``tools/kernel_lab.py`` sweeps the first
-three): :func:`kernel_path` refuses a path the kernel cannot serve, and a
-pinned path on a CPU tensor, which has no kernel.
+and d; :func:`walks_by_group` picks how ids reach the groups from L.  By
+group the kernel drops masked entries before it issues row loads, so that
+each batch of loads in flight is kept entries (the compacted walk); by
+window, where a tile holds bags of at most 32 entries and the card
+measured no gain from it, each entry's mask rides through the batches as
+a flag.  Both sum a bag's kept entries in entry order.  A caller may pin
+the three with ``path=(load, group, by_group)`` (a :class:`KernelPath`, the
+counterpart of the Pallas kernels' ``tile_b``/``nbuf``;
+``tools/kernel_lab.py`` sweeps them): :func:`kernel_path` refuses a path
+the kernel cannot serve, and a pinned path on a CPU tensor, which has no
+kernel.
 
 int8 storage (the capacity mode's codes) has its own instances: the codes
 are pooled in f32, and with a 1-D f32 ``scale`` of one value a row (the
@@ -33,11 +32,9 @@ are pooled in f32, and with a 1-D f32 ``scale`` of one value a row (the
 mode) the caller folds the table's scale into the pooled output.  A lane
 loads 8 codes (two float4 stores of their sums; d/8 threads a bag) where
 bags are short, and 4 codes as one 32-bit word (one float4; d/4 threads)
-where they are long.  The first int8 design (one thread per 16 codes, four
-float4 stores a lane) stays reachable as ``path=(16, d // 16, by_group)``
-(:func:`fitted_path`).  The JAX package gathers int8 dict storage
-with XLA (its ``_gather_f32``); ``int8_launches`` and ``int8_row_launches``
-count these launches.
+where they are long (:func:`fitted_path` pins either).  The JAX package
+gathers int8 dict storage with XLA (its ``_gather_f32``);
+``int8_launches`` and ``int8_row_launches`` count these launches.
 
 The plain version runs only for CPU tensors; a CUDA tensor launches the
 kernel or raises.  Where the storage requires grad (and grad mode is on),
@@ -69,11 +66,11 @@ from . import _build
 
 _STORAGE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}
 _MAX_DIM = 1024
-_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
 # the row loads (bytes a lane loads at once) each storage dtype's kernels
 # have besides 0, one element a lane
-_LOADS = {torch.float32: (16,), torch.bfloat16: (16,), torch.int8: (4, 8, 16)}
+_LOADS = {torch.float32: (16,), torch.bfloat16: (16,), torch.int8: (4, 8)}
 _WARP = 32
 _SIGNATURES = {
     "pel_gather_pool_f32": (_LAUNCH_ARGS, ctypes.c_int),
@@ -91,9 +88,6 @@ class KernelPath(NamedTuple):
     load: int  # bytes of a row a lane loads at once; 0: one element (the scalar path)
     group: int  # threads a bag, a power of two in [1, 32]
     by_group: bool  # ids along each bag (True) or in windows shared by the warp
-    # masked entries dropped before the row loads (True), or flags through
-    # the batches (False: the first masked walk, only ever pinned)
-    compact: bool = True
 
 
 def _check_storage(storage, d, scale=None):
@@ -167,12 +161,11 @@ def kernel_path(storage: torch.Tensor, d: int, entries: int, bags: int,
                 path: tuple | None = None) -> KernelPath:
     """The :class:`KernelPath` of a pool kernel's launch over ``entries``
     ids in ``bags`` bags: what :func:`row_load`, :func:`group_size` and
-    :func:`walks_by_group` pick, with the compacted walk, or ``path`` where
-    the caller pins one (``(load, group, by_group)``, or with ``compact``
-    after them; ``compact=False`` is reachable only so).  Raises
-    ``ValueError`` for a pinned path the kernels cannot serve: a group
-    that is not a power of two in [1, 32], a row load the storage dtype's
-    kernels do not have (f32 and bf16: 16; int8: 4, 8 and 16) or whose
+    :func:`walks_by_group` pick, or ``path`` where the caller pins one
+    (``(load, group, by_group)``).  Raises ``ValueError`` for a pinned
+    path the kernels cannot serve: one of other than those three fields, a
+    group that is not a power of two in [1, 32], a row load the storage
+    dtype's kernels do not have (f32 and bf16: 16; int8: 4 and 8) or whose
     bytes the rows or the storage pointer are not aligned to, or any path
     on a tensor that is not on a CUDA device (the plain version has no
     path)."""
@@ -180,7 +173,9 @@ def kernel_path(storage: torch.Tensor, d: int, entries: int, bags: int,
         load = row_load(storage, d, entries, bags)
         group = group_size(storage, d, load)
         return KernelPath(load, group, walks_by_group(group, entries, bags))
-    load, group, by_group, compact = KernelPath(*path)
+    if len(path) != len(KernelPath._fields):
+        raise ValueError(f"a kernel path is (load, group, by_group), got {tuple(path)}")
+    load, group, by_group = path
     if not 1 <= group <= _WARP or group & (group - 1):
         raise ValueError(f"group {group} is not a power of two in [1, {_WARP}]")
     if load != 0 and load not in _LOADS[storage.dtype]:
@@ -192,16 +187,15 @@ def kernel_path(storage: torch.Tensor, d: int, entries: int, bags: int,
     if storage.device.type != "cuda":
         raise ValueError(f"a kernel path was pinned for a tensor on {storage.device}: "
                          "only the card's kernels have paths")
-    return KernelPath(int(load), int(group), bool(by_group), bool(compact))
+    return KernelPath(int(load), int(group), bool(by_group))
 
 
 def fitted_path(storage: torch.Tensor, d: int, entries: int, bags: int,
                 load: int) -> KernelPath:
     """The path that loads ``load`` bytes of a row a lane where the rows
     and the storage pointer take it, else the scalar path, with the group
-    and walk the kernels pick for that load: a pin for :func:`kernel_path`.
-    At ``load`` 16 on int8 storage this is the first int8 design (16 codes
-    a lane), kept to be measured against the chosen one."""
+    and walk the kernels pick for that load: a pin for :func:`kernel_path`
+    (int8 rows' 8- and 4-byte loads, each at any bag length)."""
     if not _aligned(storage, d, load):
         load = 0
     group = group_size(storage, d, load)
@@ -272,7 +266,7 @@ def embedding_bag_fixedl(
     batch_size: int,
     mask: torch.Tensor | None = None,  # [B*L] bool/uint8
     scale: torch.Tensor | None = None,  # [rows] f32, with int8 storage only
-    path: tuple | None = None,  # pinned KernelPath (load, group, by_group[, compact])
+    path: tuple | None = None,  # pinned KernelPath (load, group, by_group)
     round_bf16: bool = False,  # each entry adds f32(bf16(w)): f32 or bf16 storage
 ) -> torch.Tensor:  # [B, d] f32
     """SUM-pooled fixed-L embedding bag over fused storage.  Unmasked ids

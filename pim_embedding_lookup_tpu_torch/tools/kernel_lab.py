@@ -146,7 +146,7 @@ def sweep_paths(storage, d, entries, bags, args, by_group_ok=True) -> list:
 def path_name(path) -> str:
     if path is None:
         return "auto"
-    load, group, by_group, _ = path  # every path the lab sweeps is the compacted walk
+    load, group, by_group = path
     return f"{f'vector{load}' if load else 'scalar'}:G={group}:{'group' if by_group else 'window'}"
 
 

@@ -830,23 +830,22 @@ def test_mesh_of_one_gradients_match_replicate(nccl_mesh, policy):
 
 # -- int8 storage: the capacity mode's instances of K1 and K2 --------------------
 
-# (d, layout): vector rows (4-byte words; 16-byte loads where d is a
-# multiple of 16) and the scalar path (an [N, d] view one byte into its
+# (d, layout): vector rows (4-byte words; 8-byte loads where d is a
+# multiple of 8) and the scalar path (an [N, d] view one byte into its
 # buffer); d = 64 is the capacity bench's width
 INT8_STORAGE = [(d, layout) for d in (4, 16, 20, 32, 64, 128)
                 for layout in ("packed", "unpacked", "unaligned")
                 if layout != "packed" or 128 % d == 0]
 # (scale mode, int8 path): the path the wrapper picks (8- or 4-byte loads
-# by bag length); pinned, the 16-byte loads of the first int8 design and
-# each of the loads the wrapper picks from
+# by bag length), and pinned, each of the loads it picks from
 INT8_PATHS = [(mode, name) for mode in ("table", "row")
-              for name in ("chosen", "16-byte", "8-byte", "4-byte")]
+              for name in ("chosen", "8-byte", "4-byte")]
 
 
 def _int8_path(name, storage, d, entries, bags):
     """The pin of an INT8_PATHS name for this storage (None: the wrapper's
     choice), where the storage takes its load, else the scalar path."""
-    load = {"chosen": None, "16-byte": 16, "8-byte": 8, "4-byte": 4}[name]
+    load = {"chosen": None, "8-byte": 8, "4-byte": 4}[name]
     return None if load is None else fitted_path(storage, d, entries, bags, load)
 
 
@@ -939,16 +938,33 @@ def test_int8_csr_kernel_edge_cases(cuda, d, layout, mode, path, tables, max_len
     assert torch.equal(got[single], want[single])
 
 
-# -- the masked walk: compacted, against the first masked walk pinned ------------
+# -- the masked walk: the kernels' sums in entry order ------------------------------
 
 MASKED_L = 40  # past a 32-id window and a by-group round of G*U entries
 
 
-def _masked_walks(device, storage, d, kernel, by_group, keep, seed, scale=None):
+def _entry_order(storage, d, idx, off, mask, scale=None):
+    """Each bag's kept entries summed in f32 in entry order on the CPU,
+    code times scale where ``scale`` is given: [T*B, d] for [T, C] ids and
+    [T, B+1] offsets, on the storage's device.  Masked entries and padding
+    are never read."""
+    idx, off, mask = idx.cpu(), off.cpu(), mask.cpu()
+    rows = storage.reshape(-1, d).cpu()
+    scale = None if scale is None else scale.cpu()
+    acc = torch.zeros(off.numel() - off.shape[0], d)
+    for bag, (t, b) in enumerate(itertools.product(range(off.shape[0]), range(off.shape[1] - 1))):
+        for e in range(int(off[t, b]), int(off[t, b + 1])):
+            if mask[t, e]:
+                i = int(idx[t, e])
+                acc[bag] += rows[i].float() if scale is None else rows[i].float() * scale[i]
+    return acc.to(storage.device)
+
+
+def _masked_walk(device, storage, d, kernel, by_group, keep, seed, scale=None):
     """One masked K1 (L = MASKED_L) or K2 (two tables of bags of 0-80 ids)
-    launch on each walk: the wrapper's compacted walk, pinned to
-    ``by_group``, against the first masked walk on the same pin and against
-    the plain version; masked entries and padding hold NEVER_READ."""
+    launch on the chosen path, its walk pinned to ``by_group``, twice:
+    bitwise the sum in entry order (:func:`_entry_order`) and within TOL
+    of the plain version; masked entries and padding hold NEVER_READ."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if kernel == "K1":
         n = EDGE_BAGS * MASKED_L
@@ -956,50 +972,52 @@ def _masked_walks(device, storage, d, kernel, by_group, keep, seed, scale=None):
         mask = torch.rand(n, generator=gen, device=device) < keep
         kw = dict(pooling=MASKED_L, batch_size=EDGE_BAGS, mask=mask, scale=scale)
         pin = kernel_path(storage, d, n, EDGE_BAGS)._replace(by_group=by_group)
-        run = lambda p: embedding_bag_fixedl(  # noqa: E731
-            storage, d, torch.where(mask, ids, NEVER_READ), path=p, **kw)
+        got, again = (embedding_bag_fixedl(storage, d, torch.where(mask, ids, NEVER_READ),
+                                           path=pin, **kw) for _ in range(2))
         want = embedding_bag_fixedl_reference(storage, d, ids, **kw)
+        off = torch.arange(EDGE_BAGS + 1, dtype=torch.int32)[None] * MASKED_L
+        order = _entry_order(storage, d, ids[None], off, mask[None], scale)
     else:
         idx, off = _edge_csr(device, seed, 2, 80, False)
         mask = torch.rand(tuple(idx.shape), generator=gen, device=device) < keep
         clean = torch.where(idx == NEVER_READ, 0, idx)
         kw = dict(batch_size=EDGE_BAGS, mask=mask, scale=scale)
         pin = kernel_path(storage, d, idx.shape[1], EDGE_BAGS)._replace(by_group=by_group)
-        run = lambda p: embedding_bag_csr_packed(  # noqa: E731
-            storage, d, torch.where(mask, idx, NEVER_READ), off, path=p, **kw)
+        got, again = (embedding_bag_csr_packed(storage, d, torch.where(mask, idx, NEVER_READ),
+                                               off, path=pin, **kw) for _ in range(2))
         want = embedding_bag_csr_packed_reference(storage, d, clean, off, **kw)
-    assert pin.compact
-    new, old, again = run(pin), run(pin._replace(compact=False)), run(pin)
+        order = _entry_order(storage, d, idx, off, mask, scale)
     torch.cuda.synchronize()
-    torch.testing.assert_close(new, want, **TOL)
-    assert torch.equal(new, old)
-    assert torch.equal(new, again)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, order)
+    assert torch.equal(again, order)
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2"])
 @pytest.mark.parametrize("by_group", [False, True], ids=["window", "group"])
 @pytest.mark.parametrize("keep", [0.25, 1.0, 0.0])
 @pytest.mark.parametrize("dtype,d,layout", EDGE_STORAGE)
-def test_compacted_walk_equals_first_masked_walk(cuda, dtype, d, layout, keep, by_group,
-                                                 kernel):
-    """The compacted masked walk sums the same kept entries in the same
-    order as the first masked walk (``compact=False``, pinned): bitwise
-    equal on both walks, 1 entry in 4 kept (a row shard of 4), all kept
-    and none kept, and within TOL of the plain version."""
+def test_masked_walk_sums_in_entry_order(cuda, dtype, d, layout, keep, by_group, kernel):
+    """K1 (by window the mask rides as flags, by group it is compacted) and
+    masked K2 (compacted on both walks) add each bag's kept entries in
+    entry order: bitwise the f32 sum of them in that order, 1 entry in 4
+    kept (a row shard of 4), all kept and none kept, and within TOL of the
+    plain version."""
     storage = _edge_storage(cuda, dtype, d, layout)
-    _masked_walks(cuda, storage, d, kernel, by_group, keep, seed=d + int(keep * 4))
+    _masked_walk(cuda, storage, d, kernel, by_group, keep, seed=d + int(keep * 4))
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2"])
 @pytest.mark.parametrize("by_group", [False, True], ids=["window", "group"])
 @pytest.mark.parametrize("mode", ["table", "row"])
 @pytest.mark.parametrize("d,layout", INT8_STORAGE)
-def test_int8_compacted_walk_equals_first_masked_walk(cuda, d, layout, mode, by_group, kernel):
+def test_int8_masked_walk_sums_in_entry_order(cuda, d, layout, mode, by_group, kernel):
     """The same for int8 K1 and K2 in both scale modes, 1 entry in 4 kept:
-    masked entries' scales are never read either."""
+    each entry adds its code times its scale, rounded once; masked
+    entries' scales are never read either."""
     storage, scale = _int8_storage(cuda, d, layout)
-    _masked_walks(cuda, storage, d, kernel, by_group, 0.25, seed=d,
-                  scale=scale if mode == "row" else None)
+    _masked_walk(cuda, storage, d, kernel, by_group, 0.25, seed=d,
+                 scale=scale if mode == "row" else None)
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):

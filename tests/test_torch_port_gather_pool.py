@@ -155,7 +155,7 @@ def test_row_path_picks_vector_loads_and_group(dtype, d, offset, want):
     assert storage.is_contiguous() and storage.storage_offset() == offset
     path = kernel_path(storage, d, 64, 64)
     assert (path.load > 0, path.group) == want
-    assert path == (row_load(storage, d), want[1], False, True)
+    assert path == (row_load(storage, d), want[1], False)
     if dtype != torch.int8:
         assert path.load == 16 * want[0]
 
@@ -175,7 +175,7 @@ def test_int8_row_load_follows_bag_length(d, pooling, want):
     are long enough to walk by group."""
     storage = torch.zeros(64, d, dtype=torch.int8)
     bags = 100
-    assert kernel_path(storage, d, bags * pooling, bags) == (*want, True)
+    assert kernel_path(storage, d, bags * pooling, bags) == want
     assert row_load(storage, d, bags * pooling, bags) == want[0]
 
 
@@ -183,11 +183,11 @@ def test_int8_row_load_follows_bag_length(d, pooling, want):
     (16, 0, (12, 4, False), "row loads of 12 bytes"),    # no such load
     (16, 0, (32, 1, False), "row loads of 32 bytes"),    # wider than a vector
     (20, 0, (8, 4, False), "8-byte row loads"),          # 20-byte rows: not 8-aligned
-    (20, 0, (16, 2, False), "16-byte row loads"),        # nor 16-aligned
+    (20, 0, (16, 2, False), "row loads of 16 bytes"),    # int8 rows take no 16-byte loads
     (16, 1, (4, 4, False), "4-byte row loads"),          # a view 1 byte in
     (16, 2, (4, 4, False), "4-byte row loads"),          # ... 2 bytes in
     (16, 4, (8, 2, False), "8-byte row loads"),          # 4 bytes in: not 8-aligned
-    (16, 8, (16, 1, False), "16-byte row loads"),        # 8 bytes in: not 16-aligned
+    (16, 8, (16, 1, False), "row loads of 16 bytes"),    # ... aligned or not
     (16, 0, (2, 8, False), "row loads of 2 bytes"),      # narrower than a word
     (16, 0, (64, 1, False), "row loads of 64 bytes"),    # a whole row at once
     (6, 0, (4, 2, False), "4-byte row loads"),           # 6-byte rows: not 4-aligned
@@ -236,39 +236,42 @@ def test_fixedl_walk(group, pooling, want):
     (torch.bfloat16, 128, 32), (torch.int8, 16, 3), (torch.int8, 64, 120),
 ])
 def test_wrapper_walk_is_compacted(dtype, d, pooling):
-    """Unpinned, every launch takes the compacted walk (masked entries
-    dropped before the row loads), whatever the row load, group and walk;
-    a three-field pin means the compacted walk too."""
+    """A kernel path has three fields, the row load, the group and the walk:
+    what ``kernel_path`` picks and what ``fitted_path`` pins; the masked
+    walk follows from the kernel and its walk, not from a field."""
     storage = torch.zeros(64, d, dtype=dtype)
     bags = 100
     path = kernel_path(storage, d, bags * pooling, bags)
-    assert path.compact is True
-    assert fitted_path(storage, d, bags * pooling, bags, 4 if dtype == torch.int8 else 16
-                       ).compact is True
-    assert KernelPath(*path[:3]) == path
+    fitted = fitted_path(storage, d, bags * pooling, bags, 4 if dtype == torch.int8 else 16)
+    assert KernelPath._fields == ("load", "group", "by_group")
+    for p in (path, fitted):
+        assert type(p) is KernelPath and len(p) == 3
+        assert KernelPath(*p) == p
+    assert fitted == path  # the load the kernels pick at these shapes, pinned
 
 
 @pytest.mark.parametrize("pin", [
-    (16, 4, False, False),  # the first masked walk, by window
+    (16, 4, False, False),  # four fields, by window
     (16, 4, True, False),   # ... by group
-    (16, 4, True, True),    # the compacted walk, pinned
-    (16, 4, True),          # three fields: compacted
-    (0, 16, False, False),  # the scalar path with the first masked walk
+    (16, 4, True, True),    # ... the fourth set
+    (16, 4, True),          # three fields: a valid pin
+    (0, 16, False, False),  # the scalar path, four fields
 ])
 def test_first_masked_walk_is_a_card_only_pin(pin):
-    """The first masked walk (``compact=False``) is reachable only as a
-    ``path=`` pin, and like every pin only for a tensor on the card: a CPU
-    tensor's call is refused before the plain version runs, on K1 and on
-    K2."""
+    """A path pins three fields (load, group, by_group), and like every pin
+    only for a tensor on the card: a CPU tensor's call is refused before
+    the plain version runs, on K1 and on K2.  A pin of four fields is
+    refused, naming the three, before that."""
     from pim_embedding_lookup_tpu_torch.ops.csr_pool import embedding_bag_csr_packed
 
     storage = torch.zeros(64, 16)
     ids = torch.zeros(32, dtype=torch.int32)
     mask = torch.zeros(32, dtype=torch.bool)
-    with pytest.raises(ValueError, match="only the card"):
+    refused = "only the card" if len(pin) == 3 else r"\(load, group, by_group\)"
+    with pytest.raises(ValueError, match=refused):
         kernel_path(storage, 16, 32, 8, pin)
-    with pytest.raises(ValueError, match="only the card"):
+    with pytest.raises(ValueError, match=refused):
         embedding_bag_fixedl(storage, 16, ids, pooling=4, batch_size=8, mask=mask, path=pin)
-    with pytest.raises(ValueError, match="only the card"):
+    with pytest.raises(ValueError, match=refused):
         embedding_bag_csr_packed(storage, 16, ids, torch.arange(9, dtype=torch.int32) * 4,
                                  batch_size=8, mask=mask, path=pin)
