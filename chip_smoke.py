@@ -68,7 +68,7 @@ byte-identical to the numpy packer.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only tools       # one phase alone (or bench, surface, int8,
-                                             # masked, multi_gpu)
+                                             # masked, sparse_step, multi_gpu)
 
 Needs one CUDA device, nvcc and a C++ toolchain (``make``); exits non-zero,
 printing no result, without them.  Any failed check raises.  The line before the last is a JSON object
@@ -151,7 +151,13 @@ from pim_embedding_lookup_tpu_torch.ops.ragged import (
     pack_length_buckets,
     plan_length_buckets,
 )
+from pim_embedding_lookup_tpu_torch.ops.sparse_step import (
+    PRIVATE,
+    sparse_step,
+    sparse_step_reference,
+)
 from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
+from pim_embedding_lookup_tpu_torch.parallel import hybrid as hybrid_mod
 from pim_embedding_lookup_tpu_torch.parallel import lookup_csr_bucketed, multihost
 from pim_embedding_lookup_tpu_torch.parallel.collection import (
     _csr_finish,
@@ -165,17 +171,16 @@ from pim_embedding_lookup_tpu_torch.parallel.collection import (
 )
 from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
     _mxu_csr_lookup,
-    _mxu_sparse_update,
     _mxu_sparse_update_csr,
     _small_pooled_lookup,
+    init_accumulator_hybrid,
+    sparse_update_hybrid,
+    step_plan_hybrid,
 )
 from pim_embedding_lookup_tpu_torch.parallel.hotcache import build_hot_cache, hot_ids_from_sample
 from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from pim_embedding_lookup_tpu_torch.parallel.planner import plan
-from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
-    sparse_update,
-    sparse_update_csr,
-)
+from pim_embedding_lookup_tpu_torch.parallel.sparse_update import sparse_update_csr
 from pim_embedding_lookup_tpu_torch.tools import (
     capacity_bench,
     kernel_lab,
@@ -1523,7 +1528,8 @@ def restore(model, acc, saved):
 
 def check_against_plain(model, run, state, batch, wire):
     """One step pooled by the kernel against the same step, from the same
-    state, pooled by the plain version, both with deterministic algorithms:
+    state, pooled by the plain version (and on the dense wire stepped by
+    the sparse step's plain version), both with deterministic algorithms:
     loss, both tables and the accumulator within STEP_TOL.  Rows the batch
     did not touch keep their bits.  Returns the largest abs difference of
     the tables."""
@@ -1542,7 +1548,8 @@ def check_against_plain(model, run, state, batch, wire):
     restore(model, state["acc"], before)
     name, plain = (("embedding_bag_fixedl", embedding_bag_fixedl_reference) if wire == "dense"
                    else ("embedding_bag_csr_packed", embedding_bag_csr_packed_reference))
-    with mock.patch.object(collection_mod, name, plain), deterministic():
+    with mock.patch.object(collection_mod, name, plain), mock.patch.object(
+            hybrid_mod, "sparse_step", sparse_step_reference), deterministic():
         loss_p = run(batch)
     torch.testing.assert_close(loss_k, loss_p, **STEP_TOL)
     err = 0.0
@@ -1557,18 +1564,18 @@ def check_against_plain(model, run, state, batch, wire):
 
 def sparse_stage_fns(model, state, batch, wire, optimizer):
     """The sparse step's stages on one batch: forward lookup, the dense
-    tower's forward and backward, the dense optimizer, the small set's and
-    the big set's update.  Each call of an update stage steps the tables."""
+    tower's forward and backward, the dense optimizer, and the update: on
+    the dense wire both sets' (one sparse step kernel), on the CSR wire the
+    small set's and the big set's.  Each call of an update stage steps the
+    tables."""
     coll, emb, acc = model.collection, model.emb_params(), state["acc"]
     dense, idx, second, labels = batch
     sel_s, sel_b = coll._index["small_ids"], coll._index["big_ids"]
     kw = dict(lr=TRAIN_LR, optimizer=optimizer, eps=1e-8)
     if wire == "dense":
         look = lambda: coll.lookup(emb, idx, second, batch_size=dense.shape[0])  # noqa: E731
-        small, big = _mxu_sparse_update, sparse_update
     else:
         look = lambda: coll.lookup_csr(emb, idx, second)  # noqa: E731
-        small, big = _mxu_sparse_update_csr, sparse_update_csr
     with torch.no_grad():
         pooled = look().requires_grad_(True)
     params = dense_params(model)
@@ -1588,16 +1595,23 @@ def sparse_stage_fns(model, state, batch, wire, optimizer):
                 return fn()
         return call
 
+    if wire == "dense":
+        updates = {"sparse_update": no_grad(lambda: sparse_update_hybrid(
+            coll, emb, acc, idx, second, g_pooled, **kw))}
+    else:
+        updates = {
+            "small_set_update": no_grad(lambda: _mxu_sparse_update_csr(
+                coll.buckets, emb["small"], acc["small"], idx[sel_s], second[sel_s],
+                g_pooled[:, sel_s], **kw)),
+            "big_set_update": no_grad(lambda: sparse_update_csr(
+                coll.big, emb["big"], acc["big"], idx[sel_b], second[sel_b],
+                g_pooled[:, sel_b], **kw)),
+        }
     return {
         "forward_lookup": no_grad(look),
         "dense_fwd_bwd": fwd_bwd,
         "dense_optimizer": state["opt"].step,
-        "small_set_update": no_grad(lambda: small(
-            coll.buckets, emb["small"], acc["small"], idx[sel_s], second[sel_s],
-            g_pooled[:, sel_s], **kw)),
-        "big_set_update": no_grad(lambda: big(
-            coll.big, emb["big"], acc["big"], idx[sel_b], second[sel_b],
-            g_pooled[:, sel_b], **kw)),
+        **updates,
     }
 
 
@@ -1654,6 +1668,7 @@ def train_phase(gen):
         torch.cuda.reset_peak_memory_stats()
         zero_k1()
         embedding_bag_csr_packed.launches = 0
+        steps_before = sparse_step.launches
         times = []
         for batch in batches[1 : 1 + TRAIN_STEPS]:
             t0 = time.perf_counter()
@@ -1667,6 +1682,10 @@ def train_phase(gen):
         if (k1, small, k2) != want:
             raise AssertionError(f"{name}: K1, the small set's K1, K2 launched "
                                  f"{(k1, small, k2)} times in {TRAIN_STEPS} steps, not {want}")
+        stepped = sparse_step.launches - steps_before
+        if stepped != (TRAIN_STEPS if (kind, wire) == ("sparse", "dense") else 0):
+            raise AssertionError(f"{name}: the sparse step kernel launched {stepped} times "
+                                 f"in {TRAIN_STEPS} steps")
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"{name}: non-finite loss {losses}")
         launches["K1"] += k1
@@ -1769,6 +1788,85 @@ TRACE_TOL = dict(rtol=1e-4, atol=1e-6)
 # A sum of shard partials against the one-device lookup: bags split over
 # shards add in another order.
 SHARD_SUM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+SPARSE_STEP_BATCH = 65536  # kaggle-train-b65536's batch
+
+
+def sparse_step_phase():
+    """The sparse step kernel (``ops.sparse_step``) at kaggle-train-b65536's
+    shape: the full-row Kaggle hybrid (16 small tables, 10 big ones, f32),
+    B=65536 single-hot, every entry kept.  In both optimizers one step
+    against the plain version from the same state, with cotangents in
+    {0, +-1/2, +-1} * 2^-12 so that every row's sums are exact in any order:
+    accumulators bitwise equal, tables within KERNEL_TOL.  Then row AdaGrad
+    timed: kernel and plain version on the device clock, the host's enqueue
+    time of a call, the device activities of a call (torch.profiler), and
+    the bytes bound.  Returns the kernel-table row."""
+    config = kaggle_config()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    coll = HybridEmbeddingCollection.create(config.tables, ShardingPolicy.REPLICATE,
+                                            device=DEV)
+    plan = step_plan_hybrid(coll)
+    b, t, d = SPARSE_STEP_BATCH, len(config.tables), plan.dim
+    ids = torch.stack([torch.randint(0, tb.num_rows, (b,), generator=gen, device=DEV,
+                                     dtype=torch.int32) for tb in config.tables])
+    mask = torch.ones(ids.shape, dtype=torch.bool, device=DEV)
+    g = torch.randint(-2, 3, (b, t, d), generator=gen, device=DEV).float() * 2.0 ** -13
+    params, accs = coll.init(gen), init_accumulator_hybrid(coll)
+
+    def sets(p, a):
+        return (p["small"], a["small"]), (p["big"], a["big"])
+
+    launches, err = sparse_step.launches, 0.0
+    for optimizer in ("sgd", "row_adagrad"):
+        kw = dict(lr=TRAIN_LR, optimizer=optimizer, eps=1e-8)
+        plain_p = {k: v.clone() for k, v in params.items()}
+        plain_a = {k: v.clone() for k, v in accs.items()}
+        sparse_step(plan, *sets(params, accs), ids, mask, g, **kw)
+        sparse_step_reference(plan, *sets(plain_p, plain_a), ids, mask, g, **kw)
+        for key in ("small", "big"):
+            if not torch.equal(accs[key], plain_a[key]):
+                raise AssertionError(f"sparse step, {optimizer}: the {key} set's "
+                                     "accumulators differ from the plain version's")
+            check_kernel(params[key], plain_p[key])
+            err = max(err, (params[key] - plain_p[key]).abs().max().item())
+        del plain_p, plain_a
+    kw = dict(lr=TRAIN_LR, optimizer="row_adagrad", eps=1e-8)
+    step = lambda: sparse_step(plan, *sets(params, accs), ids, mask, g, **kw)  # noqa: E731
+    plain = lambda: sparse_step_reference(  # noqa: E731
+        plan, *sets(params, accs), ids, mask, g, **kw)
+    kernel_ms = device_ms(step, [()], calls=10)
+    plain_ms = device_ms(plain, [()], calls=1, runs=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    total_ms, activities = top_kernels(step)
+    small_ids, big_ids = list(plan.small_ids), list(plan.big_ids)
+    offsets = torch.tensor([plan.firsts[i] for i in big_ids], device=DEV)[:, None]
+    big_rows = int(torch.unique(ids[big_ids].long() + offsets).numel())
+    f32 = 4
+    moved = (b * t * d * f32 + b * len(big_ids) * d * f32  # g: both launches, the big set's
+             + 5 * b * t + 5 * b * len(big_ids)  # ids and mask, the same
+             + plan.small_rows * (2 * d * f32 + 2 * f32 + 2 * (d + 1) * f32)  # w, acc, sums
+             + big_rows * (2 * d * f32 + 3 * f32))  # a touched big row's w and acc
+    bound_ms, bound_by = bound(moved, 0)
+    stepped = sparse_step.launches - launches
+    print(f"sparse_step: kaggle-train-b65536's shape ({len(small_ids)} small tables, "
+          f"{plan.count(PRIVATE)} summed in shared memory; {len(big_ids)} big, {big_rows} of "
+          f"their rows touched; B={b}, L=1, f32): against the plain version in sgd and "
+          "row_adagrad, accumulators bitwise equal, tables max abs err "
+          f"{err:.3g} (1e-5 abs + 1e-5 rel); row_adagrad: kernel {kernel_ms:.5f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}, {moved / 1e9:.4f} GB; {bound_ms / kernel_ms:.1%} "
+          f"of it), plain {plain_ms:.4f} ms, host {host_ms:.4f} ms to enqueue a call; one "
+          f"call under torch.profiler {total_ms:.5f} ms in (name, ms, launches) "
+          f"{json.dumps(activities)}; sparse_step.launches +{stepped}", flush=True)
+    return {"max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launches": stepped}
 
 
 def mesh_1_phase(gen):
@@ -1917,10 +2015,13 @@ def _mesh_1(gen, mesh):
             masked["K1"] += k1
         ops_count = aten_ops(lambda: step(acc, *batches[0]))
 
-        # checked: the same steps again from the same state, deterministic
+        # checked: the same steps again from the same state, deterministic;
+        # REPLICATE takes the sparse step kernel, whose atomics add in an order
+        # of their own each run: the mesh's steps are held to its plain version
         acc, step = trainer()
         losses, snaps = [], []
-        with deterministic():
+        with deterministic(), mock.patch.object(hybrid_mod, "sparse_step",
+                                                sparse_step_reference):
             for batch in batches:
                 acc, loss = step(acc, *batch)
                 losses.append(loss)
@@ -2848,7 +2949,10 @@ def cli_phase():
     batches = [tuple(torch.from_numpy(x).to(DEV) for x in b) for b in host[:8]]
     tmp = tempfile.mkdtemp(prefix="pel_ckpt_")
     try:
-        with deterministic():
+        # the sparse step kernel's atomics add in an order of their own each
+        # run: the resume is held bitwise over the step's plain version
+        with deterministic(), mock.patch.object(hybrid_mod, "sparse_step",
+                                                sparse_step_reference):
             straight = resume_run(config, batches)
             snap = [t.clone() for t in straight]
             del straight
@@ -3592,7 +3696,8 @@ def main(argv) -> int:
     if argv[:1] == ["--multihost-worker"]:  # the process of multihost_1
         return multihost_worker(argv[1])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("multi_gpu", "tools", "bench", "surface", "int8", "masked"):
+    if argv and only not in ("multi_gpu", "tools", "bench", "surface", "int8", "masked",
+                             "sparse_step"):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3622,7 +3727,7 @@ def main(argv) -> int:
     if only is not None:  # one phase alone (multi_gpu: e.g. on a 4-chip call)
         {"multi_gpu": multi_gpu_phase, "tools": tools_phase, "bench": bench_phase,
          "surface": surface_phase, "int8": lambda: int8_only(card),
-         "masked": lambda: masked_only(card)}[only]()
+         "masked": lambda: masked_only(card), "sparse_step": sparse_step_phase}[only]()
         print(f"chip_smoke: {only} phase passed in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return 0
@@ -3889,6 +3994,9 @@ def main(argv) -> int:
     train_launches = train_phase(gen)
     toy_train_checks(gen)
     print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    stepped = sparse_step_phase()
+    print(f"sparse_step phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 12. mesh_1: the sharded engine through NCCL at world size 1 ------------
     t0 = time.perf_counter()
@@ -4001,6 +4109,10 @@ def main(argv) -> int:
         entry("K4 backward masked embedding_bag_csr_grad (row shard, ownership mask)",
               "csr_pool.cu", "230", masked_launches["K4 bwd"] + phases["K4 bwd masked"],
               mean_row(shard_rows["K4 bwd"])),
+        entry("sparse step sparse_step (both sets' row AdaGrad / SGD step, dense wire)",
+              "sparse_step.cu", "", stepped["launches"], stepped,
+              replaced="pim_embedding_lookup_tpu/parallel/sparse_update.py and hybrid.py "
+                       "(XLA scatters, not a Pallas kernel)"),
         *(entry(f"{k} int8 {mode} scale mode {fn} (int8 codes"
                 + (", per-row f32 scales)" if mode == "row" else "; table scale folded after)"),
                 source, line,

@@ -31,9 +31,10 @@ Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}`` (an
 int8 big set's params are its dict), and so is the row-AdaGrad accumulator.
 The sparse step updates the small set by densifying each bucket's gradient
 and stepping it row by row, the big set by the entry-wise scatter of
-``sparse_update``.  On a mesh the small set's entry stream is first
-gathered over the data axis, so that every replica applies the whole
-batch.
+``sparse_update``.  On one process the dense wire's step of both sets is
+one ``ops.sparse_step`` call (on the card one hand-written CUDA step).  On a
+mesh the small set's entry stream is first gathered over the data axis, so
+that every replica applies the whole batch.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 from ..config import ShardingPolicy, TableConfig
 from ..device import resolve_device
 from ..ops.ragged import segment_ids_from_offsets
+from ..ops.sparse_step import StepPlan, densified_step, entry_updates, make_plan, sparse_step
 from ..utils.profiling import span
 from .collection import (
     _NEG_INF,
@@ -59,11 +61,11 @@ from .planner import FusedLayout
 from .quantized_collection import QuantizedEmbeddingCollection
 from .sparse_update import (
     _check_supported,
-    _entry_updates,
     _entry_updates_csr,
     init_accumulator,
     sparse_update,
     sparse_update_csr,
+    takes_sparse_step,
 )
 
 # The JAX package's split between the two sets, kept so that layouts match.
@@ -127,6 +129,9 @@ class HybridEmbeddingCollection:
     # small_ids, big_ids and perm on the device, so that a lookup copies
     # nothing from the host
     _index: dict = dataclasses.field(init=False, repr=False, compare=False)
+    # ops.sparse_step's plan, built at the first step on one process
+    _step_plan: object = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "_index", {
@@ -408,6 +413,28 @@ def _check_sets(coll, optimizer, routed, name):
         _check_supported(coll.big, optimizer, routed, name)
 
 
+def _takes_sparse_step(coll: HybridEmbeddingCollection, routed: bool) -> bool:
+    """Whether the dense-wire step of both sets is one ``ops.sparse_step``
+    call: ``takes_sparse_step`` for each set."""
+    return all(takes_sparse_step(sub, routed) for sub in (coll.small, coll.big)
+               if sub is not None)
+
+
+def step_plan_hybrid(coll: HybridEmbeddingCollection) -> StepPlan:
+    """The collection's plan for ``ops.sparse_step``: the small set's
+    tables by bucket, the big set's by its row offsets; built at the first
+    step and kept."""
+    if coll._step_plan is None:
+        small, big = coll.small, coll.big
+        object.__setattr__(coll, "_step_plan", make_plan(
+            (small or big).layout.dim, coll.device,
+            small=None if small is None else (coll.small_ids, small.layout.row_offsets,
+                                              coll.buckets, small.layout.total_rows),
+            big=None if big is None else (coll.big_ids, big.layout.row_offsets,
+                                          big.layout.total_rows)))
+    return coll._step_plan
+
+
 def sparse_update_hybrid(
     coll: HybridEmbeddingCollection,
     params: dict,  # updated in place
@@ -427,7 +454,8 @@ def sparse_update_hybrid(
     the bucketed densified step, the big set by ``sparse_update``
     (``routed``: through the all-to-all routing).  Returns (params, accs),
     or with ``return_stats`` also the big set's count of dropped entries
-    (0 off the routed path).  An int8 big set is refused."""
+    (0 off the routed path).  On one process both sets take one
+    ``ops.sparse_step`` call.  An int8 big set is refused."""
     if coll.big is not None and coll._big_quantized:
         raise ValueError(
             "sparse_update_hybrid: int8 big set is inference-only (gradient "
@@ -436,6 +464,16 @@ def sparse_update_hybrid(
         )
     _check_sets(coll, optimizer, routed, "sparse_update_hybrid")
     params, accs = dict(params), dict(accs)
+    if _takes_sparse_step(coll, routed):
+        with span("pel.sparse_update"):
+            sets = [None if sub is None else (params[key], accs[key])
+                    for key, sub in (("small", coll.small), ("big", coll.big))]
+            sparse_step(step_plan_hybrid(coll), *sets, indices.to(torch.int32).contiguous(),
+                        mask.to(torch.bool).contiguous(), g_pooled.float().contiguous(),
+                        lr=lr, optimizer=optimizer, eps=eps)
+        if return_stats:
+            return params, accs, torch.zeros((), dtype=torch.int32, device=coll.device)
+        return params, accs
     with span("pel.sparse_update"):
         mask = mask.to(torch.bool)
         dropped = torch.zeros((), dtype=torch.int32, device=coll.device)
@@ -510,12 +548,11 @@ def _mxu_sparse_update(buckets, fused, acc, indices, mask, g_pooled, *, lr,
         indices = mesh.all_gather(indices, DATA_AXIS, 1)
         mask = mesh.all_gather(mask, DATA_AXIS, 1)
         g_pooled = mesh.all_gather(g_pooled.contiguous(), DATA_AXIS, 0)
-    _, g_e, _ = _entry_updates(indices, mask, g_pooled.float(),
-                               indices.shape[1] // g_pooled.shape[0])
+    _, g_e, _ = entry_updates(indices, mask, g_pooled.float(),
+                              indices.shape[1] // g_pooled.shape[0])
     t, c = indices.shape
-    return _mxu_apply_entries(buckets, fused, acc, indices, mask,
-                              g_e.reshape(t, c, -1), lr=lr, optimizer=optimizer,
-                              eps=eps)
+    return densified_step(buckets, fused, acc, indices, mask, g_e.reshape(t, c, -1), lr=lr,
+                          optimizer=optimizer, eps=eps)
 
 
 def _mxu_sparse_update_csr(buckets, fused, acc, indices, offsets, g_pooled, *,
@@ -530,41 +567,5 @@ def _mxu_sparse_update_csr(buckets, fused, acc, indices, offsets, g_pooled, *,
         indices = mesh.all_gather(indices, DATA_AXIS, 1)
         valid = mesh.all_gather(valid, DATA_AXIS, 1)
         g_e = mesh.all_gather(g_e, DATA_AXIS, 1)
-    return _mxu_apply_entries(buckets, fused, acc, indices, valid, g_e, lr=lr,
-                              optimizer=optimizer, eps=eps)
-
-
-def _mxu_apply_entries(buckets, fused, acc, indices, mask, g_e, *, lr,
-                       optimizer, eps):
-    """Bucketed step over a per-entry cotangent stream (indices/mask
-    [Ts, C], g_e [Ts, C, D]), in place.
-
-    Per bucket the entries' cotangents are summed into a dense f32
-    [G * npad, D] gradient by ``index_add_`` (the sums of the JAX package's
-    f32 one-hot^T @ g_e at HIGHEST precision, without the one-hot), then
-    every row steps once: w = (f32(w) - step).to(dtype), with
-    step = lr * grad, or lr * rsqrt(acc + eps) * grad where acc first gains
-    the densified per-entry mean_d(g^2).  In exact arithmetic this equals
-    the big set's entry-wise step.  Masked entries add zeros at the
-    bucket's first row, so their ids are never used."""
-    d = g_e.shape[-1]
-    adagrad = optimizer == "row_adagrad"
-    for start, npad, lo, hi in buckets:
-        g = hi - lo
-        mk = mask[lo:hi]
-        rows = (torch.arange(g, device=fused.device)[:, None] * npad
-                + torch.where(mk, indices[lo:hi].long(), 0)).reshape(-1)  # [G*C]
-        gk = torch.where(mk[..., None], g_e[lo:hi], 0.0).reshape(-1, d)
-        grad = torch.zeros(g * npad, d, dtype=torch.float32, device=fused.device)
-        grad.index_add_(0, rows, gk)
-        w = fused[start : start + g * npad]
-        if adagrad:
-            sq = torch.zeros(g * npad, dtype=torch.float32, device=fused.device)
-            sq.index_add_(0, rows, (gk * gk).mean(dim=-1))
-            a = acc[start : start + g * npad]
-            a.copy_(a + sq)
-            step = (lr * torch.rsqrt(a + eps))[:, None] * grad
-        else:
-            step = lr * grad
-        w.copy_((w.float() - step).to(fused.dtype))
-    return fused, acc
+    return densified_step(buckets, fused, acc, indices, valid, g_e, lr=lr,
+                          optimizer=optimizer, eps=eps)

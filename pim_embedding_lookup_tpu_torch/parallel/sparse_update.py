@@ -6,7 +6,10 @@ one device or on a mesh.  Every valid entry (id, bag cotangent) becomes one
 d-wide step, SGD or row-wise AdaGrad (one f32 accumulator per fused row),
 added with ``index_add_``: the JAX package's XLA scatters, not a Pallas
 kernel.  Storage and accumulator are updated in place, which stands in for
-the JAX step's buffer donation.
+the JAX step's buffer donation.  On one process the dense wire's step is
+``ops.sparse_step`` (:func:`takes_sparse_step`): on the card one
+hand-written CUDA step over the entries in place, on the CPU these same
+operations.
 
 On a mesh the entry stream is first all-gathered over the data axis in
 data-row order, so every data replica applies the identical stream and the
@@ -30,6 +33,14 @@ import torch
 
 from ..config import ShardingPolicy
 from ..ops.ragged import segment_ids_from_offsets
+from ..ops.sparse_step import (
+    OPTIMIZERS,
+    StepPlan,
+    apply_entries,
+    entry_updates,
+    make_plan,
+    sparse_step,
+)
 from .collection import (
     EmbeddingCollection,
     _bucket_slots,
@@ -40,23 +51,9 @@ from .collection import (
 )
 from .mesh import DATA_AXIS, MODEL_AXIS
 
-OPTIMIZERS = ("sgd", "row_adagrad")
-
-
-def _entry_updates(g_idx, mask, g_pooled, pooling):
-    """Flatten [T, B*L] entries -> (ids [T*C], updates [T*C, D], valid
-    [T*C]).  Each kept entry (t, b, l) receives its bag's full cotangent
-    g_pooled[b, t] (the sum-pool backward); masked entries get zeros."""
-    t, c = g_idx.shape
-    b = c // pooling
-    d = g_pooled.shape[-1]
-    g_e = g_pooled.transpose(0, 1)[:, :, None, :].expand(t, b, pooling, d).reshape(t, c, d)
-    g_e = g_e * mask[..., None].to(g_e.dtype)
-    return g_idx.reshape(-1), g_e.reshape(t * c, d), mask.reshape(-1)
-
 
 def _entry_updates_csr(g_idx, offsets, g_pooled):
-    """CSR form of _entry_updates: bag membership from the offsets.  Each
+    """CSR form of entry_updates: bag membership from the offsets.  Each
     valid entry gathers its bag's cotangent row; padding (position at or
     past offsets[t, B]) gets a zero update and valid=False.
 
@@ -69,37 +66,6 @@ def _entry_updates_csr(g_idx, offsets, g_pooled):
     g_e = torch.gather(g_t, 1, seg.clamp(max=max(b - 1, 0))[..., None].expand(t, c, d))
     g_e = g_e * valid[..., None].to(g_e.dtype)
     return g_idx.reshape(-1), g_e.reshape(t * c, d), valid.reshape(-1)
-
-
-def _scatter_step(emb, local, step, keep):
-    """Add per-entry steps [C, D] at local row ids ``local`` in the
-    storage's dtype.  Lane-packed [S, 128] storage has the bytes of
-    [rows, D], so one view serves both layouts; dropped entries add -0.0
-    at row 0."""
-    d = step.shape[-1]
-    step = torch.where(keep[:, None], step, -0.0).to(emb.dtype)
-    emb.view(-1, d).index_add_(0, torch.where(keep, local, 0), step)
-    return emb
-
-
-def _apply_entries(emb, acc, local, updates, keep, *, lr, eps, use_adagrad, mean_sq=None):
-    """Scatter step over a flat entry stream (local row ids [E], updates
-    [E, D], kept [E]), in place.  Row AdaGrad adds every entry's
-    mean_d(g^2) (through ``mean_sq`` where the dims are split) into
-    ``acc`` before any entry reads it, then steps each entry by
-    -lr * rsqrt(acc[row] + eps) * g_e."""
-    local = local.long()
-    if use_adagrad:
-        sq = (updates * updates).mean(dim=-1)  # [E]
-        if mean_sq is not None:
-            sq = mean_sq(sq)
-        safe = torch.where(keep, local, 0)
-        acc.index_add_(0, safe, torch.where(keep, sq, 0.0))
-        scale = lr * torch.rsqrt(acc[safe] + eps)  # [E]
-        _scatter_step(emb, local, -scale[:, None] * updates, keep)
-    else:
-        _scatter_step(emb, local, -lr * updates, keep)
-    return emb, acc
 
 
 def _owned_entries(coll, ids, valid):
@@ -137,8 +103,8 @@ def _routed_apply_entries(coll, emb, acc, ids, updates, valid, *, cf, lr, eps,
     recv_ids = mesh.all_to_all(send_ids[: m * k])
     recv_upd = mesh.all_to_all(send_upd[: m * k])
     keep = (recv_ids >= 0) & (recv_ids < rps)
-    _apply_entries(emb, acc, recv_ids, recv_upd, keep, lr=lr, eps=eps,
-                   use_adagrad=use_adagrad)
+    apply_entries(emb, acc, recv_ids, recv_upd, keep, lr=lr, eps=eps,
+                  use_adagrad=use_adagrad)
     return dropped
 
 
@@ -156,8 +122,8 @@ def _apply(coll, fused, acc, ids, updates, valid, *, lr, eps, optimizer, routed,
     if coll.layout.policy == ShardingPolicy.COLUMN and use_adagrad:
         mean_sq = lambda sq: mesh.psum(sq, MODEL_AXIS) / mesh.model  # noqa: E731
     local, keep = _owned_entries(coll, ids, valid)
-    _apply_entries(fused, acc, local, updates, keep, lr=lr, eps=eps,
-                   use_adagrad=use_adagrad, mean_sq=mean_sq)
+    apply_entries(fused, acc, local, updates, keep, lr=lr, eps=eps,
+                  use_adagrad=use_adagrad, mean_sq=mean_sq)
     return torch.zeros((), dtype=torch.int32, device=acc.device)
 
 
@@ -168,6 +134,25 @@ def _check_supported(coll, optimizer, routed, name):
     if routed and not _rowish(coll.layout.policy):
         raise ValueError(f"routed {name} needs ROW/ROW_HASH/TABLE_WISE")
     coll._require_mesh(name)
+
+
+def takes_sparse_step(coll: EmbeddingCollection, routed: bool = False) -> bool:
+    """Whether the dense-wire step of ``coll`` is ``ops.sparse_step``: one
+    process (no mesh), not routed, and a layout other than COLUMN.  The
+    mesh's all-gathers, the routed all-to-all and COLUMN's dim slices keep
+    the eager step."""
+    return coll.mesh is None and not routed and coll.layout.policy != ShardingPolicy.COLUMN
+
+
+def step_plan(coll: EmbeddingCollection) -> StepPlan:
+    """The collection's plan for ``ops.sparse_step`` (every table in the
+    big set), built at the first step and kept."""
+    if coll._step_plan is None:
+        lay = coll.layout
+        object.__setattr__(coll, "_step_plan", make_plan(
+            lay.dim, coll.device,
+            big=(tuple(range(lay.num_tables)), lay.row_offsets, lay.total_rows)))
+    return coll._step_plan
 
 
 def sparse_update(
@@ -189,8 +174,16 @@ def sparse_update(
     or (fused, acc, dropped) with ``return_stats=True``.  ``routed=True``
     (row policies) routes (id, update) pairs to their owners;
     ``capacity_factor=None`` is the collection's safe factor, at which
-    nothing drops."""
+    nothing drops.  On one process the step is ``ops.sparse_step``
+    (:func:`takes_sparse_step`)."""
     _check_supported(coll, optimizer, routed, "sparse_update")
+    if takes_sparse_step(coll, routed):
+        sparse_step(step_plan(coll), None, (fused, acc), indices.to(torch.int32).contiguous(),
+                    mask.to(torch.bool).contiguous(), g_pooled.float().contiguous(), lr=lr,
+                    optimizer=optimizer, eps=eps)
+        if return_stats:
+            return fused, acc, torch.zeros((), dtype=torch.int32, device=acc.device)
+        return fused, acc
     pooling = indices.shape[1] // g_pooled.shape[0]
     g_idx = coll.globalize(indices.to(torch.int32))
     mask = mask.to(torch.bool)
@@ -203,7 +196,7 @@ def sparse_update(
     if coll.layout.policy == ShardingPolicy.COLUMN:
         w = coll.layout.dim // coll.layout.num_shards
         g_pooled = g_pooled[..., coll.shard * w:(coll.shard + 1) * w]
-    ids, updates, valid = _entry_updates(g_idx, mask, g_pooled, pooling)
+    ids, updates, valid = entry_updates(g_idx, mask, g_pooled, pooling)
     dropped = _apply(coll, fused, acc, ids, updates, valid, lr=lr, eps=eps,
                      optimizer=optimizer, routed=routed, capacity_factor=capacity_factor)
     if return_stats:

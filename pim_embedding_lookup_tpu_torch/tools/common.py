@@ -37,6 +37,7 @@ from ..config import (
 from ..device import resolve_device
 from ..ops.csr_pool import embedding_bag_csr_grad, embedding_bag_csr_packed, embedding_bag_csr_sum
 from ..ops.gather_pool import embedding_bag_fixedl
+from ..ops.sparse_step import sparse_step
 
 CONFIGS = {"kaggle": kaggle_config, "random": random_config, "toy": toy_config,
            "dcnv2": mlperf_dcnv2_config}
@@ -58,22 +59,24 @@ def device_info(dev: torch.device) -> dict:
 
 
 def zero_kernel_launches() -> None:
-    """Sets every launch counter of the pool kernels' wrappers to 0."""
+    """Sets every launch counter of the kernels' wrappers to 0."""
     for fn in (embedding_bag_fixedl, embedding_bag_csr_packed):
         fn.launches = fn.int8_launches = fn.int8_row_launches = 0
     embedding_bag_fixedl.bf16_round_launches = 0
     embedding_bag_csr_packed.masked_launches = embedding_bag_csr_packed.masked_int8_launches = 0
     embedding_bag_csr_sum.launches = 0
     embedding_bag_csr_grad.launches = embedding_bag_csr_grad.masked_launches = 0
+    sparse_step.launches = 0
 
 
 def kernel_launches(full_width: bool = False) -> dict:
-    """The pool kernels' launches, by row of the kernel table (PERF.md):
+    """The kernels' launches, by row of the kernel table (PERF.md):
     K1 and K2 on float storage, K1's bf16-rounding instance (the hybrid's
     small set over f32 rows), K2 without an ownership mask (K3's row with
     ``full_width``: the caller's K2 launches were at d % 128 == 0), their
     int8 instances in each scale mode, masked K2 on float storage, K4's
-    forward, its backward and its masked backward.  Each launch counts in
+    forward, its backward and its masked backward, and the sparse step
+    (``ops.sparse_step``, one a step of both sets).  Each launch counts in
     one row; K1's masked launches count in K1's.  The wrappers count a
     launch only where they launch their kernel on the card."""
     k1, k2, grad = embedding_bag_fixedl, embedding_bag_csr_packed, embedding_bag_csr_grad
@@ -90,6 +93,7 @@ def kernel_launches(full_width: bool = False) -> dict:
         "K4 fwd": embedding_bag_csr_sum.launches,
         "K4 bwd": grad.launches - grad.masked_launches,
         "K4 bwd masked": grad.masked_launches,
+        "sparse step": sparse_step.launches,
     }
 
 

@@ -419,6 +419,7 @@ def test_kernel_launches_partition_the_counters(monkeypatch, full_width):
     from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
         embedding_bag_csr_grad, embedding_bag_csr_packed, embedding_bag_csr_sum)
     from pim_embedding_lookup_tpu_torch.ops.gather_pool import embedding_bag_fixedl
+    from pim_embedding_lookup_tpu_torch.ops.sparse_step import sparse_step
     from pim_embedding_lookup_tpu_torch.tools import common
 
     counters = {  # 9 K1 (2 int8, 1 of them "row"; 3 bf16-rounded); 20 K2 (6 int8, 4 "row";
@@ -429,6 +430,7 @@ def test_kernel_launches_partition_the_counters(monkeypatch, full_width):
                                        masked_launches=5, masked_int8_launches=3),
         embedding_bag_csr_sum: dict(launches=7),
         embedding_bag_csr_grad: dict(launches=8, masked_launches=2),
+        sparse_step: dict(launches=5),
     }
     for fn, values in counters.items():
         for name, v in values.items():
@@ -437,6 +439,6 @@ def test_kernel_launches_partition_the_counters(monkeypatch, full_width):
     assert common.kernel_launches(full_width) == {
         "K1": 4, "K1 small set": 3, "K1 int8 table": 1, "K1 int8 row": 1, k2: 12,
         "K2 int8 table": 2, "K2 int8 row": 4, "K2 masked": 2, "K4 fwd": 7, "K4 bwd": 6,
-        "K4 bwd masked": 2}
+        "K4 bwd masked": 2, "sparse step": 5}
     common.zero_kernel_launches()
     assert not any(common.kernel_launches().values())

@@ -32,6 +32,7 @@ from pim_embedding_lookup_tpu_torch import (
     DLRMConfig,
     ShardingPolicy,
     TableConfig,
+    kaggle_config,
     make_optimizer,
     make_train_step,
 )
@@ -43,12 +44,16 @@ from pim_embedding_lookup_tpu_torch.models.sparse_train import (
 from pim_embedding_lookup_tpu_torch.models import bce_loss
 from pim_embedding_lookup_tpu_torch.parallel import collection as collection_mod
 from pim_embedding_lookup_tpu_torch.parallel.collection import EmbeddingCollection
-from pim_embedding_lookup_tpu_torch.parallel.hybrid import HybridEmbeddingCollection
+from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
+    HybridEmbeddingCollection,
+    step_plan_hybrid,
+)
 from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
     init_accumulator,
     sparse_update,
     sparse_update_csr,
+    step_plan,
 )
 from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_grad,
@@ -57,6 +62,7 @@ from pim_embedding_lookup_tpu_torch.ops.csr_pool import (
     embedding_bag_csr_packed_reference,
     embedding_bag_csr_sum,
 )
+from pim_embedding_lookup_tpu_torch.ops.sparse_step import sparse_step, sparse_step_reference
 from pim_embedding_lookup_tpu_torch.ops.gather_pool import (
     KernelPath,
     embedding_bag_fixedl,
@@ -525,7 +531,8 @@ def _mixed_model(device, seed):
 def test_sparse_step_matches_cpu(cuda, wire, optimizer):
     """One sparse train step on the card equals the same step of the port
     on the CPU (loss, tables, MLPs, accumulators), with padding ids of
-    1 << 30 on the CSR wire."""
+    1 << 30 on the CSR wire.  The dense wire's step on the card is one
+    launch of the sparse step kernel; the CSR wire's launches none."""
     cpu = _mixed_model("cpu", 3)
     gpu = _mixed_model(cuda, 3)
     gpu.load_state_dict(cpu.state_dict())
@@ -542,6 +549,7 @@ def test_sparse_step_matches_cpu(cuda, wire, optimizer):
         idx, second = _csr(10, min(rows), len(rows), b, 4)
         idx[torch.arange(idx.shape[1])[None, :] >= second[:, -1:]] = NEVER_READ
     results = []
+    launches = sparse_step.launches
     for model, dev in ((cpu, "cpu"), (gpu, cuda)):
         opt, acc = make_sparse_train_state(model, optimizer=optimizer, lr=0.1)
         batch = [t.to(dev) for t in (dense, idx, second, labels)]
@@ -562,6 +570,7 @@ def test_sparse_step_matches_cpu(cuda, wire, optimizer):
         results.append((loss.detach().cpu(), {k: v.cpu() for k, v in acc.items()},
                         {k: v.detach().cpu() for k, v in model.state_dict().items()}))
     torch.cuda.synchronize()
+    assert sparse_step.launches - launches == (1 if wire == "dense" else 0)
     (lc, ac, sc), (lg, ag, sg) = results
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     for key in ac:
@@ -603,6 +612,158 @@ def test_dropped_entries_change_nothing(cuda, optimizer):
     before, after = table.view(-1, 16), outs[0][0].view(-1, 16)
     assert torch.equal(after[~touched], before[~touched])
     assert not torch.equal(after[touched], before[touched])
+
+
+# -- the sparse step kernel (ops.sparse_step) -------------------------------------
+
+U = 2.0 ** -24  # f32 unit roundoff
+BF16_ULP = 2.0 ** -7  # the largest bf16 spacing, relative to the value
+KAGGLE_ROWS = tuple(t.num_rows for t in kaggle_config().tables)
+
+
+def _step_case(device, case, dtype):
+    """(plan, small (storage, acc) or None, big (storage, acc), ids, mask,
+    g) of a sparse step case: Kaggle's 16 + 10 split at B=65536, L=1 (all
+    kept); a non-hybrid collection of random's shape at L=120, 7 in 10
+    kept; the 3-row table beside a big one, all 65,536 entries kept; a big
+    set whose entries fall on 400 rows, 8 in 10 kept.  Masked ids are
+    1 << 30.  Cotangents lie in {0, +-1/2, +-1} and accumulators (what
+    earlier steps left) are multiples of 2^-8, so that every row's sums of
+    cotangents and squares are exact in f32 in any order."""
+    gen = torch.Generator(device=device).manual_seed(23)
+    rows, b, pooling, keep, hybrid, dim, hot = {
+        "kaggle": (KAGGLE_ROWS, 65536, 1, 1.0, True, 16, None),
+        "random_l120": ((100_000,) * 8, 256, 120, 0.7, False, 64, None),
+        "three_rows": ((3, 20000), 65536, 1, 1.0, True, 16, None),
+        "big_duplicates": ((24, 20000, 50000), 4096, 4, 0.8, True, 16, 400),
+    }[case]
+    tables = tuple(TableConfig(num_rows=n, dim=dim, name=f"t{i}") for i, n in enumerate(rows))
+    if hybrid:
+        coll = HybridEmbeddingCollection.create(tables, device=device)
+        plan, params = step_plan_hybrid(coll), coll.init(gen, dtype)
+        storages = [params["small"], params["big"]]
+        big_ids = set(coll.big_ids)
+    else:
+        coll = EmbeddingCollection.create(tables, packed="auto", device=device)
+        plan, storages = step_plan(coll), [None, coll.init(gen, dtype)]
+        big_ids = set(range(len(rows)))
+    sets = [None if w is None else
+            (w, torch.randint(0, 26, (w.numel() // dim,), generator=gen,
+                              device=device).float() * 2.0 ** -8)
+            for w in storages]
+    ids = torch.stack([torch.randint(0, hot if hot and t in big_ids else n, (b * pooling,),
+                                     generator=gen, device=device, dtype=torch.int32)
+                       for t, n in enumerate(rows)])
+    mask = torch.rand(ids.shape, generator=gen, device=device) < keep
+    g = torch.randint(-2, 3, (b, len(rows), dim), generator=gen, device=device).float() * 0.5
+    return plan, sets[0], sets[1], torch.where(mask, ids, NEVER_READ), mask, g
+
+
+def _set_hits(plan, which, ids, mask, g):
+    """Per row of a set, in f64: the kept entries n, the sums of their
+    cotangents and of the cotangents' magnitudes [rows, D]."""
+    rows = plan.small_rows if which == "small" else plan.big_rows
+    b, _, d = g.shape
+    pooling = ids.shape[1] // b
+    n = torch.zeros(rows, dtype=torch.float64, device=g.device)
+    sums = torch.zeros(rows, d, dtype=torch.float64, device=g.device)
+    abs_sums = torch.zeros(rows, d, dtype=torch.float64, device=g.device)
+    bag = torch.arange(ids.shape[1], device=g.device) // pooling
+    for t in (plan.small_ids if which == "small" else plan.big_ids):
+        k = mask[t]
+        r = plan.firsts[t] + ids[t][k].long()
+        ge = g[bag[k], t].double()
+        n.index_add_(0, r, torch.ones_like(r, dtype=torch.float64))
+        sums.index_add_(0, r, ge)
+        abs_sums.index_add_(0, r, ge.abs())
+    return n, sums, abs_sums
+
+
+def _assert_step_close(which, got, want, before, hits, lr, eps, adagrad, d):
+    """The kernel's (storage, acc) of a set against the plain version's.
+    The cases' sums are exact in any order, so the accumulators agree bit
+    for bit and a small-set row's step differs only by the rsqrt (the
+    kernel's 1 / sqrt, correctly rounded; the plain version's rsqrt) and
+    the rounding of w - step.  A big-set row adds its n steps to w one by
+    one in another order (atomics on both sides on the card), each sum off
+    by at most n * 2^-24 * (|w0| + sum |steps|), the bound of recursive
+    summation.  bf16 storage adds a spacing where the two round (the small
+    set once, the big set at each of its n adds).  Rows no entry touched
+    keep their bits."""
+    (gw, ga), (pw, pa), (w0, a0) = got, want, before
+    n, sums, abs_sums = hits
+    rows = n.shape[0]
+    w0, gw, pw = (x.reshape(rows, d) for x in (w0, gw, pw))
+    untouched = n == 0
+    assert torch.equal(gw[untouched], w0[untouched]), f"{which}: an untouched row changed"
+    if adagrad:
+        assert torch.equal(ga, pa), f"{which}: the accumulators differ"
+        scale = lr * (pa.double() + eps).rsqrt()
+    else:
+        assert torch.equal(ga, a0) and torch.equal(pa, a0)
+        scale = torch.full_like(n, lr)
+    nn, w_new, w_old = n[:, None], pw.double().abs(), w0.double().abs()
+    bf16 = gw.dtype == torch.bfloat16
+    if which == "small":  # densified: exact sums, one step, one rounding of w
+        allowed = 8 * U * scale[:, None] * sums.abs() + 4 * U * w_new
+        allowed = allowed + (BF16_ULP * w_new if bf16 else 0)
+    else:  # entry-wise: n adds to w in another order
+        s_a = scale[:, None] * abs_sums
+        allowed = 2 * nn * U * (w_old + s_a) + 8 * U * s_a + 4 * U * w_new
+        allowed = allowed + ((nn + 1) * BF16_ULP * (w_old + s_a) if bf16 else 0)
+    diff = (gw.double() - pw.double()).abs()
+    over = diff - 2 * allowed
+    assert over.max().item() <= 0, (
+        f"{which} storage: kernel differs from the plain version by {diff.max().item():.3g}, "
+        f"past the bound by {over.max().item():.3g}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("optimizer", ["sgd", "row_adagrad"])
+@pytest.mark.parametrize("case", ["kaggle", "random_l120", "three_rows", "big_duplicates"])
+def test_sparse_step_kernel_matches_plain(cuda, case, optimizer, dtype):
+    """One launch of the sparse step kernel against its plain version on
+    the card, from the same state: both sets' storage and accumulators
+    within the summation bound of ``_assert_step_close`` (atomics sum in
+    a varying order), rows no entry touched bitwise unchanged, masked ids
+    of 1 << 30 never read."""
+    plan, small, big, ids, mask, g = _step_case(cuda, case, dtype)
+    kw = dict(lr=0.1, optimizer=optimizer, eps=1e-8)
+    sets = {"small": small, "big": big}
+    before = {k: None if v is None else tuple(x.clone() for x in v) for k, v in sets.items()}
+    plain = {k: None if v is None else tuple(x.clone() for x in v) for k, v in sets.items()}
+    launches = sparse_step.launches
+    sparse_step(plan, small, big, ids, mask, g, **kw)
+    assert sparse_step.launches == launches + 1
+    sparse_step_reference(plan, plain["small"], plain["big"], ids, mask, g, **kw)
+    torch.cuda.synchronize()
+    for which, got in sets.items():
+        if got is None:
+            continue
+        hits = _set_hits(plan, which, ids, mask, g)
+        _assert_step_close(which, got, plain[which], before[which], hits, kw["lr"],
+                           kw["eps"], optimizer == "row_adagrad", plan.dim)
+
+
+def test_sparse_step_kernel_alerts_deterministic_mode(cuda):
+    """Under ``torch.use_deterministic_algorithms(True)`` the kernel, whose
+    atomics add in a varying order, raises before it launches; with
+    ``warn_only=True`` it warns and launches."""
+    plan, small, big, ids, mask, g = _step_case(cuda, "three_rows", torch.float32)
+    kw = dict(lr=0.1, optimizer="row_adagrad", eps=1e-8)
+    before = small[0].clone()
+    launches = sparse_step.launches
+    try:
+        torch.use_deterministic_algorithms(True)
+        with pytest.raises(RuntimeError, match="deterministic"):
+            sparse_step(plan, small, big, ids, mask, g, **kw)
+        assert sparse_step.launches == launches and torch.equal(small[0], before)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with pytest.warns(UserWarning, match="sparse_step does not have a deterministic"):
+            sparse_step(plan, small, big, ids, mask, g, **kw)
+        assert sparse_step.launches == launches + 1
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 # -- the sharded engine ------------------------------------------------------------
