@@ -8,11 +8,23 @@ check compared.  ``dense`` is the family's module of ``dense/``, whose
 ``DenseHalf`` the reference runs.  ``control`` puts the reference in the
 program's place, computed with TF32 on; ``fault`` plants one of the faults
 the check has to catch in the program's timed path.
+
+On a mesh (``ranks``, a ``ranks.Ranks``) each rank feeds its data row's
+part of every global batch, and every rank makes the same number of calls:
+rank 0 fixes it from the warm-up's second pass and broadcasts it.  The
+window runs from a barrier to the last rank's last completion, and its rate
+counts the global batch.  Rank 0's card alone is traced, and the readers
+read rank 0's own samples.  Each rank checks what it holds against the
+reference of the global batches: its part of the probabilities; the global
+losses, the dense leaves and the rows it holds, a table split over the
+model axis compared as one leaf.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import statistics
 import time
 from collections import deque
@@ -63,15 +75,20 @@ def _pool_bytes(cfg, b) -> int:
             + yardstick.pool_out_bytes(t, bsz, cfg["dim"]))
 
 
-def _closed_loop(fn, items, seconds, in_flight, device, first=0, keep=None, per_second=None):
+def _closed_loop(fn, items, seconds, in_flight, device, first=0, keep=None, per_second=None,
+                 count=None):
     """Calls ``fn`` on ``items`` in turn, ``in_flight`` outstanding, until
-    ``seconds`` have passed, then waits for all.  Returns (calls, window
-    seconds from the first call to the last completion).  ``per_second``,
-    a list, gets the calls begun in each second of the window."""
+    ``seconds`` have passed (or, given ``count``, ``count`` times), then
+    waits for all.  Returns (calls, window seconds from the first call to
+    the last completion).  ``per_second``, a list, gets the calls begun in
+    each second of the window."""
     inflight = deque()
     calls = 0
     t0 = time.perf_counter()
-    while (now := time.perf_counter()) - t0 < seconds:
+    while True:
+        now = time.perf_counter()
+        if now - t0 >= seconds if count is None else calls >= count:
+            break
         if per_second is not None:
             sec = int(now - t0)
             per_second.extend([0] * (sec + 1 - len(per_second)))
@@ -97,29 +114,40 @@ def _closed_loop(fn, items, seconds, in_flight, device, first=0, keep=None, per_
 # -- score --------------------------------------------------------------------
 
 
-def score(system, dense, cfg, traffic, seed, seconds, device, *, trace, control, fault):
+def score(system, dense, cfg, traffic, seed, seconds, device, *, trace, control, fault,
+          ranks=None):
     run = Run()
     pool = _pool(cfg, traffic, seed, device)
+    if ranks is not None:
+        pool = [ranks.data_slice(b) for b in pool]
     predict = plant(fault, "predict",
                     _control(dense, cfg, seed, device) if control else system.predict)
-    for _ in range(2):  # every shape of the cell, twice
+    for b in pool:  # every shape of the cell, twice
+        predict(b)
+    counts = (None, None)
+    if ranks is None:
         for b in pool:
             predict(b)
+    else:
+        counts = ranks.counts(predict, pool, seconds, traffic["trace_seconds"])
+        ranks.barrier()
     _sync(device)
     yield "setup_done"
     outs, timeline = {}, []
     calls, window = _closed_loop(predict, pool, seconds, traffic["in_flight"], device, keep=outs,
-                                 per_second=timeline)
+                                 per_second=timeline, count=counts[0])
     run.context["timeline"] = timeline
     bsz = traffic["batch_size"]
     run.attempted = calls
-    run.e2e["score_samples_per_s"] = calls * bsz / window
-    run.context.update(samples=calls * bsz, window_s=window,
+    run.context.update(samples=calls * pool[0]["dense"].shape[0], window_s=window,
                        flops_per_sample=_flops_per_sample(dense, cfg, traffic))
+    if ranks is not None:
+        window = ranks.window(window)
+    run.e2e["score_samples_per_s"] = calls * bsz / window
     if trace and not control:
-        with tracing.traced(device) as tr:
+        with _traced(device, ranks) as tr:
             n, _ = _closed_loop(system.predict, pool, traffic["trace_seconds"],
-                                traffic["in_flight"], device)
+                                traffic["in_flight"], device, count=counts[1])
         run.trace = tr["trace"]
         if traffic["wire"] == "dense":
             per_batch = [_pool_bytes(cfg, b) for b in pool]
@@ -138,6 +166,14 @@ def score(system, dense, cfg, traffic, seed, seconds, device, *, trace, control,
     yield run
 
 
+def _traced(device, ranks):
+    """The profiler over the traced segment: on a mesh over rank 0's card
+    alone, the other ranks running the same segment untraced."""
+    if ranks is None or ranks.lead:
+        return tracing.traced(device)
+    return contextlib.nullcontext({"trace": None})
+
+
 def _control(dense, cfg, seed, device):
     """The reference's probabilities with TF32 on, in the program's place."""
     dense_half = dense.DenseHalf(cfg, seed, device)
@@ -150,7 +186,8 @@ def _control(dense, cfg, seed, device):
 CHECK_STEPS = 3
 
 
-def train(system, dense, cfg, traffic, seed, seconds, device, *, trace, control, fault):
+def train(system, dense, cfg, traffic, seed, seconds, device, *, trace, control, fault,
+          ranks=None):
     run = Run()
     pool = _pool(cfg, traffic, seed, device, stream=1)
     if len(pool) <= CHECK_STEPS:
@@ -158,41 +195,59 @@ def train(system, dense, cfg, traffic, seed, seconds, device, *, trace, control,
     lr, t = traffic["lr"], len(cfg["tables"])
     first = pool[:CHECK_STEPS]
     uniq = [torch.unique(torch.cat([b["ids"][k].long() for b in first])) for k in range(t)]
+    # on a mesh: the rank's part of each batch, and of each table's touched
+    # rows those it holds (None: all of them); ``split``, the tables whose
+    # rows the model axis splits
+    feed, held, split = pool, None, set()
+    if ranks is not None and not control:
+        feed = [ranks.data_slice(b) for b in pool]
+        held = [system.holds(k, uniq[k]) for k in range(t)]
+        split = {f"emb.{k}" for k in range(t) if system.split(k)}
+    mine = uniq if held is None else [u[h] for u, h in zip(uniq, held)]
+    counts = (None, None)
     if control:
         snap = _control_readings(dense, cfg, seed, first, traffic, device)
     else:
         system.make_train(traffic)
         step = plant(fault, "train_step", system.train_step, system=system)
         snap = {"loss": []}
-        for i, b in enumerate(first):  # the check's three steps are the first warm-up
+        for i, b in enumerate(feed[:CHECK_STEPS]):  # the check's three steps: the first warm-up
             snap["loss"].append(float(step(b)))
             if i == 0:
                 snap["p1"] = {n: p.detach().clone() for n, p in system.dense_leaves().items()}
-                snap["w1"] = [system.rows(k, uniq[k]) for k in range(t)]
+                snap["w1"] = [system.rows(k, mine[k]) for k in range(t)]
                 if traffic["optimizer"] == "row_adagrad":
-                    snap["acc1"] = [system.accumulator(k, uniq[k]).clone() for k in range(t)]
+                    snap["acc1"] = [system.accumulator(k, mine[k]).clone() for k in range(t)]
         snap["p3"] = {n: p.detach().clone() for n, p in system.dense_leaves().items()}
-        snap["w3"] = [system.rows(k, uniq[k]) for k in range(t)]
-        step(pool[CHECK_STEPS])  # the window's first shapes once more
+        snap["w3"] = [system.rows(k, mine[k]) for k in range(t)]
+        if ranks is None:
+            step(pool[CHECK_STEPS])  # the window's first shapes once more
+        else:
+            counts = ranks.counts(step, feed, seconds, traffic["trace_seconds"])
+    if ranks is not None:
+        ranks.barrier()
     _sync(device)
     yield "setup_done"
     if not control:
         timeline = run.context["timeline"] = []
-        calls, window = _closed_loop(step, pool, seconds, traffic["in_flight"], device,
-                                     first=CHECK_STEPS + 1, per_second=timeline)
+        calls, window = _closed_loop(step, feed, seconds, traffic["in_flight"], device,
+                                     first=CHECK_STEPS + 1, per_second=timeline,
+                                     count=counts[0])
         bsz = traffic["batch_size"]
         run.attempted = calls
-        run.e2e["train_samples_per_s"] = calls * bsz / window
-        run.context.update(samples=calls * bsz, window_s=window,
+        run.context.update(samples=calls * feed[0]["dense"].shape[0], window_s=window,
                            flops_per_sample=3 * _flops_per_sample(dense, cfg, traffic))
+        if ranks is not None:
+            window = ranks.window(window)
+        run.e2e["train_samples_per_s"] = calls * bsz / window
         if trace:
             def spanned(b):
                 with tracing.span("train_step"):
                     return step(b)
 
-            with tracing.traced(device) as tr:
-                _closed_loop(spanned, pool, traffic["trace_seconds"], traffic["in_flight"],
-                             device)
+            with _traced(device, ranks) as tr:
+                _closed_loop(spanned, feed, traffic["trace_seconds"], traffic["in_flight"],
+                             device, count=counts[1])
             run.trace = tr["trace"]
     run.peak_bytes = _peak(device)
     system.free()
@@ -214,20 +269,24 @@ def train(system, dense, cfg, traffic, seed, seconds, device, *, trace, control,
     ref_g = steps[0]["grads"]
     # both sides' first gradient read back from their state after one step,
     # so that the readout's rounding, ulp(w0) / lr, falls on both alike
-    prog_g = _first_grads(p0, w0, snap, lr=lr, traffic=traffic)
+    # the program's rows start from the reference's first rows it holds
+    w0p = w0 if held is None else {f"emb.{k}": w0[f"emb.{k}"][h] for k, h in enumerate(held)}
+    prog_g = _first_grads(p0, w0p, snap, lr=lr, traffic=traffic)
     ref_read = _first_grads(p0, w0, ref_snap, lr=lr, traffic=traffic)
     ref_d = {n: p.detach() - p0[n] for n, p in ref.dense.leaves().items()}
     ref_d.update({f"emb.{k}": r - w0[f"emb.{k}"] for k, r in enumerate(ref.rows)})
     prog_d = {n: snap["p3"][n] - p0[n] for n in p0}
-    prog_d.update({f"emb.{k}": snap["w3"][k] - w0[f"emb.{k}"] for k in range(t)})
+    prog_d.update({f"emb.{k}": snap["w3"][k] - w0p[f"emb.{k}"] for k in range(t)})
     ref_loss = [s["loss"] for s in steps]
     run.checks["loss_gap"] = max(abs(a - b) / abs(b) for a, b in zip(snap["loss"], ref_loss))
     norms = {n: float(g.norm()) for n, g in ref_g.items()}
     med = statistics.median(norms.values())
     moving = [n for n, v in norms.items() if v >= 1e-3 * med]
     worst = {}
-    run.checks["grad_gap"], worst["grad_gap"] = _worst_leaf(prog_g, ref_read, list(norms))
-    run.checks["change_gap"], worst["change_gap"] = _worst_leaf(prog_d, ref_d, moving)
+    for name, prog, want, names in (("grad_gap", prog_g, ref_read, list(norms)),
+                                    ("change_gap", prog_d, ref_d, moving)):
+        run.checks[name], worst[name] = _worst_leaf(_norms(prog, names, split, ranks),
+                                                    _norms(want, names), names)
     run.context["worst_leaf"] = worst
     run.context["leaves_left_out"] = sorted(set(norms) - set(moving))
     yield run
@@ -246,13 +305,22 @@ def _first_grads(p0: dict, w0: dict, snap: dict, *, lr: float, traffic: dict) ->
     return g
 
 
-def _worst_leaf(prog: dict, ref: dict, names) -> tuple[float, str]:
+def _norms(leaves: dict, names, split=(), ranks=None) -> dict:
+    """Each named leaf's norm; a leaf in ``split`` is a rank's part of one
+    that spans the model axis, whose squares are summed over its peers."""
+    out = {n: float(leaves[n].norm()) for n in {*names, *split}}
+    if split:  # every rank sums every split leaf, so that the collective matches
+        parts = sorted(split)
+        out.update(zip(parts, map(math.sqrt, ranks.model_sum([out[n] ** 2 for n in parts]))))
+    return out
+
+
+def _worst_leaf(prog_n: dict, ref_n: dict, names) -> tuple[float, str]:
     """The largest gap between the program's norm of a leaf and the
     reference's, over the reference's norm of that leaf or of the median
     leaf, whichever is larger; and that leaf's name."""
-    ref_n = {n: float(ref[n].norm()) for n in names}
-    med = statistics.median(ref_n.values())
-    return max((abs(float(prog[n].norm()) - ref_n[n]) / max(ref_n[n], med), n) for n in names)
+    med = statistics.median(ref_n[n] for n in names)
+    return max((abs(prog_n[n] - ref_n[n]) / max(ref_n[n], med), n) for n in names)
 
 
 def _control_readings(dense, cfg, seed, first, traffic, device) -> dict:

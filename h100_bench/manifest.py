@@ -16,6 +16,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -26,16 +27,28 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FAMILY = re.compile(r"^[a-z][a-z0-9_]{0,63}$")
 
 
+def _mesh(v) -> bool:
+    """``{"data": d, "model": m}`` with whole d, m >= 1."""
+    return isinstance(v, dict) and set(v) == {"data", "model"} and all(
+        isinstance(n, int) and not isinstance(n, bool) and n >= 1 for n in v.values())
+
+
 # Every key a configuration or a traffic mix may hold, with the values the
-# harness implements: a tuple of the values it takes, or the type of a free
-# value.  A file with any other key or value is refused, so that no cell
-# reports what it declares and does not run.  A configuration holds these
-# and the ``CONFIG_KEYS`` of its family's ``dense/<interaction>.py``.
+# harness implements: a tuple of the values it takes, the type of a free
+# value, or a function that accepts the value.  A file with any other key or
+# value is refused, so that no cell reports what it declares and does not
+# run.  A configuration holds these and the ``CONFIG_KEYS`` of its family's
+# ``dense/<interaction>.py``.  ``mesh``: d x m cards, one process a card,
+# rank r at data row r // m and model column r % m (the port's
+# ``parallel/mesh.py``); ``sharding`` places the big set over the model
+# axis, and row or row_hash needs more than one card: a 1 x 1 cell runs in
+# one process with no process group, where the port keeps every table whole.
 CONFIG_KEYS = {
     "name": str, "source": str, "tables": list, "dim": int, "dtype": ("float32",),
     "dense_dim": int, "interaction": str,
-    "collection": ("hybrid",), "small_set_max_rows": int, "sharding": ("replicate",),
-    "mesh": ({"data": 1, "model": 1},), "reduced": list, "assumed": dict,
+    "collection": ("hybrid",), "small_set_max_rows": int,
+    "sharding": ("replicate", "row", "row_hash"), "mesh": _mesh, "reduced": list,
+    "assumed": dict,
 }
 # ``pooling``: one bag length for every table, or a list of one a table
 _BATCHES = {"batch_size": int, "pooling": (int, list), "pool_batches": int, "in_flight": int,
@@ -58,12 +71,15 @@ def check_keys(what: str, data: dict, keys: dict) -> dict:
         raise ValueError(f"{what}: keys missing {sorted(missing)}, unknown {sorted(unknown)}")
     for k, v in data.items():
         want = keys[k]
-        if isinstance(want, tuple) and not all(isinstance(w, type) for w in want):
+        takes = repr(want)
+        if isinstance(want, types.FunctionType):
+            ok, takes = want(v), want.__doc__
+        elif isinstance(want, tuple) and not all(isinstance(w, type) for w in want):
             ok = v in want
         else:
             ok = isinstance(v, want) and not isinstance(v, bool)
         if not ok:
-            raise ValueError(f"{what}: {k} = {v!r} is not implemented (takes {want!r})")
+            raise ValueError(f"{what}: {k} = {v!r} is not implemented (takes {takes})")
     return data
 
 
@@ -90,7 +106,15 @@ class Manifest:
         what = f"configuration {cell['config']}"
         data = json.loads(self._file("configs", cell["config"], ".json").read_text())
         family = self._family("dense", what, data.get("interaction"))
-        return check_keys(what, data, {**CONFIG_KEYS, **family.CONFIG_KEYS})
+        cfg = check_keys(what, data, {**CONFIG_KEYS, **family.CONFIG_KEYS})
+        cards = mesh_size(cfg)
+        if cards != cell["chips"]:
+            raise ValueError(f"{what}: mesh = {cfg['mesh']!r} takes {cards} card(s), "
+                             f"the cell {cell['name']} asks for {cell['chips']}")
+        if cards == 1 and cfg["sharding"] != "replicate":
+            raise ValueError(f"{what}: sharding = {cfg['sharding']!r} needs a mesh of more "
+                             f"than one card, and mesh = {cfg['mesh']!r}")
+        return cfg
 
     def dense(self, cfg: dict):
         """The module ``dense/<interaction>.py``: the reference's dense half
@@ -150,6 +174,11 @@ class Manifest:
         metric's value, or None where the run holds nothing to read."""
         return _load("h100_bench_metric_" + metric.replace(".", "_").replace("-", "_"),
                      self._file("metrics", metric, ".py"))
+
+
+def mesh_size(cfg: dict) -> int:
+    """The cards, and processes, of a configuration's mesh."""
+    return cfg["mesh"]["data"] * cfg["mesh"]["model"]
 
 
 def _load(name: str, path: Path):

@@ -12,10 +12,16 @@ window, and the result holds the per-layer metrics.  The last line of
 standard output is the result; the last lines of standard error, and the
 result's last key, hold each number the check compared beside its limit.
 
+A cell whose configuration's ``mesh`` holds d x m > 1 cards runs as d x m
+processes, one a card (``ranks.py``): this process launches them, each is
+``run.py`` again with ``--rank``, and rank 0 prints the result.  Set-up runs
+from this process's start to rank 0's first timed call.  A 1 x 1 cell runs
+here, in this process alone.
+
 Not for the benchmark's own runs: ``--control tf32`` puts the reference,
 computed with TF32 on, in the program's place; ``--fault`` plants a fault
 in the timed path (``faults.py``); ``--device cpu`` runs without a card,
-for the tests.
+for the tests (a mesh over gloo).
 """
 
 from __future__ import annotations
@@ -56,6 +62,9 @@ def parse_args(argv=None):
     ap.add_argument("--control", choices=("tf32",), default=None)
     ap.add_argument("--fault", choices=("answer", "half", "state"), default=None)
     ap.add_argument("--device", default="cuda")
+    # a rank of a cell over a mesh, and the launcher's start (ranks.py)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--started", type=float, default=None, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -72,13 +81,17 @@ def forbidden_modules() -> list[str]:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from h100_bench.manifest import Manifest
+    from h100_bench.manifest import Manifest, mesh_size
 
     man = Manifest(ROOT)
     cell = man.cell(args.workload)
     cfg, traffic, limits = man.config(cell), man.traffic(cell), man.limits(cell)
     if args.seed < 0:
         raise SystemExit("--seed must be a non-negative integer")
+    if mesh_size(cfg) > 1 and args.rank is None:
+        from h100_bench.ranks import launch
+
+        return launch(sys.argv[1:] if argv is None else list(argv), mesh_size(cfg), START)
 
     import torch
 
@@ -89,20 +102,38 @@ def main(argv=None) -> int:
             print(f"{args.workload} needs {cell['chips']} CUDA card(s); found {found}",
                   file=sys.stderr)
             return 2
-        device = torch.device("cuda", 0)
+        device = torch.device("cuda", args.rank or 0)
         torch.cuda.set_device(device)
         torch.cuda.reset_peak_memory_stats(device)
     from h100_bench import entries
 
+    ranks, on_mesh = None, {}
+    if args.rank is not None:
+        from h100_bench.ranks import Ranks
+
+        ranks = Ranks(args.rank, cfg, device)
+        on_mesh = {"mesh": ranks.mesh}
     system = (_Absent() if args.control
-              else man.system(cfg).PortSystem(cfg, args.seed, device))
+              else man.system(cfg).PortSystem(cfg, args.seed, device, **on_mesh))
     kw = dict(trace=bool(args.trace), control=args.control is not None, fault=args.fault)
+    if ranks is not None:
+        kw["ranks"] = ranks
     steps = entries.ENTRIES[traffic["entry"]](system, man.dense(cfg), cfg, traffic, args.seed,
                                              args.seconds, device, **kw)
     next(steps)
-    setup_s = time.time() - START
+    setup_s = time.time() - (START if ranks is None else args.started)
     next(steps)
     run = next(steps)
+    elsewhere = 0  # forbidden modules the other ranks loaded
+    if ranks is not None:
+        own = forbidden_modules()
+        elsewhere = ranks.gather(run, len(own)) - len(own)
+        if not ranks.lead:
+            if own:
+                print(f"rank {args.rank} loaded modules the benchmark must not load: "
+                      f"{', '.join(own)}", file=sys.stderr)
+                return 3
+            return 0
     run.context["platform"] = "gpu" if device.type == "cuda" else device.type
 
     metrics = {}
@@ -137,8 +168,9 @@ def main(argv=None) -> int:
     result["checks"] = checks
 
     bad = forbidden_modules()
-    if bad:
-        print(f"loaded modules the benchmark must not load: {', '.join(bad)}", file=sys.stderr)
+    if bad or elsewhere:
+        print(f"loaded modules the benchmark must not load: {', '.join(bad)}"
+              f"{f' (and {elsewhere} on other ranks)' if elsewhere else ''}", file=sys.stderr)
         return 3
     for name, c in checks.items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)

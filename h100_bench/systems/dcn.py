@@ -17,7 +17,7 @@ from h100_bench.systems.dot import PortSystem as DotSystem
 
 
 class PortSystem(DotSystem):
-    def __init__(self, cfg: dict, seed: int, device: torch.device):
+    def __init__(self, cfg: dict, seed: int, device: torch.device, mesh=None):
         CollectionSystem.__init__(self, cfg)
         dlrm_cfg = port.DLRMConfig(dense_dim=cfg["dense_dim"], mlp_bot=tuple(cfg["mlp_bot"]),
                                    mlp_top=tuple(cfg["mlp_top"]),
@@ -27,7 +27,7 @@ class PortSystem(DotSystem):
         # the port draws its own init here; every tensor of it is then
         # overwritten with the benchmark's rows and weights
         self.model = port.DLRM(dlrm_cfg, port.ShardingPolicy(cfg["sharding"]), hybrid=True,
-                               device=device,
+                               device=device, mesh=mesh,
                                generator=torch.Generator(device=device).manual_seed(0))
         self.coll = self.model.collection
         self.fill(seed)

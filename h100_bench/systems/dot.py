@@ -3,7 +3,9 @@
 from a configuration file, with the benchmark's weights written over its
 own.  Scores through ``DLRM.forward`` on the dense wire, and through the
 collection's ``lookup_csr`` and ``DLRM.apply_from_pooled`` on the CSR wire;
-trains through ``make_sparse_train_step`` on the batch's wire."""
+trains through ``make_sparse_train_step`` on the batch's wire.  Given a
+``mesh`` (the port's ``PortMesh``), the model is built on it: this process
+holds its shard of the big set and is fed its data row's part of a batch."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from pim_embedding_lookup_tpu_torch.models.sparse_train import (
 
 
 class PortSystem(CollectionSystem):
-    def __init__(self, cfg: dict, seed: int, device: torch.device):
+    def __init__(self, cfg: dict, seed: int, device: torch.device, mesh=None):
         super().__init__(cfg)
         dlrm_cfg = port.DLRMConfig(dense_dim=cfg["dense_dim"], mlp_bot=tuple(cfg["mlp_bot"]),
                                    mlp_top=tuple(cfg["mlp_top"]),
@@ -27,7 +29,7 @@ class PortSystem(CollectionSystem):
         # the port draws its own init here; every tensor of it is then
         # overwritten with the benchmark's weights
         self.model = port.DLRM(dlrm_cfg, port.ShardingPolicy(cfg["sharding"]), hybrid=True,
-                               device=device,
+                               device=device, mesh=mesh,
                                generator=torch.Generator(device=device).manual_seed(0))
         self.coll = self.model.collection
         self.fill(seed)
