@@ -71,6 +71,9 @@ from .mesh import DATA_AXIS, MODEL_AXIS, PortMesh
 from .planner import FusedLayout, plan
 
 _NEG_INF = -3.0e38  # max-combiner identity
+# elements a table is drawn in a call by ``EmbeddingCollection.init``: 1 GB
+# of f32, so that the draw of a shard never holds the global storage
+INIT_CHUNK_ELEMENTS = 250_000_000
 
 
 def _parts(storage):
@@ -197,21 +200,58 @@ class EmbeddingCollection:
              dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """This process's storage with per-table uniform(-1/sqrt(n),
         1/sqrt(n)) rows, the dlrm EmbeddingBag init; padding rows are zero.
-        Every table is drawn in full, table by table, whatever the mesh, so
-        that one seed gives the same logical tables on every mesh; then the
-        shard is cut out."""
+
+        Every process draws every table, in table order, in chunks of
+        ``INIT_CHUNK_ELEMENTS`` (whole rows, from each table's first), and
+        keeps what its shard holds: under ROW and TABLE_WISE its fused rows,
+        under ROW_HASH the rows g with g % m == s at local row g // m, under
+        COLUMN its dims, under REPLICATE everything.  The chunks depend on
+        the layout's tables alone, so one seed gives the same logical tables
+        on every mesh, and no process holds more than its shard and one
+        chunk.  Where the shard is the whole storage, it is drawn in place."""
         lay = self.layout
-        fused = torch.zeros(lay.total_rows, lay.dim, dtype=dtype, device=self.device)
+        if lay.policy == ShardingPolicy.COLUMN:
+            local = torch.zeros(lay.total_rows, lay.dim // lay.num_shards, dtype=dtype,
+                                device=self.device)
+        else:
+            local = torch.zeros(lay.rows_per_shard if _rowish(lay.policy) else lay.total_rows,
+                                lay.dim, dtype=dtype, device=self.device)
+        step = max(1, INIT_CHUNK_ELEMENTS // lay.dim)
+        chunk = None  # one buffer for every chunk: a draw never holds two
+        if lay.num_shards > 1 and lay.policy != ShardingPolicy.REPLICATE:
+            chunk = torch.empty(min(step, max(lay.table_rows)), lay.dim, dtype=dtype,
+                                device=self.device)
         for off, rows in zip(lay.row_offsets, lay.table_rows):
             bound = 1.0 / np.sqrt(rows)
-            fused[off : off + rows].uniform_(-bound, bound, generator=generator)
-        if self._strided:  # shard s's local row j holds fused row j*m + s
-            m, s = lay.num_shards, self.shard
-            local = fused[s::m].contiguous().view(-1, lay.storage_width)
+            for lo in range(off, off + rows, step):
+                hi = min(lo + step, off + rows)
+                if chunk is None:
+                    local[lo:hi].uniform_(-bound, bound, generator=generator)
+                    continue
+                drawn = chunk[:hi - lo].uniform_(-bound, bound, generator=generator)
+                self._keep_held(local, drawn, lo)
+        if lay.policy == ShardingPolicy.COLUMN:
+            return local
+        return local.view(-1, lay.storage_width)
+
+    def _keep_held(self, local, chunk, lo):
+        """Copies into ``local`` what this shard holds of ``chunk``, the
+        drawn fused rows [lo, lo + len(chunk))."""
+        lay = self.layout
+        m, s, hi = lay.num_shards, self.shard, lo + chunk.shape[0]
+        if lay.policy == ShardingPolicy.COLUMN:
+            w = lay.dim // m
+            local[lo:hi] = chunk[:, s * w:(s + 1) * w]
+        elif self._strided:  # fused row g at local row g // m, g % m == s
+            g0 = lo + (s - lo) % m
+            if g0 < hi:
+                kept = chunk[g0 - lo::m]
+                local[g0 // m:g0 // m + kept.shape[0]] = kept
         else:
-            local = shard_storage(lay, self.shard, fused.view(lay.storage_rows,
-                                                             lay.storage_width))
-        return local if local.is_contiguous() else local.contiguous()
+            first = s * lay.rows_per_shard
+            a, b = max(lo, first), min(hi, first + lay.rows_per_shard)
+            if a < b:
+                local[a - first:b - first] = chunk[a - lo:b - lo]
 
     def fused_host_array(self, host_tables: Sequence[np.ndarray]) -> np.ndarray:
         """Per-table host weights -> the global fused [storage_rows,

@@ -25,10 +25,16 @@ the axis computes the same loss from their result:
 
 ``torch.distributed.nn.functional`` is not used: its all_reduce also
 all-reduces the cotangent, which counts each peer's loss once per peer.
+
+Every collective, a transpose's included, runs inside the span of its axis
+(``utils.profiling.span``: ``pel.comm.data``, ``pel.comm.model``) and is
+counted in ``comm_calls`` and ``comm_bytes`` by (op, axis): the bytes are
+those this process puts in.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -36,10 +42,25 @@ import torch.distributed as dist
 
 from ..config import MeshConfig
 from ..device import resolve_device
+from ..utils.profiling import span
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+COMM_SPANS = {DATA_AXIS: "pel.comm.data", MODEL_AXIS: "pel.comm.model"}
+
+# the collectives this process has taken part in, by (op, axis): calls, and
+# bytes put in ("psum", "pmax", "all_gather", "all_to_all")
+comm_calls: collections.Counter = collections.Counter()
+comm_bytes: collections.Counter = collections.Counter()
+
+
+def _comm(op: str, axis: str, x: torch.Tensor):
+    """Counts a collective ``op`` over ``axis`` on ``x``; returns the span
+    it runs in."""
+    comm_calls[op, axis] += 1
+    comm_bytes[op, axis] += x.numel() * x.element_size()
+    return span(COMM_SPANS[axis])
 
 
 def init_distributed(rank: int, world_size: int, init_method: str,
@@ -124,39 +145,46 @@ class PortMesh:
         return self.data_slice(indices, 1), self.data_slice(offsets, 1)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        if _differentiated(x):
-            return _Psum.apply(x, self.group(axis))
-        x = x.contiguous()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group(axis))
-        return x
+        group = self.group(axis)
+        with _comm("psum", axis, x):
+            if _differentiated(x):
+                return _Psum.apply(x, group)
+            x = x.contiguous()
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+            return x
 
     def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         if _differentiated(x):
             raise NotImplementedError("Differentiation rule for 'pmax' not implemented")
-        x = x.contiguous()
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group(axis))
-        return x
+        group = self.group(axis)
+        with _comm("pmax", axis, x):
+            x = x.contiguous()
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+            return x
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """Every peer's ``x`` along ``axis``, concatenated on ``dim`` in the
         peers' order (JAX's tiled all_gather)."""
-        if _differentiated(x):
-            return _AllGather.apply(x, self.group(axis), self.size(axis), self.index(axis),
-                                    dim)
-        return _all_gather(x, self.group(axis), self.size(axis), dim)
+        group = self.group(axis)
+        with _comm("all_gather", axis, x):
+            if _differentiated(x):
+                return _AllGather.apply(x, group, self.size(axis), self.index(axis), dim)
+            return _all_gather(x, group, self.size(axis), dim)
 
     def all_to_all(self, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
         """Split ``x``'s first dim into equal blocks, one per peer, and
         return the blocks the peers sent, in their order."""
-        if _differentiated(x):
-            return _AllToAll.apply(x, self.group(axis))
-        return _all_to_all(x, self.group(axis))
+        group = self.group(axis)
+        with _comm("all_to_all", axis, x):
+            if _differentiated(x):
+                return _AllToAll.apply(x, group, axis)
+            return _all_to_all(x, group)
 
     def pvary(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` itself, with its cotangent summed over ``axis`` (the module
         docstring); without grad ``x`` as it is."""
         if _differentiated(x):
-            return _Pvary.apply(x, self.group(axis))
+            return _Pvary.apply(x, self.group(axis), axis)
         return x
 
 
@@ -164,11 +192,22 @@ def _differentiated(x: torch.Tensor) -> bool:
     return x.requires_grad and torch.is_grad_enabled()
 
 
+# one collective into one buffer; renamed all_gather_single in later PyTorch
+_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
 def _all_gather(x, group, size, dim):
+    """The peers' ``x`` gathered into one [size * n, ...] buffer, which is
+    already their concatenation on dim 0; on another dim one copy moves the
+    peers' blocks there."""
     wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-    parts = [torch.empty_like(wire) for _ in range(size)]
-    dist.all_gather(parts, wire, group=group)
-    out = torch.cat(parts, dim=dim)
+    out = wire.new_empty((size * wire.shape[0], *wire.shape[1:]))
+    _gather_into(out, wire, group=group)
+    dim %= wire.dim()
+    if dim:
+        shape = list(wire.shape)
+        shape[dim] *= size
+        out = out.view(size, *wire.shape).movedim(0, dim).reshape(shape)
     return out.bool() if x.dtype == torch.bool else out
 
 
@@ -198,13 +237,14 @@ class _Psum(torch.autograd.Function):
 
 class _Pvary(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _summed(g, ctx.group), None
+        with _comm("psum", ctx.axis, g):
+            return _summed(g, ctx.group), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -220,13 +260,14 @@ class _AllGather(torch.autograd.Function):
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
         return _all_to_all(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_to_all(g, ctx.group), None
+        with _comm("all_to_all", ctx.axis, g):
+            return _all_to_all(g, ctx.group), None, None
 
 
 def make_mesh(config: MeshConfig | None = None, *, data: int | None = None,
