@@ -1790,10 +1790,36 @@ TRACE_TOL = dict(rtol=1e-4, atol=1e-6)
 SHARD_SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-SPARSE_STEP_BATCH = 65536  # kaggle-train-b65536's batch
+SPARSE_STEP_BATCH = 65536  # kaggle-train-b65536's batch, terabyte-train-2x2's gathered
+# MLPerf DLRM's Criteo Terabyte tables (rows capped at 40M), d=128: the
+# tables of terabyte-train-2x2, h100_bench/configs/mlperf-dlrm-terabyte.json
+TERABYTE_ROWS = (39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951, 2953546,
+                 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771, 25641295, 39664984,
+                 585935, 12972, 108, 36)
+
+
+class _ModelShard:
+    """Model shard ``shard`` of a (1, ``shards``) mesh on this card, with
+    no process group: enough to plan a row shard."""
+
+    def __init__(self, shards, shard):
+        self.data, self.model, self.device = 1, shards, DEV
+        self._shard = shard
+
+    def index(self, axis):
+        return self._shard if axis == "model" else 0
 
 
 def sparse_step_phase():
+    """The sparse step kernel at kaggle-train-b65536's shape, then at
+    terabyte-train-2x2's rank-0 call.  Returns their kernel-table rows."""
+    kaggle = sparse_step_kaggle()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kaggle, sparse_step_row_shard()
+
+
+def sparse_step_kaggle():
     """The sparse step kernel (``ops.sparse_step``) at kaggle-train-b65536's
     shape: the full-row Kaggle hybrid (16 small tables, 10 big ones, f32),
     B=65536 single-hot, every entry kept.  In both optimizers one step
@@ -1864,6 +1890,102 @@ def sparse_step_phase():
           f"of it), plain {plain_ms:.4f} ms, host {host_ms:.4f} ms to enqueue a call; one "
           f"call under torch.profiler {total_ms:.5f} ms in (name, ms, launches) "
           f"{json.dumps(activities)}; sparse_step.launches +{stepped}", flush=True)
+    return {"max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launches": stepped}
+
+
+def sparse_step_row_shard():
+    """The sparse step kernel's row-shard instance at terabyte-train-2x2's
+    rank-0 call: the MLPerf DLRM Terabyte hybrid at d=128, f32, its small
+    set replicated and its big set under ROW_HASH over a model axis of 2,
+    this card shard 0 at full size; the whole batch of B=65536 gathered
+    over the data axis, single-hot, every entry kept; SGD, as the cell
+    trains.  About half the big entries are shard 1's and must change
+    nothing.  The big storage starts at zero (an SGD step reads no weight),
+    so a row that no owned entry touches must stay zero: the count of
+    nonzero weights equals the touched rows' count.  One step against the
+    plain version from the same state, on the same storage (the touched
+    rows put back to zero between): cotangents in {0, +-1/2, +-1} * 2^-13,
+    tables within KERNEL_TOL.  Then timed as the Kaggle case is.  Returns
+    the kernel-table row."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    tables = tuple(TableConfig(num_rows=n, dim=128, name=f"t{i}")
+                   for i, n in enumerate(TERABYTE_ROWS))
+    coll = HybridEmbeddingCollection.create(tables, ShardingPolicy.ROW_HASH,
+                                            mesh=_ModelShard(2, 0))
+    plan = step_plan_hybrid(coll)
+    if plan.row_shard != (2, 0, True):
+        raise AssertionError(f"terabyte shard 0 of 2 planned as {plan.row_shard}")
+    b, t, d = SPARSE_STEP_BATCH, len(tables), plan.dim
+    small_ids, big_ids = list(plan.small_ids), list(plan.big_ids)
+    small = coll.small.init(gen)
+    small_acc = torch.zeros(plan.small_rows, device=DEV)
+    big = torch.zeros(plan.big_rows, d, device=DEV)  # 48 GB
+    big_acc = torch.zeros(plan.big_rows, device=DEV)
+    ids = torch.stack([torch.randint(0, n, (b,), generator=gen, device=DEV,
+                                     dtype=torch.int32) for n in TERABYTE_ROWS])
+    mask = torch.ones(ids.shape, dtype=torch.bool, device=DEV)
+    g = torch.randint(-2, 3, (b, t, d), generator=gen, device=DEV).float() * 2.0 ** -13
+    fused = ids[big_ids].long() + torch.tensor(
+        [plan.firsts[i] for i in big_ids], device=DEV)[:, None]
+    owner, local = _owner_local(fused, plan.big_rows, 2, True)
+    owned = (owner == 0) & (local < plan.big_rows)
+    touched = torch.unique(local[owned])
+
+    def nonzero(w):  # in slices of 2^22 rows: no temporary the size of the storage
+        return sum(int(torch.count_nonzero(w[i:i + (1 << 22)]))
+                   for i in range(0, w.shape[0], 1 << 22))
+
+    launches = sparse_step.launches
+    kw = dict(lr=TRAIN_LR, optimizer="sgd", eps=1e-8)
+    plain_small = small.clone()
+    sparse_step(plan, (small, small_acc), (big, big_acc), ids, mask, g, **kw)
+    got = big[touched]
+    if nonzero(big) != int(torch.count_nonzero(got)):
+        raise AssertionError("sparse step, row shard: a big row that no owned entry "
+                             "touches changed")
+    big[touched] = 0.0
+    sparse_step_reference(plan, (plain_small, small_acc.clone()), (big, big_acc.clone()), ids,
+                          mask, g, **kw)
+    check_kernel(small, plain_small)
+    check_kernel(got, big[touched])
+    err = max((small - plain_small).abs().max().item(),
+              (got - big[touched]).abs().max().item())
+    del got, plain_small
+    step = lambda: sparse_step(plan, (small, small_acc), (big, big_acc), ids, mask, g,  # noqa: E731
+                               **kw)
+    plain = lambda: sparse_step_reference(  # noqa: E731
+        plan, (small, small_acc), (big, big_acc), ids, mask, g, **kw)
+    kernel_ms = device_ms(step, [()], calls=10)
+    plain_ms = device_ms(plain, [()], calls=1, runs=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    total_ms, activities = top_kernels(step)
+    f32, n_small, n_big = 4, len(small_ids), len(big_ids)
+    n_owned, n_rows = int(owned.sum()), int(touched.numel())
+    moved = (b * n_small * (d * f32 + 5)  # launch 1: the small entries' cotangents, ids, mask
+             + b * n_big * 5 + n_owned * d * f32  # launch 2: every big id and mask byte,
+             # the owned entries' cotangents
+             + plan.small_rows * (2 * d * f32 + 2 * (d + 1) * f32)  # small w; the sums
+             + n_rows * 2 * d * f32)  # a touched big row's w
+    bound_ms, bound_by = bound(moved, 0)
+    stepped = sparse_step.launches - launches
+    print(f"sparse_step row shard: terabyte-train-2x2's rank-0 call ({n_small} small tables, "
+          f"{plan.count(PRIVATE)} summed in shared memory; {n_big} big under ROW_HASH, shard 0 "
+          f"of 2, {plan.big_rows} rows, {big.numel() * f32 / 1e9:.2f} GB; {n_owned} of "
+          f"{b * n_big} big entries owned, on {n_rows} rows; B={b}, L=1, d={d}, f32, sgd): "
+          f"against the plain version, untouched rows unchanged, tables max abs err "
+          f"{err:.3g} (1e-5 abs + 1e-5 rel); kernel {kernel_ms:.5f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}, {moved / 1e9:.4f} GB; {bound_ms / kernel_ms:.1%} "
+          f"of it), plain {plain_ms:.4f} ms, host {host_ms:.4f} ms to enqueue a call; one "
+          f"call under torch.profiler {total_ms:.5f} ms in (name, ms, launches) "
+          f"{json.dumps(activities)}; sparse_step.launches +{stepped}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return {"max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "launches": stepped}
@@ -3995,7 +4117,7 @@ def main(argv) -> int:
     toy_train_checks(gen)
     print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    stepped = sparse_step_phase()
+    stepped, stepped_shard = sparse_step_phase()
     print(f"sparse_step phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 12. mesh_1: the sharded engine through NCCL at world size 1 ------------
@@ -4111,6 +4233,11 @@ def main(argv) -> int:
               mean_row(shard_rows["K4 bwd"])),
         entry("sparse step sparse_step (both sets' row AdaGrad / SGD step, dense wire)",
               "sparse_step.cu", "", stepped["launches"], stepped,
+              replaced="pim_embedding_lookup_tpu/parallel/sparse_update.py and hybrid.py "
+                       "(XLA scatters, not a Pallas kernel)"),
+        entry("sparse step sparse_step, row shard (terabyte-train-2x2's rank-0 call: d=128, "
+              "ROW_HASH shard 0 of 2, SGD)", "sparse_step.cu", "", stepped_shard["launches"],
+              stepped_shard,
               replaced="pim_embedding_lookup_tpu/parallel/sparse_update.py and hybrid.py "
                        "(XLA scatters, not a Pallas kernel)"),
         *(entry(f"{k} int8 {mode} scale mode {fn} (int8 codes"

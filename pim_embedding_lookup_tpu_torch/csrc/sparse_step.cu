@@ -1,13 +1,15 @@
 // The sparse optimizer step of an embedding collection on the dense wire
 // (row-wise AdaGrad or SGD), both sets of the hybrid in two launches.
 //
-// Replaces, on one card, the eager PyTorch step the port takes on a mesh
-// (parallel/sparse_update.py, parallel/hybrid.py), which is the JAX
-// package's XLA scatters: per bucket of the small set ~20 operations, and
-// per set copies of the selected ids, mask and cotangents and a [T*B*L, D]
-// expansion of every entry's cotangent.  Here an entry (t, c) of the
-// caller's [T, B*L] ids reads its bag's cotangent row g[c / L, t, :] of the
-// [B, T, D] f32 cotangent in place; nothing is copied or expanded.
+// Replaces the eager PyTorch step (ops/sparse_step.py's plain version, the
+// JAX package's XLA scatters): per bucket of the small set ~20 operations,
+// and per set copies of the selected ids, mask and cotangents and a
+// [T*B*L, D] expansion of every entry's cotangent.  Here an entry (t, c) of
+// the caller's [T, B*L] ids reads its bag's cotangent row g[c / L, t, :] of
+// the [B, T, D] f32 cotangent in place; nothing is copied or expanded.  On
+// a mesh the caller passes the whole batch, gathered over the data axis,
+// and each process steps what it holds: the replicated small set whole,
+// and of the big set the rows its row shard owns (SHARDED, below).
 //
 // Each table belongs to one of two sets, and the set decides its step:
 // - the small set (the hybrid's bucketed tables; their rows lie in a
@@ -25,14 +27,20 @@
 //
 // Launch 1 (accumulate), after one memset of the small set's f32 workspace
 // [rows, D] of cotangent sums and [rows] of square means:
-// - small tables of at most 32 padded rows at d=16 (the wrapper's rule:
-//   their sums fit 32 KiB of shared memory once a warp) are summed in
-//   shared memory: a block takes 2048 entries of one table, each warp adds
-//   into a copy of its own, the groups of a warp one after another (so no
-//   two lanes add to one word at once, and nothing spins), and the block
-//   then adds the sum of its warps' copies to the workspace, one f32 atomic
-//   per (row, column).  Kaggle's 3-row table would otherwise take its
-//   65,536 entries into 3 rows by global atomics that serialise there;
+// - small tables whose sums fit shared memory (the wrapper's rule: at d=16
+//   those of at most 32 padded rows, a copy a warp in 32 KiB; at d=128
+//   those of at most 64, one copy a block in 48 KiB) are summed there.  With
+//   a copy a warp (COPIES = kWarps) a block takes 2048 entries of one table,
+//   each warp adds into its own copy, the groups of a warp one after
+//   another (so no two lanes add to one word at once, and nothing spins).
+//   With one copy a block (COPIES = 1; rows a warp wide, so a warp holds
+//   only 2 entries at once) a block takes 512 entries and its warps add by
+//   shared atomics: at terabyte-train-2x2's shape 512 took the first launch
+//   to 0.317 ms, 2048 to 0.454, 8192 to 1.57, global atomics to 0.663 (an
+//   H100 at 700 W).  The block then adds the sum of its copies to the
+//   workspace, one f32 atomic per (row, column).  Kaggle's 3-row table
+//   would otherwise take its 65,536 entries into 3 rows by global atomics
+//   that serialise there;
 // - the other small tables add each entry's cotangent to the workspace row
 //   with one float4 atomic a lane (red.global.add.v4.f32), and its square
 //   mean with one f32 atomic (4096- and 8192-row tables see 8-16 entries a
@@ -51,11 +59,19 @@
 // are loaded together, then their ids.  A masked entry is skipped before
 // its id is read (on the dense wire a masked id may hold anything), and an
 // entry whose row lies outside its table's padded rows (small set) or the
-// set's storage (big set) is dropped, as the eager step drops it.  Rows are
-// d-wide in both storages: lane-packed [S, 128] storage has the bytes of
-// [rows, d].  The f32 sums run in another order than the eager step's
-// (atomics), so the two agree within the bound of recursive summation, not
-// bit for bit.
+// set's storage (big set) is dropped, as the eager step drops it.  On a
+// mesh (the SHARDED instance) a big entry's fused row g = first + id is
+// kept only where the big set's row shard owns it, by the rule of
+// parallel/collection.py's _owner_local: ROW_HASH owner g % M, local row
+// g / M; ROW and TABLE_WISE owner g / rows, local row g % rows (rows of a
+// shard); kept where the owner is this shard and the local row lies in its
+// storage.  There a big entry's id is read before its cotangent row: the
+// other shards' entries (half of them over 2) are dropped unread.  Rows
+// are d-wide in both storages: lane-packed [S, 128] storage has the bytes
+// of [rows, d].  The f32 sums run in another order than the eager step's
+// (atomics, which also vary from run to run, as CUDA's index_add_'s do),
+// so the two agree within the bound of recursive summation, not bit for
+// bit; so do the data replicas of a shard on a mesh.
 //
 // Bound: bytes.  At Kaggle's B=65536, L=1, d=16: the cotangent (109 MB) read
 // once by each launch where a big table's entry needs it again, ids and
@@ -86,8 +102,10 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kChunk = 2048;  // entries of one table a privatized block sums
 constexpr int kUnroll = 2;    // entries a group has in flight at once
+// entries of one table a privatized block sums, with COPIES copies
+template <int COPIES>
+constexpr int kChunk = COPIES == kWarps ? 2048 : 512;
 constexpr int kMaxShared = 48 << 10;  // dynamic shared memory without an opt-in
 
 // a table's kind (the wrapper's table, column 0)
@@ -114,6 +132,10 @@ struct Step {
   float* ws_sq;  // [small_rows] sums of square means
   float lr, eps;
   int private_rows;  // the largest privatized table's padded rows
+  // the big set's row shard (SHARDED): shards M, this shard; big_rows are
+  // its rows
+  int num_shards, shard;
+  bool strided;  // ROW_HASH
 };
 
 // -- rows of VEC floats ---------------------------------------------------------
@@ -194,14 +216,33 @@ struct Entry {
   const float* g = nullptr;  // its bag's cotangent row, g[c / L, t, :]
 };
 
+// Whether big-set fused row `row` is this process's, and its row in the
+// set's storage (written to `row`): on one card every row inside the
+// storage; on a row shard (SHARDED) the rows the shard owns.  A fused row
+// (first row + id, each below 2^31) fits 32 unsigned bits.
+template <bool SHARDED>
+__device__ __forceinline__ bool own_row(const Step& s, long long& row) {
+  if constexpr (!SHARDED) {
+    return row >= 0 && row < s.big_rows;
+  } else {
+    if (row < 0) return false;
+    const unsigned g = (unsigned)row, m = s.num_shards, per = (unsigned)s.big_rows;
+    const unsigned owner = s.strided ? g % m : g / per;
+    const unsigned local = s.strided ? g / m : g - owner * per;
+    row = local;
+    return owner == (unsigned)s.shard && local < per;
+  }
+}
+
 // A group's U entries: items j0 + u * step (u < U; items from `end` on are
 // dropped), item j being entry j % C of table order[from + j / C].  The
 // cotangent rows' first chunks (a lane's chunk k0) and the mask bytes of
 // all U go out first, then the ids of the kept ones, so that the loads of U
 // entries are in flight at once: a cotangent row exists whatever its mask,
 // and a masked id is never read.  An entry outside its table's padded rows
-// (small set) or the set's storage (big set) is dropped.
-template <int U, int VEC>
+// (small set) or the set's storage (big set) is dropped.  SHARDED: a big
+// entry's cotangent row is loaded after its id, and only where it is kept.
+template <bool SHARDED, int U, int VEC>
 __device__ __forceinline__ void load_entries(const Step& s, int from, long long j0,
                                              long long step, long long end, int k0,
                                              Entry (&e)[U], float (&v)[U][VEC]) {
@@ -223,7 +264,8 @@ __device__ __forceinline__ void load_entries(const Step& s, int from, long long 
       at[u] = (long long)t[u] * s.C + c;
       const long long bag = s.L == 1 ? c : c / s.L;
       e[u].g = s.g + (bag * s.T + t[u]) * (long long)s.D;
-      if (k0 < s.chunks) load_f32<VEC>(e[u].g + k0 * VEC, v[u]);
+      const bool later = SHARDED && s.table[3 * t[u]] == kBig;
+      if (!later && k0 < s.chunks) load_f32<VEC>(e[u].g + k0 * VEC, v[u]);
       kept[u] = s.mask[at[u]] != 0;
     }
   }
@@ -234,8 +276,15 @@ __device__ __forceinline__ void load_entries(const Step& s, int from, long long 
     const int* tb = s.table + 3 * t[u];
     e[u].kind = tb[0];
     e[u].row = (long long)tb[1] + id;
-    e[u].keep = e[u].kind == kBig ? e[u].row >= 0 && e[u].row < s.big_rows
+    e[u].keep = e[u].kind == kBig ? own_row<SHARDED>(s, e[u].row)
                                   : id >= 0 && id < tb[2];
+  }
+  if constexpr (SHARDED) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (e[u].keep && e[u].kind == kBig && k0 < s.chunks)
+        load_f32<VEC>(e[u].g + k0 * VEC, v[u]);
+    }
   }
 }
 
@@ -269,9 +318,21 @@ __device__ __forceinline__ float group_sum(float x, int group) {
 
 // -- launch 1: cotangent sums and squares ---------------------------------------
 
+// p[0] += x into a privatized copy: by the warp alone (a copy a warp, its
+// groups in turn) or by a shared atomic (one copy a block)
+template <int COPIES>
+__device__ __forceinline__ void private_add(float* p, float x) {
+  if constexpr (COPIES == kWarps) {
+    *p += x;
+  } else {
+    atomicAdd(p, x);
+  }
+}
+
 // A privatized block: entries [c0, c1) of the small table at position pos
-// of the order, summed in shared memory, then added to the workspace.
-template <bool ADAGRAD, int VEC>
+// of the order, summed in shared memory (COPIES copies), then added to the
+// workspace.
+template <bool ADAGRAD, int VEC, int COPIES>
 __device__ void private_block(const Step& s, float* copies, int pos, long long c0,
                               long long c1) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -281,14 +342,14 @@ __device__ void private_block(const Step& s, float* copies, int pos, long long c
   const int npad = s.table[3 * t + 2];
   const long long first = s.table[3 * t + 1];
   const int n = npad * width;
-  for (int i = threadIdx.x; i < kWarps * n; i += kBlock) copies[i] = 0.f;
+  for (int i = threadIdx.x; i < COPIES * n; i += kBlock) copies[i] = 0.f;
   __syncthreads();
-  float* mine = copies + warp * n;
+  float* mine = copies + (COPIES == kWarps ? warp : 0) * n;
   const long long window = (long long)gpw * kUnroll;  // a warp's entries at once
   for (long long base = c0 + warp * window; base < c1; base += kWarps * window) {
     Entry e[kUnroll];
     float v[kUnroll][VEC];
-    load_entries<kUnroll, VEC>(s, pos, base + grp, gpw, c1, k0, e, v);
+    load_entries<false, kUnroll, VEC>(s, pos, base + grp, gpw, c1, k0, e, v);  // small set
     float sq[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -303,15 +364,15 @@ __device__ void private_block(const Step& s, float* copies, int pos, long long c
           float* r = mine + (e[u].row - first) * width;
           if (k0 < s.chunks) {
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) r[k0 * VEC + j] += v[u][j];
+            for (int j = 0; j < VEC; ++j) private_add<COPIES>(r + k0 * VEC + j, v[u][j]);
           }
           for (int k = k0 + s.group; k < s.chunks; k += s.group) {
             float x[VEC];
             load_f32<VEC>(e[u].g + k * VEC, x);
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) r[k * VEC + j] += x[j];
+            for (int j = 0; j < VEC; ++j) private_add<COPIES>(r + k * VEC + j, x[j]);
           }
-          if (ADAGRAD && k0 == 0) r[s.D] += __fdiv_rn(sq[u], (float)s.D);
+          if (ADAGRAD && k0 == 0) private_add<COPIES>(r + s.D, __fdiv_rn(sq[u], (float)s.D));
         }
       }
       __syncwarp();
@@ -320,7 +381,7 @@ __device__ void private_block(const Step& s, float* copies, int pos, long long c
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += kBlock) {
     float x = 0.f;
-    for (int w = 0; w < kWarps; ++w) x += copies[w * n + i];
+    for (int w = 0; w < COPIES; ++w) x += copies[w * n + i];
     if (x == 0.f) continue;  // a zero adds nothing
     const long long r = first + i / width;
     const int col = i % width;
@@ -332,15 +393,16 @@ __device__ void private_block(const Step& s, float* copies, int pos, long long c
   }
 }
 
-template <bool ADAGRAD, int VEC>
+template <bool ADAGRAD, int VEC, bool SHARDED, int COPIES>
 __global__ void __launch_bounds__(kBlock)
 accumulate_kernel(Step s, int private_blocks) {
-  extern __shared__ float copies[];  // [kWarps][private_rows][D + 1]
+  extern __shared__ float copies[];  // [COPIES][private_rows][D + 1]
   if ((int)blockIdx.x < private_blocks) {
-    const int per_table = (int)((s.C + kChunk - 1) / kChunk);
-    const long long c0 = (long long)(blockIdx.x % per_table) * kChunk;
-    private_block<ADAGRAD, VEC>(s, copies, blockIdx.x / per_table, c0,
-                                min(s.C, c0 + kChunk));
+    constexpr int chunk = kChunk<COPIES>;
+    const int per_table = (int)((s.C + chunk - 1) / chunk);
+    const long long c0 = (long long)(blockIdx.x % per_table) * chunk;
+    private_block<ADAGRAD, VEC, COPIES>(s, copies, blockIdx.x / per_table, c0,
+                                        min(s.C, c0 + chunk));
     return;
   }
   // the other small tables, then (row AdaGrad) the big ones, a group an entry
@@ -353,7 +415,7 @@ accumulate_kernel(Step s, int private_blocks) {
        base < items; base += stride) {  // uniform over the warp
     Entry e[kUnroll];
     float v[kUnroll][VEC];
-    load_entries<kUnroll, VEC>(s, s.n_private, base + grp, gpw, items, k0, e, v);
+    load_entries<SHARDED, kUnroll, VEC>(s, s.n_private, base + grp, gpw, items, k0, e, v);
     float sq[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -386,7 +448,7 @@ accumulate_kernel(Step s, int private_blocks) {
 
 // -- launch 2: the steps ----------------------------------------------------------
 
-template <typename TS, typename TB, bool ADAGRAD, int VEC>
+template <typename TS, typename TB, bool ADAGRAD, int VEC, bool SHARDED>
 __global__ void __launch_bounds__(kBlock) apply_kernel(Step s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gpw = 32 / s.group, grp = lane / s.group, k0 = lane % s.group;
@@ -419,7 +481,8 @@ __global__ void __launch_bounds__(kBlock) apply_kernel(Step s) {
        base += stride) {
     Entry e[kUnroll];
     float v[kUnroll][VEC];
-    load_entries<kUnroll, VEC>(s, s.n_private + s.n_small, base + grp, gpw, items, k0, e, v);
+    load_entries<SHARDED, kUnroll, VEC>(s, s.n_private + s.n_small, base + grp, gpw, items,
+                                        k0, e, v);
     float neg[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -468,26 +531,27 @@ long long wave_blocks(int device, int shared, long long needed) {
   return needed < blocks[d] ? needed : blocks[d];
 }
 
-template <bool ADAGRAD, int VEC>
+template <bool ADAGRAD, int VEC, bool SHARDED, int COPIES>
 int accumulate(const Step& s, int device, cudaStream_t stream) {
   const int shared =
-      s.n_private > 0 ? kWarps * s.private_rows * (s.D + 1) * (int)sizeof(float) : 0;
+      s.n_private > 0 ? COPIES * s.private_rows * (s.D + 1) * (int)sizeof(float) : 0;
   if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
-  const long long private_blocks = (long long)s.n_private * ((s.C + kChunk - 1) / kChunk);
+  constexpr int chunk = kChunk<COPIES>;
+  const long long private_blocks = (long long)s.n_private * ((s.C + chunk - 1) / chunk);
   const long long items = (long long)(s.n_small + (ADAGRAD ? s.n_big : 0)) * s.C;
   const long long per_block = (long long)kWarps * (32 / s.group) * kUnroll;
-  const long long direct = wave_blocks<&accumulate_kernel<ADAGRAD, VEC>>(
+  const long long direct = wave_blocks<&accumulate_kernel<ADAGRAD, VEC, SHARDED, COPIES>>(
       device, shared, (items + per_block - 1) / per_block);
   if (direct < 0) return (int)-direct;
   const long long grid = private_blocks + direct;
   if (grid == 0) return 0;
   if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
-  accumulate_kernel<ADAGRAD, VEC>
+  accumulate_kernel<ADAGRAD, VEC, SHARDED, COPIES>
       <<<(unsigned)grid, kBlock, shared, stream>>>(s, (int)private_blocks);
   return (int)cudaGetLastError();
 }
 
-template <typename TS, typename TB, bool ADAGRAD, int VEC>
+template <typename TS, typename TB, bool ADAGRAD, int VEC, bool SHARDED>
 int apply(const Step& s, int device, cudaStream_t stream) {
   const long long rows_per_block = kBlock / s.group;
   const long long entries_per_block = (long long)kWarps * (32 / s.group) * kUnroll;
@@ -495,23 +559,39 @@ int apply(const Step& s, int device, cudaStream_t stream) {
       std::max((s.small_rows + rows_per_block - 1) / rows_per_block,
                ((long long)s.n_big * s.C + entries_per_block - 1) / entries_per_block);
   const long long grid =
-      wave_blocks<&apply_kernel<TS, TB, ADAGRAD, VEC>>(device, 0, needed);
+      wave_blocks<&apply_kernel<TS, TB, ADAGRAD, VEC, SHARDED>>(device, 0, needed);
   if (grid < 0) return (int)-grid;
   if (grid == 0) return 0;
-  apply_kernel<TS, TB, ADAGRAD, VEC><<<(unsigned)grid, kBlock, 0, stream>>>(s);
+  apply_kernel<TS, TB, ADAGRAD, VEC, SHARDED><<<(unsigned)grid, kBlock, 0, stream>>>(s);
   return (int)cudaGetLastError();
 }
 
-template <bool ADAGRAD, int VEC>
+// A privatized block keeps a copy of its table's sums a warp below d=128
+// (rows a few lanes wide, a warp's groups adding in turn) and one copy a
+// block from d=128 on (rows a warp wide, shared atomics): the rule of
+// ops/sparse_step.py's private_copies, which the two must agree on.
+template <bool ADAGRAD, int VEC, bool SHARDED>
 int run(const Step& s, bool small_bf16, bool big_bf16, int device, cudaStream_t stream) {
   using Apply = int (*)(const Step&, int, cudaStream_t);
   const Apply chosen =
-      small_bf16 ? (big_bf16 ? apply<__nv_bfloat16, __nv_bfloat16, ADAGRAD, VEC>
-                             : apply<__nv_bfloat16, float, ADAGRAD, VEC>)
-                 : (big_bf16 ? apply<float, __nv_bfloat16, ADAGRAD, VEC>
-                             : apply<float, float, ADAGRAD, VEC>);
-  const int err = accumulate<ADAGRAD, VEC>(s, device, stream);
+      small_bf16 ? (big_bf16 ? apply<__nv_bfloat16, __nv_bfloat16, ADAGRAD, VEC, SHARDED>
+                             : apply<__nv_bfloat16, float, ADAGRAD, VEC, SHARDED>)
+                 : (big_bf16 ? apply<float, __nv_bfloat16, ADAGRAD, VEC, SHARDED>
+                             : apply<float, float, ADAGRAD, VEC, SHARDED>);
+  const int err = s.D < 128 ? accumulate<ADAGRAD, VEC, SHARDED, kWarps>(s, device, stream)
+                            : accumulate<ADAGRAD, VEC, SHARDED, 1>(s, device, stream);
   return err != 0 ? err : chosen(s, device, stream);
+}
+
+template <bool SHARDED>
+int dispatch(const Step& s, bool adagrad, int vec, bool small_bf16, bool big_bf16, int device,
+             cudaStream_t stream) {
+  if (adagrad) {
+    return vec == 4 ? run<true, 4, SHARDED>(s, small_bf16, big_bf16, device, stream)
+                    : run<true, 1, SHARDED>(s, small_bf16, big_bf16, device, stream);
+  }
+  return vec == 4 ? run<false, 4, SHARDED>(s, small_bf16, big_bf16, device, stream)
+                  : run<false, 1, SHARDED>(s, small_bf16, big_bf16, device, stream);
 }
 
 }  // namespace
@@ -520,14 +600,18 @@ extern "C" {
 
 // vec: 4 where d % 4 == 0 and every row pointer is 16-byte aligned, else 1.
 // ws: small_rows * (d + 1) f32, zeroed here.  A set that is absent has no
-// rows and no tables.
+// rows and no tables.  num_shards: 0 on one card, else the big set's row
+// shards (big_rows its shard's rows, below 2^32), of which this process
+// holds `shard`; strided: ROW_HASH.
 int pel_sparse_step(const void* indices, const void* mask, const void* g, const void* table,
                     const void* order, int n_private, int n_small, int n_big, long long c,
                     int t, int pooling, int d, void* small_w, int small_bf16, void* small_acc,
                     long long small_rows, void* big_w, int big_bf16, void* big_acc,
                     long long big_rows, void* ws, float lr, float eps, int adagrad, int vec,
-                    int private_rows, int device, void* stream) {
-  if (d < 1 || pooling < 1 || (vec != 1 && vec != 4) || d % vec != 0)
+                    int private_rows, int num_shards, int shard, int strided, int device,
+                    void* stream) {
+  if (d < 1 || pooling < 1 || (vec != 1 && vec != 4) || d % vec != 0 || num_shards < 0 ||
+      (num_shards > 0 && (shard < 0 || shard >= num_shards || big_rows > 0xffffffffLL)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -549,13 +633,14 @@ int pel_sparse_step(const void* indices, const void* mask, const void* g, const 
   s.ws_sq = s.ws_g + small_rows * d;
   s.lr = lr, s.eps = eps;
   s.private_rows = private_rows;
+  s.num_shards = num_shards, s.shard = shard, s.strided = strided != 0;
   if (small_rows > 0) {
     err = cudaMemsetAsync(ws, 0, (size_t)small_rows * (d + 1) * sizeof(float), s_);
     if (err != cudaSuccess) return (int)err;
   }
   const bool sb = small_bf16 != 0, bb = big_bf16 != 0;
-  if (adagrad) return vec == 4 ? run<true, 4>(s, sb, bb, device, s_) : run<true, 1>(s, sb, bb, device, s_);
-  return vec == 4 ? run<false, 4>(s, sb, bb, device, s_) : run<false, 1>(s, sb, bb, device, s_);
+  return num_shards > 0 ? dispatch<true>(s, adagrad != 0, vec, sb, bb, device, s_)
+                        : dispatch<false>(s, adagrad != 0, vec, sb, bb, device, s_);
 }
 
 const char* pel_error_string(int code) {

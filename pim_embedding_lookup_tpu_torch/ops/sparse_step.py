@@ -12,25 +12,32 @@ entry: every entry's mean_d(g^2) joins ``acc`` before any entry reads it,
 then each adds -lr * rsqrt(acc[row] + eps) * g to its row
 (:func:`apply_entries`).  SGD drops the accumulator.  The JAX package takes
 both steps with XLA scatters; the port takes them with these same plain ops
-where the step is sharded (a mesh, the routed path, COLUMN) and on the CSR
-wire (``parallel/sparse_update.py``, ``parallel/hybrid.py``).
+on the routed path, under COLUMN and on the CSR wire
+(``parallel/sparse_update.py``, ``parallel/hybrid.py``).
 
-On one card the step is ``csrc/sparse_step.cu``: a memset of the small
+On the card the step is ``csrc/sparse_step.cu``: a memset of the small
 set's workspace and two launches, for both sets, reading the caller's ids,
 mask and cotangent in place (no per-set copies, no [T*B*L, D] expansion).
 :class:`StepPlan` holds what it needs of a collection, built once: each
-table's set, first row and padded rows, and the order the launches take
-the tables in.  Small tables whose sums fit ``_PRIVATE_BYTES`` of shared
-memory once a warp are summed there (``PRIVATE``; Kaggle's tables of 3-27
-rows at d=16), the others by global atomics.
+table's set, first row and padded rows, the order the launches take the
+tables in, and on a mesh the big set's row shard (``row_shard``): a big
+entry's fused row is kept only where this shard owns it, and then steps its
+row of the shard's storage, the rule of ``parallel/collection.py``
+``_owner_local``.  On a mesh the caller passes the whole batch, gathered
+over the data axis.  Small tables whose sums fit shared memory (the rule of
+:func:`privatized`; Kaggle's tables of 3-27 rows at d=16) are summed there
+(``PRIVATE``), the others by global atomics.
 
 The plain version (:func:`sparse_step_reference`) runs for CPU tensors: the
-port's eager step, the same operations as on a mesh, so that the CPU keeps
-its bits against the JAX package.  A CUDA tensor launches the kernel or
-raises; it never falls back.  Its atomics add in an order that varies from
-run to run, so under ``torch.use_deterministic_algorithms(True)`` it raises
-(with ``warn_only=True``, warns), as PyTorch's own such ops do.
-``sparse_step.launches`` counts the steps launched on the card.
+port's eager step, the same operations on the same values as the eager
+step of the paths above, so that the CPU keeps its bits against the JAX
+package.  A CUDA tensor launches the kernel or raises; it never falls back.
+Its atomics add in an order that varies from run to run (as CUDA's
+``index_add_`` does), so under ``torch.use_deterministic_algorithms(True)``
+it raises (with ``warn_only=True``, warns), as PyTorch's own such ops do;
+on a mesh the data replicas of a shard then agree within the bound of
+recursive summation, not bit for bit.  ``sparse_step.launches`` counts the
+steps launched on the card.
 """
 
 from __future__ import annotations
@@ -45,15 +52,17 @@ from . import _build
 
 OPTIMIZERS = ("sgd", "row_adagrad")
 PRIVATE, SMALL, BIG = 0, 1, 2  # a table's kind in the kernel's table
-_WARPS = 8  # of a block of the kernel: each sums a private copy
-_PRIVATE_BYTES = 32 << 10  # shared memory for a privatized table's copies
+_WARPS = 8  # of a block of the kernel
+_PRIVATE_BYTES = 32 << 10  # shared memory for a privatized table's copies, one a warp
+_SHARED_BYTES = 48 << 10  # the same for one copy a block (the kernel's limit)
 _STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "pel_sparse_step": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,  # entries, tables
          _P, _I, _P, _L, _P, _I, _P, _L, _P,  # the sets, the workspace
-         ctypes.c_float, ctypes.c_float, _I, _I, _I, _I, _P],
+         ctypes.c_float, ctypes.c_float, _I, _I, _I,  # step, the private sums
+         _I, _I, _I, _I, _P],  # the row shard, the device
         ctypes.c_int),
     "pel_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -151,11 +160,13 @@ class StepPlan:
     """What the step needs of a collection, in the caller's table order.
     The small set (``small_ids``: caller tables in small-set order, with
     its ``buckets``) and the big set (``big_ids``) are those of
-    ``parallel/hybrid.py``; a plain collection is all big set."""
+    ``parallel/hybrid.py``; a plain collection is all big set.  On a mesh
+    ``row_shard`` is the big set's (shards, this shard, strided) under a
+    row policy, and ``big_rows`` the rows of this shard."""
 
     dim: int
     kinds: tuple[int, ...]  # PRIVATE, SMALL or BIG, a caller table
-    firsts: tuple[int, ...]  # its first row in its set's storage
+    firsts: tuple[int, ...]  # its first row in its set's storage (fused row, big set)
     padded: tuple[int, ...]  # its padded rows (small set), 0 (big set)
     order: tuple[int, ...]  # the PRIVATE tables, then the SMALL, then the BIG
     small_rows: int
@@ -163,6 +174,7 @@ class StepPlan:
     buckets: tuple = ()
     small_ids: tuple[int, ...] = ()
     big_ids: tuple[int, ...] = ()
+    row_shard: tuple[int, int, bool] | None = None
     # on the device: [T, 3] kind, first row, padded rows, then ``order``;
     # the sets' selections and the big set's offsets for the plain version
     tensors: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
@@ -179,17 +191,34 @@ class StepPlan:
         return max((n for k, n in zip(self.kinds, self.padded) if k == PRIVATE), default=0)
 
 
+def private_copies(dim: int) -> int:
+    """Copies of a privatized table's [rows, dim + 1] f32 sums that a block
+    of the kernel keeps in shared memory.  Rows narrower than 128 take a
+    few lanes each, so a warp holds several entries at once: a copy a warp,
+    whose groups add in turn with no atomics.  Wider rows take a whole warp
+    an entry: one copy a block, which its warps add to by shared atomics.
+    ``csrc/sparse_step.cu`` chooses its instance by the same rule, which
+    the two must agree on."""
+    return _WARPS if dim < 128 else 1
+
+
 def privatized(padded_rows: int, dim: int) -> bool:
     """Whether a small table of ``padded_rows`` is summed in shared memory:
-    a copy of its [rows, dim + 1] f32 sums a warp fits ``_PRIVATE_BYTES``."""
-    return _WARPS * padded_rows * (dim + 1) * 4 <= _PRIVATE_BYTES
+    its copies (:func:`private_copies`) fit ``_PRIVATE_BYTES``, one a warp,
+    or ``_SHARED_BYTES``, one a block."""
+    copies = private_copies(dim)
+    budget = _PRIVATE_BYTES if copies == _WARPS else _SHARED_BYTES
+    return copies * padded_rows * (dim + 1) * 4 <= budget
 
 
-def make_plan(dim: int, device, *, small=None, big=None) -> StepPlan:
+def make_plan(dim: int, device, *, small=None, big=None, row_shard=None) -> StepPlan:
     """The plan of a collection of ``dim``-wide tables on ``device``.
     ``small``: (caller ids in small-set order, first rows, buckets, rows of
-    its storage); ``big``: (caller ids in big-set order, first rows, rows of
-    its storage); either may be None."""
+    its storage); ``big``: (caller ids in big-set order, first fused rows,
+    rows of its storage); either may be None.  ``row_shard``: the big
+    set's (shards, this shard, strided) on a mesh under ROW / TABLE_WISE
+    (strided False) or ROW_HASH (True), whose storage holds the shard's
+    rows alone."""
     small_ids, small_firsts, buckets, small_rows = small or ((), (), (), 0)
     big_ids, big_firsts, big_rows = big or ((), (), 0)
     t = len(small_ids) + len(big_ids)
@@ -212,6 +241,7 @@ def make_plan(dim: int, device, *, small=None, big=None) -> StepPlan:
         dim=dim, kinds=tuple(kinds), firsts=tuple(firsts), padded=tuple(padded), order=order,
         small_rows=small_rows, big_rows=big_rows, buckets=tuple(buckets),
         small_ids=tuple(small_ids), big_ids=tuple(big_ids),
+        row_shard=None if row_shard is None else tuple(row_shard),
         tensors={"table": table, "small": longs(small_ids), "big": longs(big_ids),
                  "big_offsets": torch.tensor(big_firsts, dtype=torch.int32, device=device)})
 
@@ -260,11 +290,28 @@ def _check(plan, small, big, indices, mask, g_pooled, optimizer):
             raise ValueError(f"tensor on {x.device}, indices on {device}")
 
 
+def _owned(plan, ids, valid):
+    """(row in the big set's storage, kept) of fused rows ``ids``: on one
+    process every valid row inside the storage; on a row shard the valid
+    rows it owns (``parallel/collection.py`` ``_owner_local``), at their
+    row of the shard."""
+    if plan.row_shard is None:
+        return ids, valid & (ids >= 0) & (ids < plan.big_rows)
+    shards, shard, strided = plan.row_shard
+    rows = plan.big_rows
+    if strided:
+        owner, local = ids % shards, ids // shards
+    else:
+        owner = ids // rows
+        local = ids - owner * rows
+    return local, valid & (ids >= 0) & (owner == shard) & (local < rows)
+
+
 def sparse_step_reference(plan, small, big, indices, mask, g_pooled, *, lr, optimizer, eps):
     """Plain PyTorch version of the step, in place: the small set's
     :func:`densified_step`, then the big set's :func:`apply_entries`, each
-    over its tables' selection; a big entry outside the set's storage is
-    dropped."""
+    over its tables' selection; a big entry outside the set's storage, or
+    on a row shard one the shard does not own, is dropped."""
     pooling = indices.shape[1] // g_pooled.shape[0]
     sel = plan.tensors
     if small is not None:
@@ -276,8 +323,8 @@ def sparse_step_reference(plan, small, big, indices, mask, g_pooled, *, lr, opti
         g_idx = indices[sel["big"]] + sel["big_offsets"][:, None]
         ids, updates, valid = entry_updates(g_idx, mask[sel["big"]], g_pooled[:, sel["big"]],
                                             pooling)
-        keep = valid & (ids >= 0) & (ids < plan.big_rows)
-        apply_entries(*big, ids, updates, keep, lr=lr, eps=eps,
+        local, keep = _owned(plan, ids, valid)
+        apply_entries(*big, local, updates, keep, lr=lr, eps=eps,
                       use_adagrad=optimizer == "row_adagrad")
 
 
@@ -327,6 +374,7 @@ def sparse_step(
     ws = (torch.empty(plan.small_rows * (d + 1), dtype=torch.float32, device=indices.device)
           if small is not None else None)
     vec = 4 if d % 4 == 0 and _aligned(g_pooled, sw, bw, ws) else 1
+    shards, shard, strided = plan.row_shard or (0, 0, False)
     table = plan.tensors["table"]
     lib = _build.load("sparse_step", _SIGNATURES)
     err = lib.pel_sparse_step(
@@ -339,8 +387,8 @@ def sparse_step(
         None if bw is None else bw.data_ptr(), bw is not None and bw.dtype == torch.bfloat16,
         None if ba is None else ba.data_ptr(), plan.big_rows,
         None if ws is None else ws.data_ptr(), lr, eps, optimizer == "row_adagrad", vec,
-        plan.private_rows, indices.device.index,
-        torch.cuda.current_stream(indices.device).cuda_stream)
+        plan.private_rows, shards, shard, strided,
+        indices.device.index, torch.cuda.current_stream(indices.device).cuda_stream)
     if err != 0:
         msg = lib.pel_error_string(err).decode()
         raise RuntimeError(f"sparse_step launch failed: {msg} ({err})")

@@ -140,7 +140,7 @@ class EmbeddingCollection:
     # host (a copy from pageable memory would wait for the card)
     _row_offsets: torch.Tensor = dataclasses.field(
         init=False, repr=False, compare=False)
-    # ops.sparse_step's plan, built at the first step on one process
+    # ops.sparse_step's plan, built at the first dense-wire step
     _step_plan: object = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 

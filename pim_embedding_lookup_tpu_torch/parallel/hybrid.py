@@ -31,10 +31,11 @@ Params are a dict ``{"small": [R_s, D] | None, "big": [S, W] | None}`` (an
 int8 big set's params are its dict), and so is the row-AdaGrad accumulator.
 The sparse step updates the small set by densifying each bucket's gradient
 and stepping it row by row, the big set by the entry-wise scatter of
-``sparse_update``.  On one process the dense wire's step of both sets is
-one ``ops.sparse_step`` call (on the card one hand-written CUDA step).  On a
-mesh the small set's entry stream is first gathered over the data axis, so
-that every replica applies the whole batch.
+``sparse_update``.  The dense wire's step of both sets is one
+``ops.sparse_step`` call (on the card one hand-written CUDA step), off the
+routed path and COLUMN.  On a mesh the entry stream is first gathered over
+the data axis, so that every replica of the small set, and every replica
+of a big set's shard, applies the whole batch.
 """
 
 from __future__ import annotations
@@ -62,10 +63,12 @@ from .quantized_collection import QuantizedEmbeddingCollection
 from .sparse_update import (
     _check_supported,
     _entry_updates_csr,
+    held_rows,
     init_accumulator,
     sparse_update,
     sparse_update_csr,
     takes_sparse_step,
+    whole_batch,
 )
 
 # The JAX package's split between the two sets, kept so that layouts match.
@@ -129,7 +132,7 @@ class HybridEmbeddingCollection:
     # small_ids, big_ids and perm on the device, so that a lookup copies
     # nothing from the host
     _index: dict = dataclasses.field(init=False, repr=False, compare=False)
-    # ops.sparse_step's plan, built at the first step on one process
+    # ops.sparse_step's plan, built at the first dense-wire step
     _step_plan: object = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
@@ -422,16 +425,17 @@ def _takes_sparse_step(coll: HybridEmbeddingCollection, routed: bool) -> bool:
 
 def step_plan_hybrid(coll: HybridEmbeddingCollection) -> StepPlan:
     """The collection's plan for ``ops.sparse_step``: the small set's
-    tables by bucket, the big set's by its row offsets; built at the first
-    step and kept."""
+    tables by bucket, the big set's by its row offsets (on a mesh under a
+    row policy, its row shard); built at the first step and kept."""
     if coll._step_plan is None:
         small, big = coll.small, coll.big
+        rows, row_shard = (0, None) if big is None else held_rows(big)
         object.__setattr__(coll, "_step_plan", make_plan(
             (small or big).layout.dim, coll.device,
             small=None if small is None else (coll.small_ids, small.layout.row_offsets,
                                               coll.buckets, small.layout.total_rows),
-            big=None if big is None else (coll.big_ids, big.layout.row_offsets,
-                                          big.layout.total_rows)))
+            big=None if big is None else (coll.big_ids, big.layout.row_offsets, rows),
+            row_shard=row_shard))
     return coll._step_plan
 
 
@@ -454,8 +458,10 @@ def sparse_update_hybrid(
     the bucketed densified step, the big set by ``sparse_update``
     (``routed``: through the all-to-all routing).  Returns (params, accs),
     or with ``return_stats`` also the big set's count of dropped entries
-    (0 off the routed path).  On one process both sets take one
-    ``ops.sparse_step`` call.  An int8 big set is refused."""
+    (0 off the routed path).  Off the routed path and COLUMN both sets take
+    one ``ops.sparse_step`` call, on a mesh after one gather of the ids,
+    the mask and the cotangents over the data axis.  An int8 big set is
+    refused."""
     if coll.big is not None and coll._big_quantized:
         raise ValueError(
             "sparse_update_hybrid: int8 big set is inference-only (gradient "
@@ -468,9 +474,9 @@ def sparse_update_hybrid(
         with span("pel.sparse_update"):
             sets = [None if sub is None else (params[key], accs[key])
                     for key, sub in (("small", coll.small), ("big", coll.big))]
-            sparse_step(step_plan_hybrid(coll), *sets, indices.to(torch.int32).contiguous(),
-                        mask.to(torch.bool).contiguous(), g_pooled.float().contiguous(),
-                        lr=lr, optimizer=optimizer, eps=eps)
+            sparse_step(step_plan_hybrid(coll), *sets,
+                        *whole_batch(coll.mesh, indices, mask, g_pooled), lr=lr,
+                        optimizer=optimizer, eps=eps)
         if return_stats:
             return params, accs, torch.zeros((), dtype=torch.int32, device=coll.device)
         return params, accs

@@ -6,19 +6,22 @@ one device or on a mesh.  Every valid entry (id, bag cotangent) becomes one
 d-wide step, SGD or row-wise AdaGrad (one f32 accumulator per fused row),
 added with ``index_add_``: the JAX package's XLA scatters, not a Pallas
 kernel.  Storage and accumulator are updated in place, which stands in for
-the JAX step's buffer donation.  On one process the dense wire's step is
-``ops.sparse_step`` (:func:`takes_sparse_step`): on the card one
-hand-written CUDA step over the entries in place, on the CPU these same
-operations.
+the JAX step's buffer donation.  The dense wire's step is
+``ops.sparse_step`` (:func:`takes_sparse_step`) on one process and on a
+mesh, off the routed path and COLUMN: on the card one hand-written CUDA
+step over the entries in place, on the CPU these same operations.
 
 On a mesh the entry stream is first all-gathered over the data axis in
-data-row order, so every data replica applies the identical stream and the
-replicas stay bitwise equal.  Then each process applies what it holds: a
-row shard the entries it owns, a COLUMN shard its dim slice of every entry
-(row AdaGrad's mean_d(g^2) averaged over the model axis, so that every
-slice adds the same value to the replicated accumulator).  ``routed=True``
-instead sends (id, update) pairs to their owners through the capacity
-buckets of the routed lookup, and counts what overflows.
+data-row order (on the dense wire the ids, the mask and the cotangents,
+one collective each), so every data replica applies the whole batch.
+Then each process applies what it holds: a row shard the entries it owns,
+a COLUMN shard its dim slice of every entry (row AdaGrad's mean_d(g^2)
+averaged over the model axis, so that every slice adds the same value to
+the replicated accumulator).  On the CPU the replicas stay bitwise equal;
+on the card the sparse step's atomics add in an order of their own on
+each replica, which then agree within the bound of recursive summation.
+``routed=True`` instead sends (id, update) pairs to their owners through
+the capacity buckets of the routed lookup, and counts what overflows.
 
 Dropped entries (masked, CSR padding, other shards' ids) keep a valid row
 id and add an exact identity there: -0.0 to a weight (w + -0.0 == w for
@@ -137,11 +140,22 @@ def _check_supported(coll, optimizer, routed, name):
 
 
 def takes_sparse_step(coll: EmbeddingCollection, routed: bool = False) -> bool:
-    """Whether the dense-wire step of ``coll`` is ``ops.sparse_step``: one
-    process (no mesh), not routed, and a layout other than COLUMN.  The
-    mesh's all-gathers, the routed all-to-all and COLUMN's dim slices keep
-    the eager step."""
-    return coll.mesh is None and not routed and coll.layout.policy != ShardingPolicy.COLUMN
+    """Whether the dense-wire step of ``coll`` is ``ops.sparse_step``: not
+    routed, and a layout other than COLUMN, on one process or on a mesh.
+    The routed all-to-all and COLUMN's dim slices keep the eager step."""
+    return not routed and coll.layout.policy != ShardingPolicy.COLUMN
+
+
+def held_rows(coll: EmbeddingCollection) -> tuple[int, tuple[int, int, bool] | None]:
+    """(fused rows this process holds, its row shard): under a row policy
+    over more than one shard a shard's rows and (shards, this shard,
+    strided), the shard of ``ops.sparse_step``'s plan; else every row and
+    None (one shard holds every row)."""
+    lay = coll.layout
+    if not _rowish(lay.policy) or lay.num_shards == 1:
+        return lay.total_rows, None
+    return lay.rows_per_shard, (lay.num_shards, coll.shard,
+                                lay.policy == ShardingPolicy.ROW_HASH)
 
 
 def step_plan(coll: EmbeddingCollection) -> StepPlan:
@@ -149,10 +163,26 @@ def step_plan(coll: EmbeddingCollection) -> StepPlan:
     big set), built at the first step and kept."""
     if coll._step_plan is None:
         lay = coll.layout
+        rows, row_shard = held_rows(coll)
         object.__setattr__(coll, "_step_plan", make_plan(
-            lay.dim, coll.device,
-            big=(tuple(range(lay.num_tables)), lay.row_offsets, lay.total_rows)))
+            lay.dim, coll.device, big=(tuple(range(lay.num_tables)), lay.row_offsets, rows),
+            row_shard=row_shard))
     return coll._step_plan
+
+
+def whole_batch(mesh, indices, mask, g_pooled):
+    """The dense wire's (int32 ids, bool mask, f32 cotangents) as
+    ``ops.sparse_step`` takes them, contiguous: on a mesh the whole batch,
+    each all-gathered once over the data axis in data-row order (the mask
+    as bytes), else the caller's own."""
+    indices = indices.to(torch.int32).contiguous()
+    mask = mask.to(torch.bool).contiguous()
+    g_pooled = g_pooled.float().contiguous()
+    if mesh is None:
+        return indices, mask, g_pooled
+    return (mesh.all_gather(indices, DATA_AXIS, 1),
+            mesh.all_gather(mask.view(torch.uint8), DATA_AXIS, 1).view(torch.bool),
+            mesh.all_gather(g_pooled, DATA_AXIS, 0))
 
 
 def sparse_update(
@@ -174,12 +204,12 @@ def sparse_update(
     or (fused, acc, dropped) with ``return_stats=True``.  ``routed=True``
     (row policies) routes (id, update) pairs to their owners;
     ``capacity_factor=None`` is the collection's safe factor, at which
-    nothing drops.  On one process the step is ``ops.sparse_step``
-    (:func:`takes_sparse_step`)."""
+    nothing drops.  Off the routed path and COLUMN the step is
+    ``ops.sparse_step`` (:func:`takes_sparse_step`)."""
     _check_supported(coll, optimizer, routed, "sparse_update")
     if takes_sparse_step(coll, routed):
-        sparse_step(step_plan(coll), None, (fused, acc), indices.to(torch.int32).contiguous(),
-                    mask.to(torch.bool).contiguous(), g_pooled.float().contiguous(), lr=lr,
+        sparse_step(step_plan(coll), None, (fused, acc),
+                    *whole_batch(coll.mesh, indices, mask, g_pooled), lr=lr,
                     optimizer=optimizer, eps=eps)
         if return_stats:
             return fused, acc, torch.zeros((), dtype=torch.int32, device=acc.device)
@@ -247,6 +277,4 @@ def init_accumulator(coll: EmbeddingCollection) -> torch.Tensor:
     """Row-wise AdaGrad accumulator: 1-D f32 zeros, one per fused row even
     when the storage is lane-packed; [rows_per_shard] on a row shard, the
     whole [total_rows] replicated otherwise."""
-    lay = coll.layout
-    rows = lay.rows_per_shard if _rowish(lay.policy) else lay.total_rows
-    return torch.zeros(rows, dtype=torch.float32, device=coll.device)
+    return torch.zeros(held_rows(coll)[0], dtype=torch.float32, device=coll.device)

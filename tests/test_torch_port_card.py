@@ -48,7 +48,7 @@ from pim_embedding_lookup_tpu_torch.parallel.hybrid import (
     HybridEmbeddingCollection,
     step_plan_hybrid,
 )
-from pim_embedding_lookup_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from pim_embedding_lookup_tpu_torch.parallel.mesh import MODEL_AXIS, init_distributed, make_mesh
 from pim_embedding_lookup_tpu_torch.parallel.sparse_update import (
     init_accumulator,
     sparse_update,
@@ -619,6 +619,21 @@ def test_dropped_entries_change_nothing(cuda, optimizer):
 U = 2.0 ** -24  # f32 unit roundoff
 BF16_ULP = 2.0 ** -7  # the largest bf16 spacing, relative to the value
 KAGGLE_ROWS = tuple(t.num_rows for t in kaggle_config().tables)
+# terabyte-train-2x2's kinds of table at d=128: small ones of 3-976 rows
+# (padded to 8-1024), big ones row-sharded over 2
+SHARD_ROWS = (3, 20000, 10, 36, 50001, 155, 976, 9001)
+
+
+class _ModelShard:
+    """Model shard ``shard`` of a (1, ``shards``) mesh with no process
+    group: enough to plan a row shard and draw its storage."""
+
+    def __init__(self, shards, shard, device):
+        self.data, self.model, self.device = 1, shards, torch.device(device)
+        self._shard = shard
+
+    def index(self, axis):
+        return self._shard if axis == MODEL_AXIS else 0
 
 
 def _step_case(device, case, dtype):
@@ -626,20 +641,36 @@ def _step_case(device, case, dtype):
     g) of a sparse step case: Kaggle's 16 + 10 split at B=65536, L=1 (all
     kept); a non-hybrid collection of random's shape at L=120, 7 in 10
     kept; the 3-row table beside a big one, all 65,536 entries kept; a big
-    set whose entries fall on 400 rows, 8 in 10 kept.  Masked ids are
-    1 << 30.  Cotangents lie in {0, +-1/2, +-1} and accumulators (what
-    earlier steps left) are multiples of 2^-8, so that every row's sums of
-    cotangents and squares are exact in f32 in any order."""
+    set whose entries fall on 400 rows, 8 in 10 kept; shard 0 of 2 under
+    ROW_HASH, shard 1 of 2 under ROW and shard 0 of 2 under TABLE_WISE
+    (whole tables a shard) of a hybrid at d=128 (the whole
+    batch of 16,384, 9 in 10 kept: a half to two thirds of the big entries
+    belong to the other shard, and the big tables' last entries, ids past the
+    storage, to none).  Masked ids are 1 << 30.  Cotangents lie in {0,
+    +-1/2, +-1} and accumulators (what earlier steps left) are multiples
+    of 2^-8, so that every row's sums of cotangents and squares are exact
+    in f32 in any order."""
     gen = torch.Generator(device=device).manual_seed(23)
     rows, b, pooling, keep, hybrid, dim, hot = {
         "kaggle": (KAGGLE_ROWS, 65536, 1, 1.0, True, 16, None),
         "random_l120": ((100_000,) * 8, 256, 120, 0.7, False, 64, None),
         "three_rows": ((3, 20000), 65536, 1, 1.0, True, 16, None),
         "big_duplicates": ((24, 20000, 50000), 4096, 4, 0.8, True, 16, 400),
+        "row_hash_shard": (SHARD_ROWS, 16384, 1, 0.9, True, 128, None),
+        "row_shard": (SHARD_ROWS, 16384, 1, 0.9, True, 128, None),
+        "table_wise_shard": (SHARD_ROWS, 16384, 1, 0.9, True, 128, None),
     }[case]
     tables = tuple(TableConfig(num_rows=n, dim=dim, name=f"t{i}") for i, n in enumerate(rows))
-    if hybrid:
+    shard = {"row_hash_shard": (ShardingPolicy.ROW_HASH, 0),
+             "row_shard": (ShardingPolicy.ROW, 1),
+             "table_wise_shard": (ShardingPolicy.TABLE_WISE, 0)}.get(case)
+    if shard is not None:
+        coll = HybridEmbeddingCollection.create(tables, shard[0],
+                                                mesh=_ModelShard(2, shard[1], device))
+        assert step_plan_hybrid(coll).row_shard == (2, shard[1], case == "row_hash_shard")
+    if hybrid and shard is None:
         coll = HybridEmbeddingCollection.create(tables, device=device)
+    if hybrid:
         plan, params = step_plan_hybrid(coll), coll.init(gen, dtype)
         storages = [params["small"], params["big"]]
         big_ids = set(coll.big_ids)
@@ -655,13 +686,17 @@ def _step_case(device, case, dtype):
                                      generator=gen, device=device, dtype=torch.int32)
                        for t, n in enumerate(rows)])
     mask = torch.rand(ids.shape, generator=gen, device=device) < keep
+    if shard is not None:  # fused rows past every shard's storage
+        ids[sorted(big_ids), -3:] = coll.big.layout.total_rows
     g = torch.randint(-2, 3, (b, len(rows), dim), generator=gen, device=device).float() * 0.5
     return plan, sets[0], sets[1], torch.where(mask, ids, NEVER_READ), mask, g
 
 
 def _set_hits(plan, which, ids, mask, g):
     """Per row of a set, in f64: the kept entries n, the sums of their
-    cotangents and of the cotangents' magnitudes [rows, D]."""
+    cotangents and of the cotangents' magnitudes [rows, D].  A big entry
+    counts at its row of the storage, on a row shard only where the shard
+    owns it (``collection._owner_local``)."""
     rows = plan.small_rows if which == "small" else plan.big_rows
     b, _, d = g.shape
     pooling = ids.shape[1] // b
@@ -672,6 +707,13 @@ def _set_hits(plan, which, ids, mask, g):
     for t in (plan.small_ids if which == "small" else plan.big_ids):
         k = mask[t]
         r = plan.firsts[t] + ids[t][k].long()
+        if which == "big" and plan.row_shard is not None:
+            shards, shard, strided = plan.row_shard
+            owner, local = collection_mod._owner_local(r, rows, shards, strided)
+            owned = (owner == shard) & (local < rows)
+            k = k.clone()
+            k[mask[t]] = owned
+            r = local[owned]
         ge = g[bag[k], t].double()
         n.index_add_(0, r, torch.ones_like(r, dtype=torch.float64))
         sums.index_add_(0, r, ge)
@@ -720,13 +762,15 @@ def _assert_step_close(which, got, want, before, hits, lr, eps, adagrad, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("optimizer", ["sgd", "row_adagrad"])
-@pytest.mark.parametrize("case", ["kaggle", "random_l120", "three_rows", "big_duplicates"])
+@pytest.mark.parametrize("case", ["kaggle", "random_l120", "three_rows", "big_duplicates",
+                                  "row_hash_shard", "row_shard", "table_wise_shard"])
 def test_sparse_step_kernel_matches_plain(cuda, case, optimizer, dtype):
     """One launch of the sparse step kernel against its plain version on
     the card, from the same state: both sets' storage and accumulators
     within the summation bound of ``_assert_step_close`` (atomics sum in
-    a varying order), rows no entry touched bitwise unchanged, masked ids
-    of 1 << 30 never read."""
+    a varying order), rows no entry touched bitwise unchanged (on a row
+    shard: every row no entry it owns touched, whatever the other shard's
+    entries), masked ids of 1 << 30 never read."""
     plan, small, big, ids, mask, g = _step_case(cuda, case, dtype)
     kw = dict(lr=0.1, optimizer=optimizer, eps=1e-8)
     sets = {"small": small, "big": big}

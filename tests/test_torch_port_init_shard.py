@@ -304,16 +304,15 @@ class _FakeMesh:
 def _expected_step_comm():
     """(calls, bytes) by (op, axis) of one sparse step on the 2 x 2 mesh:
     the big set's psum over the model axis; the dense gradients' and the
-    loss's psums over the data axis; each set's ids, mask and cotangents
-    gathered over it."""
-    small = sum(n <= 8192 for n in STEP_ROWS)
-    big = len(STEP_ROWS) - small
+    loss's psums over the data axis; the ids (int32), the mask (bytes) and
+    the cotangents (f32) of every table gathered over it, once each."""
+    tables = len(STEP_ROWS)
+    big = sum(n > 8192 for n in STEP_ROWS)
     bd = STEP_BATCH // 2
     entries = bd * STEP_POOLING
     params = sum(p.numel() for p in _step_model().parameters())
-    gathers = [t * entries * 4 for t in (small, big)] + [t * entries for t in (small, big)] \
-        + [bd * t * DIM * 4 for t in (small, big)]
-    calls = {("psum", "model"): 1, ("psum", "data"): 2, ("all_gather", "data"): 6}
+    gathers = [tables * entries * 4, tables * entries, bd * tables * DIM * 4]
+    calls = {("psum", "model"): 1, ("psum", "data"): 2, ("all_gather", "data"): 3}
     nbytes = {("psum", "model"): bd * big * DIM * 4, ("psum", "data"): params * 4 + 4,
               ("all_gather", "data"): sum(gathers)}
     return calls, nbytes
@@ -328,13 +327,13 @@ def test_train_step_counts_its_collectives(clusters):
 
 def test_train_step_records_comm_spans_inside_its_layers(clusters):
     """The model axis's psum inside the big set's lookup, the data axis's
-    two psums inside the dense half and its six gathers inside the sparse
-    update: nine spans a step."""
+    two psums inside the dense half and its three gathers inside the sparse
+    update: six spans a step."""
     for _, meta in clusters[2, 2]:
         assert meta["train_steps"] == 1
         assert meta["inside"]["pel.comm.model"] == ["pel.lookup.big"]
         inside = sorted(meta["inside"]["pel.comm.data"])
-        assert inside == ["pel.sparse_update"] * 6 + ["pel.train.dense"] * 2
+        assert inside == ["pel.sparse_update"] * 3 + ["pel.train.dense"] * 2
 
 
 def test_one_process_step_runs_no_collective():

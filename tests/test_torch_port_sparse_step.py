@@ -1,8 +1,10 @@
 """``ops.sparse_step`` on the CPU: the wrapper's refusals, its plan of a
 collection, the path the dense-wire steps choose, and the plain version the
-CPU takes (the kernel's launch counter stays at 0).  The kernel itself runs
-in ``tests/test_torch_port_card.py``; the plain version is held to the JAX
-package by ``tests/test_torch_port_sparse_update.py``."""
+CPU takes (the kernel's launch counter stays at 0), on a row shard bitwise
+the eager step's operations.  The kernel itself runs in
+``tests/test_torch_port_card.py``; the plain version is held to the JAX
+package by ``tests/test_torch_port_sparse_update.py``, the mesh's path to
+the eager one by ``tests/test_torch_port_sparse_step_mesh.py``."""
 
 import dataclasses
 from unittest import mock
@@ -16,7 +18,11 @@ from pim_embedding_lookup_tpu_torch.ops.sparse_step import (
     BIG,
     PRIVATE,
     SMALL,
+    apply_entries,
+    densified_step,
+    entry_updates,
     make_plan,
+    private_copies,
     privatized,
     sparse_step,
 )
@@ -139,8 +145,10 @@ def test_plan_of_plain_collection_is_all_big_set():
     assert plan.kinds == (BIG,) * 3 and plan.order == (0, 1, 2)
     assert plan.firsts == coll.layout.row_offsets and plan.small_rows == 0
     assert plan.big_rows == coll.layout.total_rows and plan.dim == 64
-    # wide rows: no small table of any size is privatized at d=128
-    assert not privatized(8, 128)
+    # wide rows: one copy a block, so tables of up to 64 padded rows are
+    # privatized at d=128 (terabyte-train-2x2's 3- to 63-row tables)
+    assert (private_copies(DIM), private_copies(128)) == (8, 1)
+    assert privatized(64, 128) and not privatized(128, 128)
     assert make_plan(DIM, "cpu", big=((1, 0), (0, 50), 60)).order == (0, 1)
 
 
@@ -179,22 +187,24 @@ def test_cpu_step_takes_the_plain_version(kind, optimizer):
     assert sparse_step.launches == launches
 
 
-@pytest.mark.parametrize("case", ["one_process", "mesh", "routed", "column"])
+@pytest.mark.parametrize("case", ["one_process", "mesh", "routed", "column", "mesh_column",
+                                  "mesh_routed"])
 def test_path_chooser(case):
-    """The dense-wire step takes ``ops.sparse_step`` on one process only:
-    a mesh, the routed path and COLUMN keep the eager step."""
-    policy = ShardingPolicy.COLUMN if case == "column" else ShardingPolicy.REPLICATE
-    rows = (50, 300, 17) if case == "column" else MIXED_ROWS
-    tables = _tables(rows, dim=256 if case == "column" else DIM)
+    """The dense-wire step takes ``ops.sparse_step`` on one process and on
+    a mesh: the routed path and COLUMN, on either, keep the eager step."""
+    column = case.endswith("column")
+    policy = ShardingPolicy.COLUMN if column else ShardingPolicy.REPLICATE
+    rows = (50, 300, 17) if column else MIXED_ROWS
+    tables = _tables(rows, dim=256 if column else DIM)
     coll = EmbeddingCollection.create(tables, policy, device="cpu")
     hybrid = HybridEmbeddingCollection.create(tables, policy, device="cpu",
                                               mxu_threshold=100)
-    if case == "mesh":
+    if case.startswith("mesh"):
         coll = dataclasses.replace(coll, mesh=mock.Mock())
         hybrid = dataclasses.replace(hybrid, big=dataclasses.replace(hybrid.big,
                                                                      mesh=mock.Mock()))
-    routed = case == "routed"
-    want = case == "one_process"
+    routed = case.endswith("routed")
+    want = case in ("one_process", "mesh")
     assert update_mod.takes_sparse_step(coll, routed) is want
     assert hybrid_mod._takes_sparse_step(hybrid, routed) is want
 
@@ -237,3 +247,84 @@ def test_reference_drops_big_entries_outside_the_storage():
     sparse_step(plan, None, (want_f, want_a), idx, keep, g, lr=0.1, optimizer="row_adagrad")
     sparse_step(plan, None, (fused, acc), bad, mask, g, lr=0.1, optimizer="row_adagrad")
     assert torch.equal(fused, want_f) and torch.equal(acc, want_a)
+
+
+class _ModelShard:
+    """Model shard ``shard`` of a (1, ``shards``) mesh with no process
+    group: enough to plan a row shard and draw its storage."""
+
+    def __init__(self, shards, shard):
+        self.data, self.model, self.device = 1, shards, torch.device("cpu")
+        self._shard = shard
+
+    def index(self, axis):
+        return self._shard if axis == "model" else 0
+
+
+@pytest.mark.parametrize("mesh", [None, (1, 0), (2, 1)])
+@pytest.mark.parametrize("policy", [ShardingPolicy.ROW, ShardingPolicy.ROW_HASH,
+                                    ShardingPolicy.TABLE_WISE])
+def test_row_shard_only_over_shards(policy, mesh):
+    """The plan carries a row shard only where the big set is cut into
+    more than one: one process, or a model axis of one, keeps the one-card
+    plan (every row, no ownership test), whatever the policy."""
+    kw = {"device": "cpu"} if mesh is None else {"mesh": _ModelShard(*mesh)}
+    coll = HybridEmbeddingCollection.create(_tables(MIXED_ROWS), policy, **kw)
+    plain = EmbeddingCollection.create(_tables(MIXED_ROWS), policy, **kw)
+    for c, plan in ((coll.big, hybrid_mod.step_plan_hybrid(coll)),
+                    (plain, update_mod.step_plan(plain))):
+        lay = c.layout
+        if mesh is None or mesh[0] == 1:
+            assert plan.row_shard is None and plan.big_rows == lay.total_rows
+        else:
+            assert plan.row_shard == (2, 1, policy == ShardingPolicy.ROW_HASH)
+            assert plan.big_rows == lay.rows_per_shard < lay.total_rows
+        assert update_mod.init_accumulator(c).numel() == plan.big_rows
+
+
+def _eager_step(coll, params, accs, indices, mask, g, *, lr, optimizer, eps=1e-8):
+    """The mesh's step as the eager path takes it on a gathered stream,
+    in place: the small set's selection expanded and stepped densified,
+    the big set's globalized, expanded, kept by ``_owned_entries`` and
+    applied entry by entry."""
+    pooling = indices.shape[1] // g.shape[0]
+    sel = list(coll.small_ids)
+    idx, mk = indices[sel], mask[sel]
+    _, g_e, _ = entry_updates(idx, mk, g[:, sel], pooling)
+    densified_step(coll.buckets, params["small"], accs["small"], idx, mk,
+                   g_e.reshape(*idx.shape, -1), lr=lr, optimizer=optimizer, eps=eps)
+    sel = list(coll.big_ids)
+    ids, updates, valid = entry_updates(coll.big.globalize(indices[sel]), mask[sel], g[:, sel],
+                                        pooling)
+    local, keep = update_mod._owned_entries(coll.big, ids, valid)
+    apply_entries(params["big"], accs["big"], local, updates, keep, lr=lr, eps=eps,
+                  use_adagrad=optimizer == "row_adagrad")
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "row_adagrad"])
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("policy", [ShardingPolicy.ROW, ShardingPolicy.ROW_HASH])
+def test_row_shard_reference_is_the_eager_step(policy, shard, optimizer):
+    """On a row shard the plain version keeps the big entries the shard
+    owns (the plan's ``row_shard``) and steps both sets with the eager
+    step's operations on the same gathered stream: storage and
+    accumulators bit for bit, from a state that earlier steps left."""
+    rows = (3, 24, 583, 9000, 20000, 50000)
+    coll = HybridEmbeddingCollection.create(_tables(rows), policy,
+                                            mesh=_ModelShard(2, shard), mxu_threshold=1000)
+    plan = hybrid_mod.step_plan_hybrid(coll)
+    assert plan.row_shard == (2, shard, policy == ShardingPolicy.ROW_HASH)
+    assert plan.big_rows == coll.big.layout.rows_per_shard
+    idx, mask, g = _query(rows, 32, 2, seed=7)
+    params = coll.init(torch.Generator().manual_seed(8))
+    gen = torch.Generator().manual_seed(9)
+    accs = {k: torch.rand(v.numel() // DIM, generator=gen) for k, v in params.items()}
+    want_p = {k: v.clone() for k, v in params.items()}
+    want_a = {k: v.clone() for k, v in accs.items()}
+    _eager_step(coll, want_p, want_a, idx, mask, g, lr=0.1, optimizer=optimizer)
+    sparse_step(plan, (params["small"], accs["small"]), (params["big"], accs["big"]), idx,
+                mask, g, lr=0.1, optimizer=optimizer)
+    for key in params:
+        assert torch.equal(params[key].view(torch.int32), want_p[key].view(torch.int32)), key
+        assert torch.equal(accs[key].view(torch.int32), want_a[key].view(torch.int32)), key
+    assert not torch.equal(params["big"], coll.init(torch.Generator().manual_seed(8))["big"])
